@@ -1,0 +1,92 @@
+"""The port imports torch and never jax, and its CLI drives a datapoint.
+
+Each case runs in a fresh interpreter, since this pytest process has jax
+loaded already.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_SLICE = r"""
+import os, sys, tempfile
+import numpy as np
+import upsp_tpu_torch
+from upsp_tpu.pipeline.config import read_input_deck
+from upsp_tpu_torch.pipeline.run import run_datapoint
+from upsp_tpu_torch.pipeline.synthetic import write_datapoint
+from upsp_tpu.io.flatfile import FLAT_FILES
+dp = write_datapoint(tempfile.mkdtemp(), image_hw=(64, 96), n_frames=4,
+                     n_distinct=4, grid_shape=(21, 17), n_targets=3, seed=3)
+out = run_datapoint(read_input_deck(dp["deck"]), device="cpu",
+                    registration_telemetry=True)
+assert out.intensity.shape == (4, 21 * 17)
+assert np.isfinite(out.intensity).any()
+missing = [n for n in FLAT_FILES if not os.path.exists(os.path.join(dp["out_dir"], n))]
+assert not missing, missing
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)[:5]
+print("OK")
+"""
+
+
+def _run(args, timeout=240):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(args, capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=timeout)
+
+
+def test_slice_runs_without_jax():
+    r = _run([sys.executable, "-c", _SLICE])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+@pytest.fixture(scope="module")
+def deck(tmp_path_factory):
+    from upsp_tpu_torch.pipeline.synthetic import write_datapoint
+
+    dp = write_datapoint(str(tmp_path_factory.mktemp("cli")), image_hw=(64, 96),
+                         n_frames=3, n_distinct=3, grid_shape=(21, 17),
+                         n_targets=3, seed=4)
+    return dp
+
+
+def test_cli_on_cpu(deck):
+    script = os.path.join(REPO, "scripts", "upsp-process-torch")
+    r = _run([sys.executable, script, "-input_deck", deck["deck"], "--device",
+              "cpu", "--registration-telemetry"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "processed 3 frames, 357 nodes" in r.stdout
+    for name in ("intensity", "pressure_transpose", "registration",
+                 "registration.json", "output.h5"):
+        assert os.path.exists(os.path.join(deck["out_dir"], name)), name
+
+
+@pytest.mark.parametrize("flags,needle", [
+    (["--streaming"], "M9"),
+    (["--mesh", "auto"], "M10"),
+    (["--no-warm-start"], "M4/M6"),
+    (["--ecc-init", "scan"], "M4/M6"),
+    (["--compute-dtype", "bfloat16"], "bf16"),
+])
+def test_cli_refuses_unported_paths(deck, flags, needle):
+    script = os.path.join(REPO, "scripts", "upsp-process-torch")
+    r = _run([sys.executable, script, "-input_deck", deck["deck"], "--device",
+              "cpu"] + flags)
+    assert r.returncode != 0
+    assert "NotImplementedError" in r.stderr and needle in r.stderr
+
+
+def test_cuda_requested_without_cuda_raises():
+    import torch
+
+    from upsp_tpu_torch.pipeline.run import resolve_device
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")

@@ -1,0 +1,486 @@
+"""ECC hot-loop kernels for the H100 (csrc/ecc.cu) and their plain twins.
+
+Counterpart of ``upsp_tpu/ops/pallas_ecc.py``.  Four kernels carry the
+phase-1 frame program; each has a wrapper here that
+
+- checks device, dtype (float32), shape and contiguity and raises on
+  anything else;
+- on a CPU tensor runs the kernel's plain PyTorch twin (written from the
+  JAX semantics: ``ops/image.gaussian_blur``, ``ops/warp.warp_affine_mxu``
+  at order 2, the ``_ecc_core`` jnp statistics);
+- on a CUDA tensor launches the hand-written kernel on the current stream,
+  raises if the launch fails, and adds one to its launch count.
+
+| wrapper | kernel | replaces |
+| --- | --- | --- |
+| :func:`blur` | K1 ``blur_kernel`` | ``_blur_batched`` (pallas_ecc.py:829) |
+| :func:`warp_affine_banded` | K2 ``warp_kernel`` | ``_warp_banded_batched`` (:285) |
+| :func:`ecc_gn_moments` | K3 ``moments_kernel`` | ``_moments_batched`` (:587) |
+| :func:`warp_filter` | K4 ``warp_filter_kernel`` | ``_warp_filter_batched`` (:444) |
+
+The library is compiled from ``csrc/ecc.cu`` with ``nvcc`` for ``sm_90a``
+at first use, into ``build/torch_kernels/`` at the repository root.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from upsp_tpu_torch.ops.image import gaussian_kernel_1d, separable_filter
+from upsp_tpu_torch.ops.warp import warp_validity_mask
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "ecc.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+MAX_TAPS = 7
+NSTAT = 42
+
+KERNELS = ("blur", "warp", "moments", "warp_filter")
+_launches = {k: 0 for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        _launches[k] = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset (CUDA tensors only)."""
+    return dict(_launches)
+
+
+# ---------------------------------------------------------------------------
+# build + bind
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the ECC kernels "
+        f"in {SOURCE} cannot be built"
+    )
+
+
+def library_path() -> str:
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"libupsp_ecc_{digest}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/ecc.cu`` for sm_90a unless a build of this exact
+    source exists; returns the library path."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE,
+    ]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose and (proc.stdout or proc.stderr):
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+_lib_lock = threading.Lock()
+_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _lib_handle
+    with _lib_lock:
+        if _lib_handle is None:
+            lib = ctypes.CDLL(build())
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            taps = [i] + [f] * MAX_TAPS
+            lib.upsp_ecc_moments_blocks.argtypes = [i]
+            lib.upsp_ecc_moments_blocks.restype = i
+            lib.upsp_ecc_blur.argtypes = [p, p, i, i, i] + taps + [p]
+            lib.upsp_ecc_warp.argtypes = [p, p, p, i, i, i, p]
+            lib.upsp_ecc_warp_filter.argtypes = (
+                [p, p, p, p, i, i, i] + taps + [p]
+            )
+            lib.upsp_ecc_moments.argtypes = [p] * 7 + [i, i, i, p]
+            for fn in (lib.upsp_ecc_blur, lib.upsp_ecc_warp,
+                       lib.upsp_ecc_warp_filter, lib.upsp_ecc_moments):
+                fn.restype = i
+            _lib_handle = lib
+        return _lib_handle
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_rc(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _taps_args(taps: Sequence[float]):
+    t = [float(v) for v in taps] + [0.0] * (MAX_TAPS - len(taps))
+    return [len(taps)] + t
+
+
+# ---------------------------------------------------------------------------
+# argument checks
+
+
+def _check_images(imgs: torch.Tensor, name: str) -> None:
+    if not isinstance(imgs, torch.Tensor) or imgs.dim() != 3:
+        raise ValueError(f"{name}: images must be a (B, H, W) tensor")
+    if imgs.dtype != torch.float32:
+        raise TypeError(f"{name}: images must be float32, got {imgs.dtype}")
+    if not imgs.is_contiguous():
+        raise ValueError(f"{name}: images must be contiguous")
+    if imgs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {imgs.device}")
+
+
+def _check_warps(warps: torch.Tensor, imgs: torch.Tensor, name: str) -> None:
+    if warps.shape != (imgs.shape[0], 2, 3):
+        raise ValueError(
+            f"{name}: warps must be ({imgs.shape[0]}, 2, 3), got "
+            f"{tuple(warps.shape)}"
+        )
+    if warps.dtype != torch.float32 or not warps.is_contiguous():
+        raise TypeError(f"{name}: warps must be contiguous float32")
+    if warps.device != imgs.device:
+        raise ValueError(f"{name}: warps and images on different devices")
+
+
+def _check_taps(taps: Sequence[float], imgs: torch.Tensor, name: str) -> None:
+    k = len(taps)
+    if k > MAX_TAPS or k % 2 == 0:
+        raise ValueError(f"{name}: need an odd tap count <= {MAX_TAPS}, got {k}")
+    h, w = imgs.shape[-2:]
+    if min(h, w) <= k // 2:
+        raise ValueError(f"{name}: image {h}x{w} too small for {k} taps")
+
+
+# ---------------------------------------------------------------------------
+# plain twins (the CPU path and the kernels' oracle)
+
+
+def blur_plain(imgs: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
+    """Separable reflect-101 filter, horizontal then vertical
+    (``ops/image.gaussian_blur`` semantics)."""
+    return separable_filter(imgs, taps)
+
+
+def _tent_pair(pos: torch.Tensor, n: int):
+    """Indices and weights of the two tent taps at ``pos``; taps outside
+    [0, n) get weight 0 (BORDER_CONSTANT)."""
+    pos = pos.clamp(-2.0, n + 1.0)
+    p0 = torch.floor(pos)
+    w1 = pos - p0
+    w0 = 1.0 - w1
+    i0 = p0.long()
+    i1 = i0 + 1
+    w0 = torch.where((i0 >= 0) & (i0 < n), w0, torch.zeros_like(w0))
+    w1 = torch.where((i1 >= 0) & (i1 < n), w1, torch.zeros_like(w1))
+    return i0.clamp(0, n - 1), w0, i1.clamp(0, n - 1), w1
+
+
+def _warp_scalars(warps: torch.Tensor):
+    return warps.reshape(-1, 6).unbind(1)
+
+
+def separable_warp_plain(imgs: torch.Tensor, warps: torch.Tensor):
+    """R @ img @ C^T: rows resampled at y_sep, then columns at x_sep."""
+    b, h, w = imgs.shape
+    a00, a01, tx, a10, a11, ty = _warp_scalars(warps)
+    dev = imgs.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    cy = (h - 1) * 0.5
+    cx = (w - 1) * 0.5
+    y_sep = a11[:, None] * ys + ty[:, None] + a10[:, None] * cx  # (B, H)
+    x_sep = a00[:, None] * xs + tx[:, None] + a01[:, None] * cy  # (B, W)
+    i0, w0, i1, w1 = _tent_pair(y_sep, h)
+    rows = (
+        w0[:, :, None] * imgs.gather(1, i0[:, :, None].expand(b, h, w))
+        + w1[:, :, None] * imgs.gather(1, i1[:, :, None].expand(b, h, w))
+    )
+    j0, v0, j1, v1 = _tent_pair(x_sep, w)
+    return (
+        v0[:, None, :] * rows.gather(2, j0[:, None, :].expand(b, h, w))
+        + v1[:, None, :] * rows.gather(2, j1[:, None, :].expand(b, h, w))
+    )
+
+
+def warp_plain(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
+    """``warp_affine_mxu(img, warp, order=2)`` semantics, batched: the
+    separable resample plus the 2nd-order shear Taylor term, whose
+    derivatives are zero on the outer ring (ops/warp.py:159-197)."""
+    b, h, w = imgs.shape
+    sep = separable_warp_plain(imgs, warps)
+    a00, a01, _, a10, a11, _ = (v[:, None, None] for v in _warp_scalars(warps))
+    dev = imgs.device
+    ys = torch.arange(h, dtype=torch.float32, device=dev)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    cy = (h - 1) * 0.5
+    cx = (w - 1) * 0.5
+    dy = a10 * (xs - cx)[None, None, :]  # (B, 1, W)
+    dx = a01 * (ys - cy)[None, :, None]  # (B, H, 1)
+    inv_ax = 1.0 / a00
+    inv_ay = 1.0 / a11
+    gx, gxx, gy, gyy, gxy = (torch.zeros_like(sep) for _ in range(5))
+    gx[:, :, 1:-1] = 0.5 * (sep[:, :, 2:] - sep[:, :, :-2]) * inv_ax
+    gy[:, 1:-1, :] = 0.5 * (sep[:, 2:, :] - sep[:, :-2, :]) * inv_ay
+    gxx[:, :, 1:-1] = (
+        (sep[:, :, 2:] - 2 * sep[:, :, 1:-1] + sep[:, :, :-2]) * inv_ax * inv_ax
+    )
+    gyy[:, 1:-1, :] = (
+        (sep[:, 2:, :] - 2 * sep[:, 1:-1, :] + sep[:, :-2, :]) * inv_ay * inv_ay
+    )
+    gxy[:, 1:-1, 1:-1] = (
+        0.25
+        * (
+            sep[:, 2:, 2:] - sep[:, 2:, :-2] - sep[:, :-2, 2:]
+            + sep[:, :-2, :-2]
+        )
+        * inv_ax
+        * inv_ay
+    )
+    out = sep + dx * gx + dy * gy
+    return out + 0.5 * dx * dx * gxx + dx * dy * gxy + 0.5 * dy * dy * gyy
+
+
+def moments_plain(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
+                  mask_warps: torch.Tensor) -> torch.Tensor:
+    """(B, 128) raw GN statistics (layout of ``ecc_gn_moments``) from the
+    ``_ecc_core`` jnp step's fields, brightness-shifted by mean(tmpl);
+    summed in f64."""
+    b, h, w = iw.shape
+    dev = iw.device
+    kshift = tmpl.mean()
+    a00, a01, _, a10, a11, _ = (v[:, None, None] for v in _warp_scalars(warps))
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    gix = torch.zeros_like(iw)
+    giy = torch.zeros_like(iw)
+    gix[:, :, 1:-1] = 0.5 * (iw[:, :, 2:] - iw[:, :, :-2])
+    giy[:, 1:-1, :] = 0.5 * (iw[:, 2:, :] - iw[:, :-2, :])
+    m = warp_validity_mask((h, w), mask_warps)
+    inv_det = 1.0 / (a00 * a11 - a01 * a10)
+    gx = (a11 * gix - a10 * giy) * inv_det * m
+    gy = (-a01 * gix + a00 * giy) * inv_det * m
+    iv = iw - kshift
+    tv = (tmpl - kshift)[None]
+
+    def s(f):
+        return f.sum(dim=(1, 2), dtype=torch.float64)
+
+    vals = []
+    for f in (gx * gx, gx * gy, gy * gy):
+        vals += [s(f * xs * xs), s(f * xs * ys), s(f * ys * ys),
+                 s(f * xs), s(f * ys), s(f)]
+    for z in (tv, iv, None):
+        gxz = gx if z is None else gx * z
+        gyz = gy if z is None else gy * z
+        vals += [s(gxz * xs), s(gyz * xs), s(gxz * ys), s(gyz * ys),
+                 s(gxz), s(gyz)]
+    tmm = tv * m
+    iwm = iv * m
+    vals += [s(m), s(tmm), s(iwm), s(tmm * tv), s(iwm * iv), s(tmm * iv)]
+    out = torch.zeros((b, 128), dtype=torch.float32, device=dev)
+    out[:, :NSTAT] = torch.stack(vals, dim=1).to(torch.float32)
+    return out
+
+
+def warp_filter_plain(imgs, warps, taps, with_warped: bool = False):
+    iw = warp_plain(imgs, warps)
+    out = blur_plain(iw, taps) if taps else iw
+    return (out, iw) if with_warped else out
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+
+
+def blur(imgs: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
+    """K1: separable reflect-101 blur of a (B, H, W) float32 stack with
+    <= 7 taps (``make_blur(taps)`` under vmap)."""
+    _check_images(imgs, "blur")
+    if not taps:
+        return imgs
+    _check_taps(taps, imgs, "blur")
+    if imgs.device.type == "cpu":
+        return blur_plain(imgs, taps)
+    b, h, w = imgs.shape
+    out = torch.empty_like(imgs)
+    rc = _lib().upsp_ecc_blur(
+        imgs.data_ptr(), out.data_ptr(), b, h, w, *_taps_args(taps),
+        _stream(imgs),
+    )
+    _check_rc(rc, "blur")
+    _launches["blur"] += 1
+    return out
+
+
+def warp_affine_banded(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
+    """K2: out(y, x) = img(W @ [x, y, 1]) at Taylor order 2, zero outside
+    the image, for (B, H, W) images and (B, 2, 3) warps.  No band limit."""
+    _check_images(imgs, "warp")
+    _check_warps(warps, imgs, "warp")
+    if imgs.device.type == "cpu":
+        return warp_plain(imgs, warps)
+    b, h, w = imgs.shape
+    out = torch.empty_like(imgs)
+    rc = _lib().upsp_ecc_warp(
+        imgs.data_ptr(), warps.data_ptr(), out.data_ptr(), b, h, w,
+        _stream(imgs),
+    )
+    _check_rc(rc, "warp")
+    _launches["warp"] += 1
+    return out
+
+
+def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
+                   mask_warps: torch.Tensor) -> torch.Tensor:
+    """K3: (B, 128) raw GN statistics of warped images against one
+    template.  Layout as ``pallas_ecc.ecc_gn_moments``: [0:18] Hessian
+    moments, [18:36] template/image/mask projections, [36:42] the masked
+    sums [area, S_t, S_i, S_tt, S_ii, S_ti]; validity from ``mask_warps``."""
+    _check_images(iw, "moments")
+    _check_warps(warps, iw, "moments")
+    _check_warps(mask_warps, iw, "moments")
+    if tmpl.shape != iw.shape[1:] or tmpl.dtype != torch.float32:
+        raise ValueError("moments: template must be float32 of shape (H, W)")
+    if not tmpl.is_contiguous() or tmpl.device != iw.device:
+        raise ValueError("moments: template must be contiguous, same device")
+    if iw.device.type == "cpu":
+        return moments_plain(iw, tmpl, warps, mask_warps)
+    b, h, w = iw.shape
+    lib = _lib()
+    kshift = tmpl.mean().reshape(1)
+    partials = torch.empty(
+        (b, lib.upsp_ecc_moments_blocks(h), NSTAT), dtype=torch.float64,
+        device=iw.device,
+    )
+    out = torch.empty((b, 128), dtype=torch.float32, device=iw.device)
+    rc = lib.upsp_ecc_moments(
+        iw.data_ptr(), tmpl.data_ptr(), warps.data_ptr(),
+        mask_warps.data_ptr(), kshift.data_ptr(), partials.data_ptr(),
+        out.data_ptr(), b, h, w, _stream(iw),
+    )
+    _check_rc(rc, "moments")
+    _launches["moments"] += 1
+    return out
+
+
+def warp_filter(imgs: torch.Tensor, warps: torch.Tensor, taps: Sequence[float],
+                with_warped: bool = False):
+    """K4: ``blur(warp_affine_banded(imgs, warps), taps)`` in one pass; with
+    ``with_warped`` also the pre-filter warped images.  ``taps=()`` is K2
+    alone."""
+    _check_images(imgs, "warp_filter")
+    _check_warps(warps, imgs, "warp_filter")
+    if not taps:
+        iw = warp_affine_banded(imgs, warps)
+        return (iw, iw) if with_warped else iw
+    _check_taps(taps, imgs, "warp_filter")
+    if imgs.device.type == "cpu":
+        return warp_filter_plain(imgs, warps, taps, with_warped)
+    b, h, w = imgs.shape
+    out = torch.empty_like(imgs)
+    warped = torch.empty_like(imgs) if with_warped else None
+    rc = _lib().upsp_ecc_warp_filter(
+        imgs.data_ptr(), warps.data_ptr(), out.data_ptr(),
+        warped.data_ptr() if with_warped else None, b, h, w,
+        *_taps_args(taps), _stream(imgs),
+    )
+    _check_rc(rc, "warp_filter")
+    _launches["warp_filter"] += 1
+    return (out, warped) if with_warped else out
+
+
+# ---------------------------------------------------------------------------
+# host-side helpers of pallas_ecc.py that carry over unchanged
+
+
+def filter_taps(filter_type: str, ksize: int) -> Optional[Tuple[float, ...]]:
+    """Static separable tap tuple for the tail kernel (None = unsupported)."""
+    if filter_type == "gaussian":
+        if ksize > MAX_TAPS:
+            return None
+        return tuple(float(t) for t in gaussian_kernel_1d(ksize))
+    if filter_type == "box":
+        if ksize > MAX_TAPS:
+            return None
+        return tuple(1.0 / ksize for _ in range(ksize))
+    if filter_type == "none":
+        return ()
+    return None
+
+
+def warp_displacement_bound(warps: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B,) worst-case |sample displacement| (px, L-inf) of affine warps
+    over an (h, w) image: the displacement field is affine, so its extrema
+    sit at the four corners (pallas_ecc.py:312)."""
+    corners = torch.tensor(
+        [[0.0, 0.0], [w - 1.0, 0.0], [0.0, h - 1.0], [w - 1.0, h - 1.0]],
+        dtype=torch.float32, device=warps.device,
+    )
+    wf = warps.to(torch.float32)
+    pos = torch.einsum("kj,bij->bki", corners, wf[:, :, :2]) + wf[:, None, :, 2]
+    return (pos - corners).abs().amax(dim=(1, 2))
+
+
+def ecc_statistics_from_moments(mom: torch.Tensor):
+    """(B, 128) raw moments -> (Hmat (B,6,6), i_proj, t_proj, iw_norm2,
+    corr, tmpl_norm, area), the zero-mean expansion of
+    ``pallas_ecc.ecc_statistics_from_moments``."""
+    hm = mom[:, 0:18].reshape(-1, 3, 6)
+    p_t = mom[:, 18:24]
+    p_i = mom[:, 24:30]
+    p_1 = mom[:, 30:36]
+    area = mom[:, 36].clamp_min(1.0)
+    s_t, s_i, s_tt, s_ii, s_ti = (mom[:, 37 + k] for k in range(5))
+    a_xx, a_xy, a_yy, a_x, a_y, a_1 = hm[:, 0].unbind(1)
+    b_xx, b_xy, b_yy, b_x, b_y, b_1 = hm[:, 1].unbind(1)
+    c_xx, c_xy, c_yy, c_x, c_y, c_1 = hm[:, 2].unbind(1)
+    rows = [
+        [a_xx, b_xx, a_xy, b_xy, a_x, b_x],
+        [b_xx, c_xx, b_xy, c_xy, b_x, c_x],
+        [a_xy, b_xy, a_yy, b_yy, a_y, b_y],
+        [b_xy, c_xy, b_yy, c_yy, b_y, c_y],
+        [a_x, b_x, a_y, b_y, a_1, b_1],
+        [b_x, c_x, b_y, c_y, b_1, c_1],
+    ]
+    hmat = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+    t_mean = s_t / area
+    i_mean = s_i / area
+    t_proj = p_t - t_mean[:, None] * p_1
+    i_proj = p_i - i_mean[:, None] * p_1
+    iw_norm2 = s_ii - s_i * s_i / area
+    corr = s_ti - s_t * s_i / area
+    tmpl_norm = torch.sqrt((s_tt - s_t * s_t / area).clamp_min(0.0)).clamp_min(
+        1e-12
+    )
+    return hmat, i_proj, t_proj, iw_norm2, corr, tmpl_norm, area

@@ -1,0 +1,364 @@
+"""Fiducial patching: cover marker dots with a smooth local polynomial fill.
+
+Port of ``upsp_tpu/ops/patching.py``.  Phase 0 builds, per cluster, the
+composed operator ``M = A_internal @ pinv(A_boundary)`` on the host (numpy,
+as the JAX package); per frame the fill is a gather of boundary pixels, a
+batched matmul and a scatter of interiors (:func:`apply_patches`), or, on
+the fused warp+filter tail, the node-level correction of
+:class:`PatchNodeCorrection` sampled from the kernel's pre-filter warped
+image (:func:`patch_correction_values`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from upsp_tpu_torch.ops.ecc_kernels import filter_taps
+
+# ---------------------------------------------------------------------------
+# host-side cluster construction
+
+
+@dataclasses.dataclass
+class PatchCluster:
+    bounds_xy: np.ndarray  # (B, 2) int boundary pixel coords (x, y)
+    internal_xy: np.ndarray  # (I, 2) int interior pixel coords
+
+
+def _target_box(uv: np.ndarray, diameter: float):
+    t_min = np.floor(uv - 0.5 * diameter).astype(np.int64)
+    t_max = np.ceil(uv + 0.5 * diameter).astype(np.int64)
+    return t_min, t_max
+
+
+def cluster_targets(uv: np.ndarray, diameters: np.ndarray,
+                    bound_pts: int = 4) -> List[np.ndarray]:
+    """Group targets whose patch regions would touch (BFS, brute force)."""
+    unvisited = set(range(uv.shape[0]))
+    clusters = []
+    while unvisited:
+        seed = min(unvisited)
+        unvisited.discard(seed)
+        members = [seed]
+        queue = [seed]
+        while queue:
+            ref = queue.pop()
+            close = [
+                j for j in list(unvisited)
+                if np.linalg.norm(uv[ref] - uv[j])
+                <= bound_pts + 0.5 * (diameters[ref] + diameters[j])
+            ]
+            for j in close:
+                unvisited.discard(j)
+                members.append(j)
+                queue.append(j)
+        clusters.append(np.array(members, np.int64))
+    return clusters
+
+
+def _single_target_boundary(uv, diameter, bound_pts, buffer) -> PatchCluster:
+    t_min, t_max = _target_box(uv, diameter)
+    gx, gy = np.meshgrid(
+        np.arange(t_min[0], t_max[0] + 1), np.arange(t_min[1], t_max[1] + 1),
+        indexing="ij",
+    )
+    internal = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    pad = bound_pts + buffer
+    gx, gy = np.meshgrid(
+        np.arange(t_min[0] - pad, t_max[0] + pad + 1),
+        np.arange(t_min[1] - pad, t_max[1] + pad + 1),
+        indexing="ij",
+    )
+    outside = (
+        (gx < t_min[0] - buffer) | (gx > t_max[0] + buffer)
+        | (gy < t_min[1] - buffer) | (gy > t_max[1] + buffer)
+    )
+    bounds = np.stack([gx[outside], gy[outside]], axis=1)
+    return PatchCluster(bounds_xy=bounds, internal_xy=internal)
+
+
+def _multi_target_boundary(uvs, diameters, bound_pts, buffer) -> PatchCluster:
+    boxes = [_target_box(uvs[k], diameters[k]) for k in range(uvs.shape[0])]
+    mins = np.stack([b[0] for b in boxes])
+    maxs = np.stack([b[1] for b in boxes])
+    t_min = mins.min(axis=0) - (bound_pts + buffer)
+    t_max = maxs.max(axis=0) + (bound_pts + buffer)
+    dx = int(t_max[0] - t_min[0] + 1)
+    dy = int(t_max[1] - t_min[1] + 1)
+    mask = np.zeros((dx, dy), np.int8)
+    for k in range(uvs.shape[0]):
+        lo = mins[k] - t_min
+        hi = maxs[k] - t_min
+        mask[lo[0] : hi[0] + 1, lo[1] : hi[1] + 1] = 2
+    # row/column fill between extreme marked cells
+    for x in range(dx):
+        idx = np.nonzero(mask[x] == 2)[0]
+        if idx.size:
+            mask[x, idx[0] : idx[-1] + 1] = 2
+    for y in range(dy):
+        idx = np.nonzero(mask[:, y] == 2)[0]
+        if idx.size:
+            mask[idx[0] : idx[-1] + 1, y] = 2
+    filled = mask == 2
+    from scipy.ndimage import maximum_filter
+
+    reach = maximum_filter(filled, size=2 * (bound_pts + buffer) + 1)
+    near = maximum_filter(filled, size=2 * buffer + 1) if buffer > 0 else filled
+    bound_mask = reach & (~near) & (~filled)
+    return PatchCluster(
+        bounds_xy=np.argwhere(bound_mask) + t_min[None, :],
+        internal_xy=np.argwhere(filled) + t_min[None, :],
+    )
+
+
+def build_patch_clusters(uv: np.ndarray, diameters: np.ndarray,
+                         image_hw: Tuple[int, int], bound_pts: int = 3,
+                         buffer: int = 2) -> List[PatchCluster]:
+    """Cluster targets and compute in-frame boundary/interior pixel sets."""
+    h, w = image_hw
+    out = []
+    for g in cluster_targets(uv, diameters, bound_pts + buffer):
+        if len(g) == 1:
+            pc = _single_target_boundary(uv[g[0]], diameters[g[0]], bound_pts,
+                                         buffer)
+        else:
+            pc = _multi_target_boundary(uv[g], diameters[g], bound_pts, buffer)
+
+        def inside(xy):
+            return ((xy[:, 0] >= 0) & (xy[:, 0] < w)
+                    & (xy[:, 1] >= 0) & (xy[:, 1] < h))
+
+        out.append(PatchCluster(bounds_xy=pc.bounds_xy[inside(pc.bounds_xy)],
+                                internal_xy=pc.internal_xy[inside(pc.internal_xy)]))
+    return out
+
+
+def threshold_bounds(clusters: Sequence[PatchCluster], ref_frame: np.ndarray,
+                     thresh: float, offset: int = 2) -> List[PatchCluster]:
+    """Drop boundary pixels whose (offset-box) neighbourhood dips below
+    ``thresh``."""
+    from scipy.ndimage import minimum_filter
+
+    local_min = minimum_filter(
+        np.asarray(ref_frame, np.float64), size=2 * offset + 1, mode="nearest"
+    )
+    out = []
+    for c in clusters:
+        keep = local_min[c.bounds_xy[:, 1], c.bounds_xy[:, 0]] >= thresh
+        out.append(PatchCluster(bounds_xy=c.bounds_xy[keep],
+                                internal_xy=c.internal_xy))
+    return out
+
+
+def poly2d_basis(x: np.ndarray, y: np.ndarray, degree: int = 3) -> np.ndarray:
+    """Columns y^i * x^j for i+j <= degree, (i outer, j inner) ordering."""
+    cols = [
+        (y.astype(np.float64) ** i) * (x.astype(np.float64) ** j)
+        for i in range(degree + 1) for j in range(degree + 1) if i + j <= degree
+    ]
+    return np.stack(cols, axis=1)
+
+
+# ---------------------------------------------------------------------------
+# composed operators
+
+
+class PatchOperator(NamedTuple):
+    """Padded, batched patch operator."""
+
+    M: torch.Tensor  # (K, I_max, B_max) float32 composed fill operator
+    boundary_idx: torch.Tensor  # (K, B_max) int64 flat pixel (0 where pad)
+    internal_idx: torch.Tensor  # (K, I_max) int64 flat pixel (H*W = pad)
+    n_clusters: int
+
+    def to(self, device) -> "PatchOperator":
+        return PatchOperator(self.M.to(device), self.boundary_idx.to(device),
+                             self.internal_idx.to(device), self.n_clusters)
+
+
+def build_patch_operator(clusters: Sequence[PatchCluster],
+                         image_hw: Tuple[int, int],
+                         degree: int = 3) -> Optional[PatchOperator]:
+    """Compose fit+eval into one matrix per cluster; pad and batch."""
+    h, w = image_hw
+    n_coef = (degree + 2) * (degree + 1) // 2
+    keep = [c for c in clusters
+            if c.bounds_xy.shape[0] >= n_coef and c.internal_xy.shape[0] > 0]
+    if not keep:
+        return None
+    b_max = max(c.bounds_xy.shape[0] for c in keep)
+    i_max = max(c.internal_xy.shape[0] for c in keep)
+    k_n = len(keep)
+    M = np.zeros((k_n, i_max, b_max), np.float32)
+    b_idx = np.zeros((k_n, b_max), np.int64)
+    i_idx = np.full((k_n, i_max), h * w, np.int64)
+    for k, c in enumerate(keep):
+        bx, by = c.bounds_xy[:, 0], c.bounds_xy[:, 1]
+        ix, iy = c.internal_xy[:, 0], c.internal_xy[:, 1]
+        mk = poly2d_basis(ix, iy, degree) @ np.linalg.pinv(
+            poly2d_basis(bx, by, degree)
+        )
+        M[k, : mk.shape[0], : mk.shape[1]] = mk
+        b_idx[k, : bx.shape[0]] = by * w + bx
+        i_idx[k, : ix.shape[0]] = iy * w + ix
+    return PatchOperator(torch.from_numpy(M), torch.from_numpy(b_idx),
+                         torch.from_numpy(i_idx), k_n)
+
+
+class PatchNodeCorrection(NamedTuple):
+    """Patch+filter effect precomposed to the affected pixels.
+
+    filter(patch(warped)) at every pixel within the filter radius of a
+    patch interior is one linear functional of warped values at a small
+    static source set, so the fused warp+filter tail can skip patching and
+    overlay these values on the few affected nodes.
+    """
+
+    src_flat: torch.Tensor  # (S,) int64 flat source pixels
+    C: torch.Tensor  # (K, A_max, S_max) float32 affected-value operator
+    src_slot: torch.Tensor  # (K, S_max) int64 into the (S,) sampled vector
+    pix_idx: torch.Tensor  # (K, A_max) int64 flat affected pixel (H*W = pad)
+    n_clusters: int
+
+    def to(self, device) -> "PatchNodeCorrection":
+        return PatchNodeCorrection(
+            self.src_flat.to(device), self.C.to(device),
+            self.src_slot.to(device), self.pix_idx.to(device), self.n_clusters,
+        )
+
+
+def build_patch_node_correction(op: Optional[PatchOperator],
+                                image_hw: Tuple[int, int], filter_type: str,
+                                ksize: int) -> Optional[PatchNodeCorrection]:
+    """Precompose filter(patch(warped)) at every affected pixel; None when
+    the filter is unsupported or two clusters' windows interact."""
+    if op is None:
+        return None
+    taps = filter_taps(filter_type, ksize)  # the fused tail's filter
+    if taps is None:
+        return None
+    taps = np.asarray(taps or (1.0,), np.float64)
+    r = len(taps) // 2
+    h, w = image_hw
+    M = op.M.cpu().numpy().astype(np.float64)
+    b_idx = op.boundary_idx.cpu().numpy()
+    i_idx = op.internal_idx.cpu().numpy()
+    k_n = op.n_clusters
+    col_valid = (np.abs(M) > 0).any(axis=1)  # (K, B_max)
+
+    int_map = {}  # flat pixel -> (cluster, M row)
+    for k in range(k_n):
+        for i, q in enumerate(i_idx[k]):
+            if q != h * w:
+                int_map[int(q)] = (k, i)
+
+    def refl(v, n):  # reflect-101
+        if v < 0:
+            return -v
+        if v >= n:
+            return 2 * (n - 1) - v
+        return v
+
+    src_of: dict = {}
+    src_list: list = []
+
+    def slot(q):
+        s = src_of.get(q)
+        if s is None:
+            s = src_of[q] = len(src_list)
+            src_list.append(q)
+        return s
+
+    rows_per_cluster = []
+    for k in range(k_n):
+        aff = set()
+        for q in (int(q) for q in i_idx[k] if q != h * w):
+            y, x = q // w, q % w
+            for dy in range(-r, r + 1):
+                for dx in range(-r, r + 1):
+                    yy, xx = y + dy, x + dx
+                    if 0 <= yy < h and 0 <= xx < w:
+                        aff.add(yy * w + xx)
+        bcols = np.nonzero(col_valid[k])[0]
+        bflat = [int(b_idx[k, c]) for c in bcols]
+        rows = []
+        for p in sorted(aff):
+            py, px = p // w, p % w
+            row: dict = {}
+            for dy in range(-r, r + 1):
+                wy = taps[dy + r]
+                qy = refl(py + dy, h)
+                for dx in range(-r, r + 1):
+                    wgt = wy * taps[dx + r]
+                    q = qy * w + refl(px + dx, w)
+                    hit = int_map.get(q)
+                    if hit is None:
+                        row[slot(q)] = row.get(slot(q), 0.0) + wgt
+                        continue
+                    kq, iq = hit
+                    if kq != k:
+                        return None  # interacting clusters
+                    for c, bf in zip(bcols, bflat):
+                        coef = M[k, iq, c]
+                        if coef != 0.0:
+                            s = slot(bf)
+                            row[s] = row.get(s, 0.0) + wgt * coef
+            rows.append((p, row))
+        rows_per_cluster.append(rows)
+
+    a_max = max((len(rs) for rs in rows_per_cluster), default=0)
+    if a_max == 0:
+        return None
+    local_slots = [sorted({s for _, row in rs for s in row})
+                   for rs in rows_per_cluster]
+    s_max = max(len(u) for u in local_slots)
+    C = np.zeros((k_n, a_max, s_max), np.float32)
+    src_slot = np.zeros((k_n, s_max), np.int64)
+    pix = np.full((k_n, a_max), h * w, np.int64)
+    for k, rs in enumerate(rows_per_cluster):
+        pos = {s: j for j, s in enumerate(local_slots[k])}
+        src_slot[k, : len(local_slots[k])] = local_slots[k]
+        for a, (p, row) in enumerate(rs):
+            pix[k, a] = p
+            for s, coef in row.items():
+                C[k, a, pos[s]] = coef
+    return PatchNodeCorrection(
+        src_flat=torch.from_numpy(np.asarray(src_list, np.int64)),
+        C=torch.from_numpy(C), src_slot=torch.from_numpy(src_slot),
+        pix_idx=torch.from_numpy(pix), n_clusters=k_n,
+    )
+
+
+# ---------------------------------------------------------------------------
+# per-frame application (batched over frames)
+
+
+def patch_correction_values(warped: torch.Tensor,
+                            corr: PatchNodeCorrection) -> torch.Tensor:
+    """(B, K, A_max) filtered-patched values from (B, H, W) pre-filter
+    warped images: a gather at static source pixels + the cluster matmul."""
+    b = warped.shape[0]
+    srcv = warped.reshape(b, -1)[:, corr.src_flat].to(torch.float32)
+    return torch.einsum("kas,bks->bka", corr.C, srcv[:, corr.src_slot])
+
+
+def apply_patches(frames: torch.Tensor,
+                  op: Optional[PatchOperator]) -> torch.Tensor:
+    """Patch all clusters of (B, H, W) frames: gather boundaries, one
+    batched matmul, scatter interiors (pad slots are dropped)."""
+    frames = frames.to(torch.float32)
+    if op is None:
+        return frames
+    b = frames.shape[0]
+    flat = frames.reshape(b, -1)
+    z = flat[:, op.boundary_idx]  # (B, K, B_max); pad columns of M are 0
+    fill = torch.einsum("kib,nkb->nki", op.M, z).reshape(b, -1)
+    idx = op.internal_idx.reshape(-1)
+    keep = idx < flat.shape[1]
+    out = flat.clone()
+    out[:, idx[keep]] = fill[:, keep]
+    return out.reshape(frames.shape)

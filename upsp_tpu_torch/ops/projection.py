@@ -1,0 +1,148 @@
+"""Pixel -> grid-node projection.
+
+Port of ``upsp_tpu/ops/projection.py``.  Each camera carries, per node, a
+flat pixel index and a weight; a frame projects by one gather and a
+multiply.  Visibility is built on the host with the native BVH walker
+(``upsp_tpu.native``, built from ``cpp/``), as the JAX package does when
+that library is present.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from upsp_tpu_torch.camera.model import CameraParams, cam_center, project_points
+
+
+class NodeProjection(NamedTuple):
+    """Per-camera node->pixel map (all (N,) tensors)."""
+
+    pixel_index: torch.Tensor  # int64 flat pixel (row * W + col); 0 if invalid
+    weight: torch.Tensor  # float32 visibility/overlap weight
+    u: torch.Tensor  # float32 normalised image u (0 if invalid)
+    v: torch.Tensor  # float32 normalised v
+    visible: torch.Tensor  # bool raw visibility before weighting
+
+    def to(self, device) -> "NodeProjection":
+        return NodeProjection(*(t.to(device) for t in self))
+
+
+def build_node_projection_host(
+    params: CameraParams, flat_bvh, triangles: np.ndarray,
+    vertices: np.ndarray, normals: np.ndarray, is_datanode: np.ndarray,
+    oblique_angle_deg: float, height: int, width: int, n_jitter: int = 6,
+    jitter: float = 1e-4,
+) -> NodeProjection:
+    """Visibility-tested nearest-pixel assignment for every node: in-frame,
+    the closest hit of the camera->node ray lands on a triangle of the node
+    (6 jittered retries), then the oblique-angle cull
+    (psp_process.cpp:167-355 semantics)."""
+    from upsp_tpu import native
+
+    n = vertices.shape[0]
+    center = cam_center(params).numpy().astype(np.float64)
+    pix = project_points(
+        params, torch.from_numpy(np.asarray(vertices, np.float64))
+    ).numpy()
+    in_frame = (
+        (pix[:, 0] >= 0) & (pix[:, 0] < width)
+        & (pix[:, 1] >= 0) & (pix[:, 1] < height)
+    )
+    d = vertices.astype(np.float64) - center
+    dist = np.linalg.norm(d, axis=1, keepdims=True)
+    dirs = (d / np.maximum(dist, 1e-30)).astype(np.float32)
+    origins = np.broadcast_to(center.astype(np.float32), vertices.shape)
+
+    node_ids = np.arange(n)
+    _, prim, hit = native.bvh_intersect(flat_bvh, origins, dirs)
+    own = hit & np.any(triangles[np.maximum(prim, 0)] == node_ids[:, None], axis=1)
+    offsets = np.array(
+        [[-jitter, 0, 0], [jitter, 0, 0], [0, -jitter, 0],
+         [0, jitter, 0], [0, 0, -jitter], [0, 0, jitter]], np.float64,
+    )
+    for k in range(n_jitter):
+        missing = ~own
+        if not missing.any():
+            break
+        dk = vertices[missing].astype(np.float64) + offsets[k] - center
+        dk = (dk / np.linalg.norm(dk, axis=1, keepdims=True)).astype(np.float32)
+        _, prim_k, hit_k = native.bvh_intersect(flat_bvh, origins[missing], dk)
+        trik = triangles[np.maximum(prim_k, 0)]
+        own[missing] |= hit_k & np.any(trik == node_ids[missing][:, None], axis=1)
+
+    thresh = np.cos(np.deg2rad(180.0 - oblique_angle_deg))
+    forward = np.sum(normals * dirs, axis=-1) < thresh
+    visible = np.asarray(is_datanode, bool) & in_frame & own & forward
+    col = np.clip(np.rint(pix[:, 0]), 0, width - 1).astype(np.int64)
+    row = np.clip(np.rint(pix[:, 1]), 0, height - 1).astype(np.int64)
+    return NodeProjection(
+        pixel_index=torch.from_numpy(np.where(visible, row * width + col, 0)),
+        weight=torch.from_numpy(visible.astype(np.float32)),
+        u=torch.from_numpy(np.where(visible, pix[:, 0] / width, 0).astype(np.float32)),
+        v=torch.from_numpy(np.where(visible, pix[:, 1] / height, 0).astype(np.float32)),
+        visible=torch.from_numpy(visible),
+    )
+
+
+def view_angles_deg(vertices: torch.Tensor, normals: torch.Tensor,
+                    center: torch.Tensor) -> torch.Tensor:
+    """Angle (deg) between the camera->node direction and the node normal
+    (a facing surface scores ~180)."""
+    d = vertices - center
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True).clamp_min(1e-30)
+    cos_t = (d * normals).sum(dim=-1).clamp(-1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos_t))
+
+
+def adjust_projection_for_weights(
+    projections: Sequence[NodeProjection], cam_centers: Sequence[torch.Tensor],
+    vertices: torch.Tensor, normals: torch.Tensor, overlap: str = "best_view",
+) -> list:
+    """Rescale weights where several cameras see one node: best_view gives
+    the largest view angle weight 1 (first camera wins ties);
+    average_views weights by angle / sum of angles.  Nodes seen by one
+    camera keep weight 1."""
+    C = len(projections)
+    vis = torch.stack([p.visible for p in projections])  # (C, N)
+    angles = torch.stack(
+        [view_angles_deg(vertices, normals, c) for c in cam_centers]
+    )
+    angles = torch.where(vis, angles, torch.full_like(angles, -float("inf")))
+    multi = vis.sum(dim=0) > 1
+    if overlap == "best_view":
+        best = torch.argmax(angles, dim=0)
+        w = (torch.arange(C)[:, None] == best[None, :]).to(torch.float32)
+    elif overlap in ("average_views", "average_view"):
+        pos = torch.where(vis, angles, torch.zeros_like(angles))
+        w = (pos / pos.sum(dim=0).clamp_min(1e-30)).to(torch.float32)
+    else:
+        raise ValueError(f"unknown overlap type: {overlap}")
+    new_w = torch.where(multi[None, :], w * vis, vis.to(torch.float32))
+    return [
+        NodeProjection(p.pixel_index, new_w[c], p.u, p.v, p.visible)
+        for c, p in enumerate(projections)
+    ]
+
+
+def identify_skipped_nodes(projections: Sequence[NodeProjection]) -> torch.Tensor:
+    """(N,) bool: nodes no camera covers (NaN downstream)."""
+    return ~torch.stack([p.visible for p in projections]).any(dim=0)
+
+
+def project_frame(frames: torch.Tensor, proj: NodeProjection) -> torch.Tensor:
+    """(B, H, W) frames of one camera -> (B, N) weighted node values."""
+    b = frames.shape[0]
+    return frames.reshape(b, -1)[:, proj.pixel_index] * proj.weight
+
+
+def coverage(projections: Sequence[NodeProjection], height: int,
+             width: int) -> torch.Tensor:
+    """Project an all-ones frame through every camera (coverage dataset)."""
+    dev = projections[0].weight.device
+    ones = torch.ones((1, height, width), dtype=torch.float32, device=dev)
+    cov = sum(project_frame(ones, p)[0] for p in projections)
+    return torch.where(identify_skipped_nodes(projections),
+                       torch.zeros_like(cov), cov)

@@ -1,0 +1,313 @@
+"""Phase 0: one-time setup — model, BVH, camera cals, projections, patches.
+
+Port of ``upsp_tpu/pipeline/phase0.py`` on the native-BVH path: visibility
+rays walk the BVH through ``upsp_tpu.native`` (built from ``cpp/``), the
+camera model and projections are host torch/numpy, and the finished state
+holds its per-frame tensors on ``device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import logging
+import os
+import subprocess
+from typing import Any, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from upsp_tpu.geometry.grids import SurfaceModel, load_model
+from upsp_tpu.io.camera_json import read_camera_json
+from upsp_tpu.io.tgts import Target, read_tgts, targets_as_arrays
+from upsp_tpu.pipeline.config import ProcessingConfig
+from upsp_tpu_torch.camera.model import (
+    CameraParams,
+    cam_center,
+    make_camera_params,
+    project_points,
+)
+from upsp_tpu_torch.ops.image import fix_hot_pixels, patch_threshold_from_frame
+from upsp_tpu_torch.ops.patching import (
+    PatchOperator,
+    build_patch_clusters,
+    build_patch_operator,
+    cluster_targets,
+    threshold_bounds,
+)
+from upsp_tpu_torch.ops.projection import (
+    NodeProjection,
+    adjust_projection_for_weights,
+    build_node_projection_host,
+    identify_skipped_nodes,
+)
+
+log = logging.getLogger("upsp_tpu")
+
+_CPP_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "cpp",
+)
+
+
+@dataclasses.dataclass
+class Phase0State:
+    """Everything phase 1 needs; per-frame tensors live on ``device``."""
+
+    model: SurfaceModel
+    bvh: Any  # upsp_tpu.geometry.bvh.FlatBVH (host arrays)
+    cam_params: List[CameraParams]
+    projections: List[NodeProjection]  # weight-adjusted
+    skipped: torch.Tensor  # (N,) bool
+    patch_ops: List[Optional[PatchOperator]]
+    ref_frames: torch.Tensor  # (C, H, W) float32 hot-pixel-fixed first frames
+    superseded_by: torch.Tensor  # (N,) int64 overlap-adjustment gather
+    image_hw: Tuple[int, int]
+    config: ProcessingConfig
+    patch_diags: Optional[List[Optional[dict]]] = None
+    device: torch.device = torch.device("cpu")
+    # the derived phase-1 parameters, when handed over from elsewhere
+    # (state.from_jax_state); otherwise pipeline.phase1 derives them
+    params: Any = None
+
+    @property
+    def n_nodes(self) -> int:
+        return self.model.size
+
+    def to(self, device) -> "Phase0State":
+        """The same state with its tensors on ``device`` (phase-1
+        parameters are derived again there)."""
+        device = torch.device(device)
+        return dataclasses.replace(
+            self,
+            projections=[p.to(device) for p in self.projections],
+            skipped=self.skipped.to(device),
+            patch_ops=[None if op is None else op.to(device)
+                       for op in self.patch_ops],
+            ref_frames=self.ref_frames.to(device),
+            superseded_by=self.superseded_by.to(device),
+            device=device,
+            params=None,
+        )
+
+    @property
+    def n_cameras(self) -> int:
+        return len(self.cam_params)
+
+
+def native_library():
+    """``upsp_tpu.native`` with its library loaded: builds ``cpp/`` once
+    with make when the shared library is missing, and raises naming it if
+    that fails."""
+    from upsp_tpu import native
+
+    if native.available():
+        return native
+    log.info("native BVH library missing; building it with make -C %s", _CPP_DIR)
+    proc = subprocess.run(["make", "-C", _CPP_DIR], capture_output=True,
+                          text=True)
+    native = importlib.reload(native)
+    if proc.returncode != 0 or not native.available():
+        raise RuntimeError(
+            f"the native BVH library {_CPP_DIR}/libupsp_native.so is missing "
+            f"and `make -C {_CPP_DIR}` did not build it:\n{proc.stdout}\n"
+            f"{proc.stderr}"
+        )
+    return native
+
+
+def visible_targets(
+    targets: Sequence[Target], params: CameraParams, model: SurfaceModel,
+    oblique_angle_deg: float, image_hw: Tuple[int, int], flat_bvh,
+) -> List[Target]:
+    """getTargets parity: in-frame, unoccluded, facing within the oblique
+    limit; the normal is the nearest node's (psp_process.cpp:92-106)."""
+    if not targets:
+        return []
+    native = native_library()
+    H, W = image_hw
+    xyz, _, _ = targets_as_arrays(targets)
+    uv = project_points(params, torch.from_numpy(xyz)).numpy()
+    in_frame = (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) & (uv[:, 1] < H)
+    center = cam_center(params).numpy()
+    d = xyz - center
+    dist = np.linalg.norm(d, axis=1)
+    dirs = d / dist[:, None]
+    t, _, hit = native.bvh_intersect(
+        flat_bvh, np.broadcast_to(center, xyz.shape).astype(np.float32),
+        dirs.astype(np.float32),
+    )
+    occluded = hit & (t < dist - 1e-3)
+    hit_pos = np.where(hit[:, None], center + dirs * t[:, None], xyz)
+    normals = model.normals[model.nearest_node(hit_pos)]
+    ang = np.arccos(np.clip(np.sum(normals * dirs, axis=1), -1, 1))
+    forward = ang > np.deg2rad(180.0 - oblique_angle_deg)
+    keep = in_frame & hit & (~occluded) & forward
+    out = []
+    for i, tg in enumerate(targets):
+        if keep[i]:
+            tg2 = dataclasses.replace(tg)
+            tg2.uv = uv[i]
+            out.append(tg2)
+    return out
+
+
+def target_image_diameters(targets: Sequence[Target], params: CameraParams,
+                           model: SurfaceModel,
+                           image_hw: Tuple[int, int]) -> np.ndarray:
+    """Projected diameter (px) via a 4-point circle in the surface plane
+    (get_target_diameters parity, psp_process.cpp:117-165)."""
+    H, W = image_hw
+    diams = np.zeros(len(targets))
+    for i, tg in enumerate(targets):
+        if tg.diameter == 0.0 or tg.uv is None:
+            continue
+        if not (0 <= tg.uv[0] < W and 0 <= tg.uv[1] < H):
+            continue
+        n = model.normals[model.nearest_node(tg.xyz[None, :])[0]].astype(np.float64)
+        a = np.cross(n, [1.0, 0.0, 0.0])
+        if np.linalg.norm(a) < 1e-8:
+            a = np.cross(n, [0.0, 1.0, 0.0])
+        a /= np.linalg.norm(a)
+        b = np.cross(a, n)
+        total = 0.0
+        for k in range(4):
+            theta = 2 * np.pi * k / 4
+            pt = tg.xyz + 0.5 * tg.diameter * (np.cos(theta) * a + np.sin(theta) * b)
+            proj = project_points(params, torch.from_numpy(pt[None, :])).numpy()[0]
+            total += 2.0 * np.linalg.norm(proj - tg.uv)
+        diams[i] = total / 4.0
+    return diams
+
+
+def build_patcher_for_camera(
+    cfg: ProcessingConfig, params: CameraParams, model: SurfaceModel,
+    first_frame: np.ndarray, targets_file: str, image_hw: Tuple[int, int],
+    bit_depth: int, flat_bvh,
+):
+    """InitializeImagePatches parity: visible targets + fiducials ->
+    clusters -> boundary threshold -> composed patch operator.  Returns
+    (PatchOperator | None, diagnostics | None)."""
+    all_t = read_tgts(targets_file) + read_tgts(targets_file, section="*Fiducials")
+    if not all_t:
+        return None, None
+    oblique = min(cfg.oblique_angle + 5.0, 90.0)
+    vis = visible_targets(all_t, params, model, oblique, image_hw, flat_bvh)
+    if not vis:
+        return None, None
+    diams = target_image_diameters(vis, params, model, image_hw) * cfg.target_diam_sf
+    keep = diams > 0
+    vis_kept = [t for t, k in zip(vis, keep) if k]
+    uv = np.stack([t.uv for t in vis])[keep]
+    diams = diams[keep]
+    if uv.shape[0] == 0:
+        return None, None
+    groups = cluster_targets(uv, diams, cfg.bound_thickness + cfg.buffer_thickness)
+    cluster_of = np.zeros(uv.shape[0], np.int32)
+    for gi, g in enumerate(groups):
+        cluster_of[g] = gi
+    diag = {
+        "uv": uv,
+        "cluster_of": cluster_of,
+        "names": [str(getattr(t, "idx", i)) for i, t in enumerate(vis_kept)],
+    }
+    clusters = build_patch_clusters(
+        uv, diams, image_hw, bound_pts=cfg.bound_thickness,
+        buffer=cfg.buffer_thickness,
+    )
+    thresh = patch_threshold_from_frame(first_frame, bit_depth)
+    clusters = threshold_bounds(clusters, first_frame, thresh, offset=2)
+    return build_patch_operator(clusters, image_hw), diag
+
+
+def _apply_normals_file(model: SurfaceModel, path: str) -> None:
+    """Normals-override file: 'nidx nx ny nz' rows (set_surface_normals)."""
+    data = np.loadtxt(path, ndmin=2)
+    if data.size:
+        model.set_normals(data[:, 0].astype(np.int64), data[:, 1:4])
+
+
+def run_phase0(
+    cfg: ProcessingConfig, first_frames: Sequence[np.ndarray],
+    bit_depths: Optional[Sequence[int]] = None, device="cpu",
+    model: Optional[SurfaceModel] = None, max_leaf: int = 4,
+) -> Phase0State:
+    """Build the phase-0 state from the config and per-camera first frames."""
+    device = torch.device(device)
+    native = native_library()
+    if model is None:
+        model = load_model(cfg.grid, tolerance=cfg.grid_tol)
+    if cfg.x_max is not None:
+        model.mark_nondata_x_max(cfg.x_max)
+    if cfg.active_comps:
+        from upsp_tpu.io.comps import apply_active_comps
+
+        n_masked = apply_active_comps(model, cfg.active_comps)
+        if n_masked:
+            log.info("active_comps: masked %d nodes of inactive components",
+                     n_masked)
+    if cfg.normals:
+        _apply_normals_file(model, cfg.normals)
+
+    H, W = first_frames[0].shape
+    image_hw = (H, W)
+    bit_depths = bit_depths or [12] * len(first_frames)
+    bvh_method = os.environ.get(
+        "UPSP_BVH_METHOD",
+        "sah" if model.triangles.shape[0] >= 2_000_000 else "median",
+    )
+    bvh = native.build_bvh(model.vertices, model.triangles, leaf_size=max_leaf,
+                           method=bvh_method)
+
+    cam_params: List[CameraParams] = []
+    raw_projs: List[NodeProjection] = []
+    patch_ops: List[Optional[PatchOperator]] = []
+    patch_diags: List[Optional[dict]] = []
+    for c, cam in enumerate(cfg.cameras):
+        cal = read_camera_json(cam.calibration, dims_hw=image_hw)
+        params = make_camera_params(cal.rmat, cal.tvec, cal.camera_matrix,
+                                    cal.dist_coeffs, dtype=torch.float32)
+        cam_params.append(params)
+        raw_projs.append(build_node_projection_host(
+            params, bvh, model.triangles, model.vertices, model.normals,
+            model.is_datanode, cfg.oblique_angle, H, W,
+        ))
+        if cfg.target_patcher == "polynomial" and cam.targets:
+            op, diag = build_patcher_for_camera(
+                cfg, params, model, first_frames[c], cam.targets, image_hw,
+                bit_depths[c], bvh,
+            )
+        else:
+            op, diag = None, None
+        patch_ops.append(op)
+        patch_diags.append(diag)
+
+    projs = adjust_projection_for_weights(
+        raw_projs, [cam_center(p) for p in cam_params],
+        torch.from_numpy(np.asarray(model.vertices)),
+        torch.from_numpy(np.asarray(model.normals)), overlap=cfg.overlap,
+    )
+    skipped = identify_skipped_nodes(projs)
+    # the ECC template is the hot-pixel-FIXED first frame (phase 1 repairs
+    # every input frame, so template and input see the same pixels)
+    ref_frames = torch.stack([
+        fix_hot_pixels(torch.tensor(np.asarray(f, np.float32)))
+        for f in first_frames
+    ])
+    return Phase0State(
+        model=model,
+        bvh=bvh,
+        cam_params=cam_params,
+        projections=[p.to(device) for p in projs],
+        skipped=skipped.to(device),
+        patch_ops=[None if op is None else op.to(device) for op in patch_ops],
+        ref_frames=ref_frames.to(device),
+        superseded_by=torch.as_tensor(
+            np.asarray(model.superseded_by), dtype=torch.int64, device=device
+        ),
+        image_hw=image_hw,
+        config=cfg,
+        patch_diags=patch_diags,
+        device=device,
+    )

@@ -1,0 +1,288 @@
+"""Phase 1: the per-frame program — register, patch, filter, project.
+
+Port of ``upsp_tpu/pipeline/phase1.py`` on its kernel branch, batched over
+frames instead of ``vmap``-ped: per frame batch and camera, hot-pixel
+repair, the FFT phase-correlation estimate, the integer pre-shift, a
+fixed-iteration ECC solve (K1 pre-blur, K2 warp + K3 statistics per
+Gauss-Newton step), and the fused warp+filter tail (K4) with the patch
+overlays; then the combined best-view gather, NaN for skipped nodes and
+overlap supersession.
+
+Only the fft warm start with integer pre-shift is ported (the JAX
+package's production default); ``scan`` and identity starts, the dense
+``jnp`` ECC path and the camera-vmapped variant are not (ROADMAP.md
+queue 1, M4/M6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from upsp_tpu_torch.ops.ecc_kernels import (
+    filter_taps,
+    warp_affine_banded,
+    warp_displacement_bound,
+    warp_filter,
+)
+from upsp_tpu_torch.ops.fftreg import (
+    correlate,
+    default_decimate,
+    prepare_template,
+    translation_warp,
+)
+from upsp_tpu_torch.ops.image import apply_filter, fix_hot_pixels
+from upsp_tpu_torch.ops.patching import (
+    apply_patches,
+    build_patch_node_correction,
+    patch_correction_values,
+)
+from upsp_tpu_torch.ops.projection import NodeProjection, project_frame
+from upsp_tpu_torch.ops.registration import ecc_affine, ecc_blur
+from upsp_tpu_torch.ops.warp import MAX_INTEGER_SHIFT, integer_shift
+
+ECC_GAUSS_SIZE = 5  # the ECC pre-blur (registration.py default)
+ECC_ITERS = 2  # fixed Gauss-Newton steps of fft mode (phase1.py:702-703)
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase1Params:
+    """Per-frame program inputs derived from the phase-0 state."""
+
+    projections: Tuple[NodeProjection, ...]  # per camera
+    skipped: torch.Tensor  # (N,) bool
+    patch_ops: Tuple  # per camera: PatchOperator | None
+    ref_frames: torch.Tensor  # (C, H, W) float32
+    superseded_by: torch.Tensor  # (N,) int64
+    # best-view fast path (every node has at most one positive camera
+    # weight): ONE gather from the stacked (C*H*W,) frames
+    combined_index: Optional[torch.Tensor] = None  # (N,) int64
+    combined_weight: Optional[torch.Tensor] = None  # (N,) float32
+    # fused-tail patch corrections, per camera: PatchNodeCorrection | None
+    patch_corr: Tuple = ()
+    # per camera: (node_idx, value_slot, weight) overlay tensors | None
+    corr_nodes: Tuple = ()
+    # the (filter_type, filter_size) the corrections were precomposed for
+    corr_filter: Optional[Tuple[str, int]] = None
+
+
+def phase1_params(state) -> Phase1Params:
+    """Derive (or return the handed-over) :class:`Phase1Params`."""
+    if state.params is not None:
+        return state.params
+    dev = state.device
+    projections = tuple(state.projections)
+    H, W = state.image_hw
+    HW = H * W
+    combined_index = combined_weight = None
+    w = np.stack([p.weight.cpu().numpy() for p in projections])  # (C, N)
+    if ((w > 0).sum(axis=0) <= 1).all():
+        idx = np.stack([p.pixel_index.cpu().numpy() for p in projections])
+        best = w.argmax(axis=0)  # 0 where all-zero (weight 0 kills it)
+        n = np.arange(w.shape[1])
+        combined_index = torch.as_tensor(best * HW + idx[best, n],
+                                         dtype=torch.int64, device=dev)
+        combined_weight = torch.as_tensor(w[best, n].astype(np.float32),
+                                          device=dev)
+    patch_corr: list = []
+    corr_nodes: list = []
+    if combined_index is not None and any(op is not None for op in state.patch_ops):
+        cfg = state.config
+        stacked = combined_index.cpu().numpy()
+        wgt = combined_weight.cpu().numpy()
+        best = stacked // HW
+        pixel = stacked % HW
+        for c, op in enumerate(state.patch_ops):
+            corr = build_patch_node_correction(op, state.image_hw, cfg.filter,
+                                               cfg.filter_size)
+            if corr is None:
+                patch_corr.append(None)
+                corr_nodes.append(None)
+                continue
+            pixn = corr.pix_idx.numpy()
+            K, A_max = pixn.shape
+            slot_arr = np.full(HW + 1, -1, np.int64)
+            valid = pixn != HW
+            slot_arr[pixn[valid]] = (
+                np.arange(K)[:, None] * A_max + np.arange(A_max)[None, :]
+            )[valid]
+            ni = np.nonzero((best == c) & (wgt > 0) & (slot_arr[pixel] >= 0))[0]
+            patch_corr.append(corr.to(dev))
+            corr_nodes.append((
+                torch.as_tensor(ni, dtype=torch.int64, device=dev),
+                torch.as_tensor(slot_arr[pixel[ni]], dtype=torch.int64, device=dev),
+                torch.as_tensor(wgt[ni], dtype=torch.float32, device=dev),
+            ))
+    return Phase1Params(
+        projections=projections,
+        skipped=state.skipped,
+        patch_ops=tuple(state.patch_ops),
+        ref_frames=state.ref_frames,
+        superseded_by=state.superseded_by,
+        combined_index=combined_index,
+        combined_weight=combined_weight,
+        patch_corr=tuple(patch_corr),
+        corr_nodes=tuple(corr_nodes),
+        corr_filter=(
+            (state.config.filter, state.config.filter_size) if patch_corr else None
+        ),
+    )
+
+
+def process_frames_core(
+    frames: torch.Tensor,  # (B, C, H, W) float32 frames
+    params: Phase1Params,
+    registration: str,
+    patch: bool,
+    filter_type: str,
+    filter_size: int,
+    warp_init: Optional[torch.Tensor] = None,  # (B, C, 2, 3)
+    valid_shift: Optional[torch.Tensor] = None,  # (B, C, 2) pre-shift
+    fix_hot: bool = True,
+    ecc_templates: Optional[List[torch.Tensor]] = None,  # blurred, per cam
+):
+    """A frame batch -> (intensity (B, N), warps (B, C, 2, 3), telemetry
+    (B, C, 5)).  Telemetry per camera is [rho, final |drho|, total tx,
+    total ty, displacement bound]; column 4 is written for format parity
+    (the port's K2 has no band limit)."""
+    b, n_cams, h, w = frames.shape
+    dev = frames.device
+    tail_taps = filter_taps(filter_type, filter_size) if registration == "pixel" else None
+    warps, teles, processed, overlays = [], [], [], []
+    sol = None
+    for c in range(n_cams):
+        img = frames[:, c].to(torch.float32)
+        if fix_hot:
+            img = fix_hot_pixels(img)
+        img = img.contiguous()
+        tail_done = False
+        if registration == "pixel":
+            vs_c = None if valid_shift is None else valid_shift[:, c]
+            warp, rho, conv = ecc_affine(
+                params.ref_frames[c], img,
+                warp_init=None if warp_init is None else warp_init[:, c],
+                max_iters=ECC_ITERS, gauss_size=ECC_GAUSS_SIZE,
+                valid_shift=vs_c,
+                tmpl_blurred=None if ecc_templates is None else ecc_templates[c],
+            )
+            t_tot = warp[:, :, 2] if vs_c is None else warp[:, :, 2] + vs_c
+            cert = warp_displacement_bound(warp, h, w)
+            teles.append(torch.stack([rho, conv, t_tot[:, 0], t_tot[:, 1], cert],
+                                     dim=1))
+            warps.append(warp)
+            corr = params.patch_corr[c] if c < len(params.patch_corr) else None
+            nodes = params.corr_nodes[c] if c < len(params.corr_nodes) else None
+            need_patch = patch and params.patch_ops[c] is not None
+            corr_ok = (
+                corr is not None and nodes is not None
+                and params.corr_filter == (filter_type, filter_size)
+            )
+            if tail_taps is not None and (not need_patch or corr_ok):
+                if need_patch:
+                    img, iw = warp_filter(img, warp, tail_taps, with_warped=True)
+                    overlays.append((c, patch_correction_values(iw, corr)))
+                else:
+                    img = warp_filter(img, warp, tail_taps)
+                tail_done = True
+            else:
+                img = warp_affine_banded(img, warp)
+        else:
+            teles.append(torch.tensor([[1.0, 0.0, 0.0, 0.0, 0.0]],
+                                      device=dev).expand(b, 5))
+            warps.append(translation_warp(torch.zeros((b, 2), device=dev)))
+        if not tail_done:
+            if patch and params.patch_ops[c] is not None:
+                img = apply_patches(img, params.patch_ops[c])
+            img = apply_filter(img, filter_type, filter_size)
+        if params.combined_index is not None:
+            processed.append(img)
+        else:
+            c_sol = project_frame(img, params.projections[c])
+            sol = c_sol if sol is None else sol + c_sol
+    if params.combined_index is not None:
+        stacked = torch.stack(processed, dim=1).reshape(b, -1)
+        sol = stacked[:, params.combined_index] * params.combined_weight
+        for c, vals in overlays:
+            ni, ns, nw = params.corr_nodes[c]
+            sol[:, ni] = vals.reshape(b, -1)[:, ns] * nw
+    sol = torch.where(params.skipped, torch.full_like(sol, float("nan")), sol)
+    sol = sol[:, params.superseded_by]  # overlap supersession
+    return sol, torch.stack(warps, dim=1), torch.stack(teles, dim=1)
+
+
+def make_chunk_processor(state, with_telemetry: bool = False,
+                         frame_batch: int = 8):
+    """Build the chunk program: (F, C, H, W) frames (numpy or tensor, any
+    numeric dtype) -> (F, N) intensities [and (F, C, 5) telemetry], on the
+    state's device.
+
+    With pixel registration each frame's ECC starts from the fft warm
+    start: the phase-correlation estimate, split into an integer pre-shift
+    applied to the frame and a sub-pixel ECC start; the shift is composed
+    into the ECC validity mask.  Frames run in batches of ``frame_batch``.
+    """
+    cfg = state.config
+    if cfg.pixel_interpolation == "nearest":
+        raise NotImplementedError(
+            "pixel_interpolation 'nearest' is not ported yet "
+            "(ROADMAP.md queue 1, M4: nearest-neighbour warp_affine)"
+        )
+    p = phase1_params(state)
+    n_cams = int(p.ref_frames.shape[0])
+    static = dict(
+        registration=cfg.registration,
+        patch=(cfg.target_patcher == "polynomial"),
+        filter_type=cfg.filter,
+        filter_size=cfg.filter_size,
+    )
+    fft = cfg.registration == "pixel"
+    if fft:
+        dec = default_decimate(*state.image_hw)
+        corr_tmpls = [prepare_template(p.ref_frames[c], dec) for c in range(n_cams)]
+        # the ECC template is blurred once, not once per frame
+        ecc_tmpls = [
+            ecc_blur(p.ref_frames[c][None].contiguous(), ECC_GAUSS_SIZE)[0]
+            for c in range(n_cams)
+        ]
+
+    def one_batch(frames: torch.Tensor):
+        if not fft:
+            sol, _, tele = process_frames_core(frames, p, **static)
+            return sol, tele
+        # hot-pixel repair first, then split the translation estimate:
+        # integer part shifted off, sub-pixel residual solved by ECC
+        fixed = fix_hot_pixels(frames)
+        tvecs = torch.stack(
+            [correlate(corr_tmpls[c], fixed[:, c]) for c in range(n_cams)], dim=1
+        )  # (B, C, 2)
+        t_int = torch.round(tvecs).clamp(-MAX_INTEGER_SHIFT, MAX_INTEGER_SHIFT)
+        shifted = torch.stack(
+            [integer_shift(fixed[:, c], t_int[:, c]) for c in range(n_cams)],
+            dim=1,
+        )
+        b = frames.shape[0]
+        init = translation_warp((tvecs - t_int).reshape(-1, 2)).reshape(
+            b, n_cams, 2, 3
+        )
+        sol, _, tele = process_frames_core(
+            shifted, p, warp_init=init, valid_shift=t_int, fix_hot=False,
+            ecc_templates=ecc_tmpls, **static,
+        )
+        return sol, tele
+
+    def process(chunk):
+        x = torch.as_tensor(chunk)
+        sols, teles = [], []
+        for s in range(0, x.shape[0], max(frame_batch, 1)):
+            frames = x[s : s + max(frame_batch, 1)].to(state.device)
+            sol, tele = one_batch(frames.to(torch.float32))
+            sols.append(sol)
+            teles.append(tele)
+        sols = torch.cat(sols)
+        teles = torch.cat(teles)
+        return (sols, teles) if with_telemetry else sols
+
+    return process

@@ -1,0 +1,211 @@
+"""Synthetic datapoints on disk: the inputs of one ``upsp-process`` run.
+
+Writes, from a seed, everything an input deck names: a flat-plate PLOT3D
+grid, per-camera 12-bit ``.mraw`` videos with ``.cih`` headers and camera
+JSON calibrations, a ``.tgts`` target file, a ``.wtd`` tunnel-conditions
+file, a paint calibration and the deck itself.
+
+The cameras look straight down on the plate from offset positions, so
+they overlap and best-view decides each node.  Each frame is a
+band-limited random texture (broadband, so the FFT phase correlation has
+real content in every spectral bin) with darkened fiducial dots, shifted
+by a sub-pixel translation through a Fourier phase ramp; ``n_distinct``
+frames are synthesised and tiled to ``n_frames``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+PLATE = (10.0, 8.0)  # plate extent in x, y (grid units)
+CAM_Z = 20.0  # camera height above the plate
+CAM_X = (3.9, 6.3, 5.0, 5.2)  # camera centres along x (up to 4 cameras)
+CAM_Y = 4.0
+
+
+def camera_focal(image_hw: Tuple[int, int]) -> float:
+    """Focal length (px) that keeps the whole plate inside every frame."""
+    h, w = image_hw
+    m = max(6.0, w / 32.0)
+    half_x = max(max(CAM_X) - 0.0, PLATE[0] - min(CAM_X)) + 0.2
+    half_y = PLATE[1] / 2 + 0.2
+    return float(min((w / 2 - m) * CAM_Z / half_x, (h / 2 - m) * CAM_Z / half_y))
+
+
+def _texture(rng, image_hw, corr_px: float) -> np.ndarray:
+    """Spectrum of a zero-mean random field with a Gaussian correlation of
+    ``corr_px`` pixels, normalised to unit standard deviation."""
+    h, w = image_hw
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    env = np.exp(-2.0 * (np.pi * corr_px) ** 2 * (fx**2 + fy**2))
+    spec = np.fft.rfft2(rng.standard_normal((h, w))) * env
+    field = np.fft.irfft2(spec, s=(h, w))
+    return spec / field.std()
+
+
+def scene_spectrum(rng, image_hw) -> np.ndarray:
+    """Two scales: a smooth field (4 px) gives ECC a wide basin, a fine one
+    (1 px) keeps every spectral bin of the phase correlation populated."""
+    return (300.0 * _texture(rng, image_hw, 4.0)
+            + 60.0 * _texture(rng, image_hw, 1.0))
+
+
+def shift_field(spec, image_hw, dx: float, dy: float) -> np.ndarray:
+    """The field sampled at (x - dx, y - dy): a periodic sub-pixel shift."""
+    h, w = image_hw
+    fy = np.fft.fftfreq(h)[:, None]
+    fx = np.fft.rfftfreq(w)[None, :]
+    ramp = np.exp(-2j * np.pi * (fx * dx + fy * dy))
+    return np.fft.irfft2(spec * ramp, s=(h, w))
+
+
+def _dots(image_hw, centers_px, radius_px) -> np.ndarray:
+    """Multiplicative darkening mask of soft fiducial dots."""
+    h, w = image_hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    mask = np.ones((h, w))
+    for (u, v) in centers_px:
+        r2 = (xx - u) ** 2 + (yy - v) ** 2
+        mask *= 1.0 - 0.55 * np.exp(-r2 / (2.0 * (0.6 * radius_px) ** 2))
+    return mask
+
+
+def _plate_grid(grid_shape):
+    from upsp_tpu.io.plot3d import StructGrid
+
+    imax, jmax = grid_shape
+    gy, gx = np.meshgrid(np.linspace(0, PLATE[1], jmax),
+                         np.linspace(0, PLATE[0], imax), indexing="ij")
+    g = StructGrid()
+    g.sz = [np.array([imax, jmax, 1], np.int32)]
+    g.x = gx.ravel().astype(np.float32)
+    g.y = gy.ravel().astype(np.float32)
+    g.z = np.zeros(imax * jmax, np.float32)
+    g.zones = np.zeros(imax * jmax, np.int32)
+    return g
+
+
+def target_positions(n_targets: int, seed: int) -> np.ndarray:
+    """(n, 2) plate positions of the fiducial targets, well apart."""
+    rng = np.random.default_rng(seed + 101)
+    pts: list = []
+    while len(pts) < n_targets:
+        p = rng.uniform([1.0, 1.0], [PLATE[0] - 1.0, PLATE[1] - 1.0])
+        if all(np.hypot(*(p - q)) > 1.2 for q in pts):
+            pts.append(p)
+    return np.array(pts)
+
+
+def write_datapoint(
+    root: str,
+    n_cameras: int = 2,
+    image_hw: Tuple[int, int] = (96, 128),
+    n_frames: int = 12,
+    n_distinct: int = 12,
+    grid_shape: Tuple[int, int] = (41, 33),
+    n_targets: int = 6,
+    max_shift_px: float = 2.0,
+    seed: int = 0,
+    options: Sequence[str] = (),
+    shifts: Optional[np.ndarray] = None,
+) -> dict:
+    """Write a datapoint under ``root``; returns {"deck", "shifts", "frames"
+    (the (F, C, H, W) uint16 stack as written), "out_dir"}.
+
+    ``shifts`` (n_distinct, 2) gives the per-frame (dx, dy) jitter
+    explicitly; by default it is uniform in +-``max_shift_px`` with frame 0
+    unshifted.  ``options`` are extra ``key = value`` lines for the deck's
+    @options (defaults: polynomial patcher, gaussian 3, best_view, pixel
+    registration).
+    """
+    from upsp_tpu.io.plot3d import write_p3d_grid
+    from upsp_tpu.io.video.util import pack_12bpp
+
+    os.makedirs(root, exist_ok=True)
+    h, w = image_hw
+    rng = np.random.default_rng(seed)
+    fx = camera_focal(image_hw)
+    write_p3d_grid(os.path.join(root, "plate.grid"), _plate_grid(grid_shape))
+
+    targets = target_positions(n_targets, seed)
+    diam = 7.0 * CAM_Z / fx  # ~7 px in the image
+    with open(os.path.join(root, "plate.tgts"), "w") as fh:
+        fh.write("*Targets\n")
+        for k, (x, y) in enumerate(targets):
+            fh.write(f"{k + 1:4d} {x:10.4f} {y:10.4f} {0.0:10.4f}   0.0  0.0  1.0"
+                     f" {diam:8.4f}   1  1  1 st{k + 1:02d}\n")
+    with open(os.path.join(root, "t.wtd"), "w") as fh:
+        fh.write("RUN 1 1\n#\tMACH\tALPHA\tBETA\tPHI\tQ\tPS\tTTF\tSTRUTZ\n")
+        fh.write("0.80\t0.00\t0.00\t0.00\t144.00\t500.00\t80.00\t0.00\n")
+    with open(os.path.join(root, "paint.cal"), "w") as fh:
+        fh.write("a = 1.0\nb = 0.0\nc = 0\nd = 0\ne = 0\nf = 0\n")
+
+    if shifts is None:
+        n_distinct = max(1, min(n_distinct, n_frames))
+        shifts = rng.uniform(-max_shift_px, max_shift_px, size=(n_distinct, 2))
+        shifts[0] = 0.0
+    n_distinct = len(shifts)
+    stack = np.empty((n_frames, n_cameras, h, w), np.uint16)
+    cams = []
+    for c in range(n_cameras):
+        cx = CAM_X[c]
+        cal = {
+            "uPSP_cameraMatrix": [[fx, 0.0, 0.0], [0.0, fx, 0.0], [0.0, 0.0, 1.0]],
+            "distCoeffs": [[0.0, 0.0, 0.0, 0.0, 0.0]],
+            "rmat": [[1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, -1.0]],
+            "tvec": [-cx, CAM_Y, CAM_Z],
+        }
+        cam_path = os.path.join(root, f"cam{c + 1:02d}.json")
+        with open(cam_path, "w") as fh:
+            json.dump(cal, fh)
+        # overhead pinhole: u = W/2 + fx (x - cx)/Z, v = H/2 - fx (y - cy)/Z
+        dots_px = [(w / 2 + fx * (x - cx) / CAM_Z, h / 2 - fx * (y - CAM_Y) / CAM_Z)
+                   for x, y in targets]
+        spec = scene_spectrum(rng, image_hw)
+        spec_dots = np.fft.rfft2(_dots(image_hw, dots_px, 0.5 * diam * fx / CAM_Z))
+        distinct = np.empty((n_distinct, h, w), np.uint16)
+        for f, (dx, dy) in enumerate(shifts):
+            tex = 2000.0 + shift_field(spec, image_hw, dx, dy)
+            dots = shift_field(spec_dots, image_hw, dx, dy)
+            lamp = 1.0 + 0.01 * np.sin(2 * np.pi * f / 7)
+            distinct[f] = np.clip(np.rint(tex * dots * lamp), 0, 4000)
+        for f in range(n_frames):
+            stack[f, c] = distinct[f % n_distinct]
+        video = os.path.join(root, f"cam{c + 1:02d}.mraw")
+        with open(video, "wb") as fh:
+            for f in range(n_frames):
+                fh.write(pack_12bpp(stack[f, c]).tobytes())
+        with open(os.path.join(root, f"cam{c + 1:02d}.cih"), "w") as fh:
+            fh.write(
+                "Record Rate(fps) : 10000\nShutter Speed(s) : 1/20000\n"
+                f"Total Frame : {n_frames}\nImage Width : {w}\n"
+                f"Image Height : {h}\nColor Bit : 12\nEffectiveBit Depth : 12\n"
+                "EffectiveBit Side : Lower\nFile Format : Mraw\n"
+            )
+        cams.append((video, cam_path))
+
+    out_dir = os.path.join(root, "out")
+    lines = [
+        "@general", "\ttest = synth", "\trun = 1", "\tsequence = 1",
+        "@all", f"\tsds = {root}/t.wtd", f"\tgrid = {root}/plate.grid",
+        f"\ttargets = {root}/plate.tgts",
+        f"\tpaint_calibration = {root}/paint.cal",
+    ]
+    for c, (video, cam_path) in enumerate(cams):
+        lines += ["@camera", f"\tnumber = {c + 1}", f"\tcine = {video}",
+                  f"\tcalibration = {cam_path}"]
+    lines += ["@options", "\ttarget_patcher = polynomial",
+              "\tregistration = pixel", "\tfilter = gaussian",
+              "\tfilter_size = 3", "\toverlap = best_view",
+              f"\tnumber_frames = {n_frames}"]
+    lines += [f"\t{o}" for o in options]
+    lines += ["@output", f"\tdir = {out_dir}"]
+    deck = os.path.join(root, "deck.inp")
+    with open(deck, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return {"deck": deck, "shifts": shifts, "frames": stack, "out_dir": out_dir}
