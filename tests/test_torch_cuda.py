@@ -1,5 +1,8 @@
 """The hand-written CUDA kernels against their plain twins, on the card.
 
+K1-K4 and K6 compare within the stated bounds (K6, like K5, K7 and K8,
+exactly: they only select, shift bits and multiply once).
+
 Marked ``cuda``; skips where torch has no CUDA device (the kernels have no
 CPU mode).  This file imports no jax, so it also runs on a machine with
 only the port's dependencies:
@@ -112,6 +115,55 @@ def test_kernels_match_twins_on_card(cuda, shape):
     scale = np.abs(want[:, :42]).max(axis=1, keepdims=True)
     np.testing.assert_array_less(np.abs(got[:, :42] - want[:, :42]),
                                  2e-4 * np.abs(want[:, :42]) + 1e-5 * scale)
+    hot = x.clone()
+    hot[0, 0, 0] = hot[0, -1, 7] = hot[-1, 9, 9] = 4095.0  # repaired
+    hot[1, 3:9, 5] = 4095.0  # 6 > 5: left as it is
+    np.testing.assert_array_equal(K.fix_hot_pixels_kernel(hot.to(cuda)).cpu(),
+                                  K.fix_hot_pixels(hot))
     torch.cuda.synchronize()
     after = K.launch_counts()
     assert all(after[k] > before[k] for k in K.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bytes", [15, 3 * 5 * 257 * 256 + 7])
+def test_unpack_kernels_match_twins_on_card(cuda, n_bytes):
+    from upsp_tpu.io.video.cine import LUT_10_TO_12
+    from upsp_tpu_torch.ops import unpack_kernels as U
+
+    b = torch.from_numpy(np.random.default_rng(n_bytes).integers(
+        0, 256, n_bytes).astype(np.uint8))
+    lut = torch.from_numpy(LUT_10_TO_12.astype(np.float32))
+    before = K.launch_counts()
+    np.testing.assert_array_equal(U.unpack_12bpp(b.to(cuda)).cpu(), U.unpack_12bpp_plain(b))
+    np.testing.assert_array_equal(U.unpack_10bpp(b.to(cuda)).cpu(), U.unpack_10bpp_plain(b))
+    np.testing.assert_array_equal(U.unpack_10bpp(b.to(cuda), lut.to(cuda)).cpu(),
+                                  U.unpack_10bpp_plain(b, lut))
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["unpack12"] == before["unpack12"] + 1
+    assert after["unpack10"] == before["unpack10"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,frames", [(1000, 1), (200_000, 3)])
+def test_gather_kernel_matches_twin_on_card(cuda, n_nodes, frames):
+    from upsp_tpu_torch.ops import gather_kernels as G
+
+    rng = np.random.default_rng(n_nodes)
+    n_pixels = 3 * 97 * 131
+    idx = rng.integers(0, n_pixels, n_nodes)
+    w = rng.random(n_nodes).astype(np.float32)
+    w[rng.random(n_nodes) < 0.3] = 0.0
+    sup = np.arange(n_nodes)
+    sup[::7] = rng.integers(0, n_nodes, sup[::7].size)
+    skipped = rng.random(n_nodes) < 0.05
+    plan = G.build_gather_plan(idx, w, skipped, sup, (), n_pixels)
+    on_card = G.build_gather_plan(idx, w, skipped, sup, (), n_pixels, device=cuda)
+    x = torch.from_numpy(rng.normal(2000, 300, (frames, n_pixels)).astype(np.float32))
+    before = K.launch_counts()["gather"]
+    got = G.project_gather(x.to(cuda), on_card).cpu().numpy()
+    want = G.gather_plain(x, plan).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[~np.isnan(want)], want[~np.isnan(want)])
+    assert K.launch_counts()["gather"] == before + 1

@@ -154,7 +154,8 @@ def test_patch_operator_and_apply():
                                    atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("ft,ks", [("gaussian", 3), ("box", 5), ("none", 1)])
+@pytest.mark.parametrize("ft,ks", [("gaussian", 3), ("gaussian", 7), ("box", 5),
+                                   ("none", 1)])
 def test_patch_node_correction(ft, ks):
     rng = np.random.default_rng(6)
     jop, top = _patch_op(rng)
@@ -168,6 +169,14 @@ def test_patch_node_correction(ft, ks):
     for i in range(2):
         want = np.asarray(JP.patch_correction_values(jnp.asarray(x[i]), jc))
         np.testing.assert_allclose(got[i], want, atol=2e-3, rtol=0)
+
+
+def test_patch_node_correction_interacting_clusters():
+    """A 7-tap filter window that reaches another cluster's interior: both
+    packages give no correction (the sequential tail takes over)."""
+    jop, top = _patch_op(np.random.default_rng(7))
+    assert JP.build_patch_node_correction(jop, (H, W), "gaussian", 7) is None
+    assert TP.build_patch_node_correction(top, (H, W), "gaussian", 7) is None
 
 
 def test_detrend_matches():

@@ -98,21 +98,28 @@ def test_run_phase0_matches(tmp_path, scene):
     # the port derives the phase-1 parameters the JAX package derives
     jp1 = j_phase1_params(js)
     tp1 = phase1_params(ts)
-    _eq(tp1.combined_index, jp1.combined_index)
-    _eq(tp1.combined_weight, jp1.combined_weight)
+    _eq(tp1.gather.combined_index, jp1.combined_index)
+    _eq(tp1.gather.combined_weight, jp1.combined_weight)
     assert tp1.corr_filter == jp1.corr_filter
-    for jc, tc, jn, tn in zip(jp1.patch_corr, tp1.patch_corr, jp1.corr_nodes,
-                              tp1.corr_nodes):
+    for jc, tc in zip(jp1.patch_corr, tp1.patch_corr):
         assert (jc is None) == (tc is None)
         if jc is not None:
             _eq(tc.pix_idx, jc.pix_idx)
             _eq(tc.src_flat, jc.src_flat)
             _eq(tc.C, jc.C, 1e-6)
-            for a, b in zip(tn, jn):
-                _eq(a, b)
 
-    # from_jax_state: the same state, as port tensors
+    # from_jax_state: the same state, as port tensors; its gather plan is
+    # built from the JAX overlay nodes, so equal plans mean equal nodes
     fs = from_jax_state(js, "cpu", jp1)
     _eq(fs.ref_frames, js.ref_frames)
     _eq(fs.projections[0].pixel_index, js.projections[0].pixel_index)
-    _eq(fs.params.combined_index, jp1.combined_index)
+    _eq(fs.params.gather.combined_index, jp1.combined_index)
+    for field in ("src", "weight", "node", "combined_weight"):
+        _eq(getattr(tp1.gather, field), getattr(fs.params.gather, field))
+    assert len(tp1.gather.overlays) == len(jp1.corr_nodes)
+    for jn, to, fo in zip(jp1.corr_nodes, tp1.gather.overlays,
+                          fs.params.gather.overlays):
+        assert (jn is None) == (to is None) == (fo is None)
+        if jn is not None:
+            for a, b in zip(to, fo):
+                _eq(a, b)

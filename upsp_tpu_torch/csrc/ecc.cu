@@ -1,6 +1,6 @@
 // Hopper kernels for the ECC hot loop of the phase-1 frame program.
 //
-// Four kernels, each the counterpart of one Pallas TPU kernel in
+// Five kernels, each the counterpart of one Pallas TPU kernel in
 // upsp_tpu/ops/pallas_ecc.py:
 //
 //   K1 blur         <- _blur_kernel via _blur_batched / make_blur
@@ -9,6 +9,8 @@
 //   K3 GN moments   <- _moments_kernel via _moments_batched / ecc_gn_moments
 //   K4 warp+filter  <- _warp_filter_kernel via _warp_filter_batched /
 //                      make_warp_filter
+//   K6 hot pixels   <- _hot_kernel via _hot_batched / fix_hot_pixels_pallas
+//                      (count pass + repair pass, below)
 //
 // What bounds them on the H100: all four are memory-bound.  Per pixel they
 // move 8 bytes (K1, K2: one f32 read, one f32 write), 8 bytes (K3: the
@@ -477,6 +479,86 @@ __global__ void moments_reduce_kernel(const double* __restrict__ partials,
   out[(size_t)b * 128 + k] = v;
 }
 
+// ---------------------------------------------------------------------------
+// K6: hot-pixel repair.  A pixel >= thresh whose value exceeds the median
+// of its 4-neighbours (the 2nd smallest of the 3 or 2 that exist at edges
+// and corners) by more than min_change takes that median; a frame with
+// more than max_hot pixels >= thresh is left as it is.
+// Replaces _hot_kernel (pallas_ecc.py:659, via _hot_batched :739).
+// Bound: 8 B/pixel for the repair plus 4 B/pixel for the count, no
+// arithmetic to speak of.  The TPU kernel holds a whole frame in VMEM and
+// counts it before it repairs it; here a frame spans hundreds of blocks,
+// so the count is its own pass: hot_count_kernel reduces each block in
+// registers and adds one integer per block to the frame's counter with an
+// atomic (integer sums do not depend on order, so the result is exact and
+// repeatable), and hot_fix_kernel then repairs the frame.  The neighbour
+// reads of hot_fix_kernel happen only at pixels >= thresh, a handful per
+// frame.
+
+constexpr int HOT_THREADS = 256;
+constexpr int HOT_PER_THREAD = 16;  // count pass: pixels per thread
+
+__global__ void __launch_bounds__(HOT_THREADS)
+hot_count_kernel(const float* __restrict__ in, int* __restrict__ counts,
+                 long long hw, float thresh) {
+  __shared__ int red[HOT_THREADS / 32];
+  const int b = blockIdx.y;
+  const float* img = in + (size_t)b * hw;
+  int n = 0;
+  for (long long i = (long long)blockIdx.x * HOT_THREADS + threadIdx.x;
+       i < hw; i += (long long)gridDim.x * HOT_THREADS) {
+    n += (__ldg(img + i) >= thresh) ? 1 : 0;
+  }
+  n = __reduce_add_sync(0xffffffffu, n);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int s = 0;
+    for (int i = 0; i < HOT_THREADS / 32; ++i) s += red[i];
+    if (s) atomicAdd(counts + b, s);
+  }
+}
+
+// torch.minimum / torch.maximum: NaN if either operand is NaN
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+__global__ void __launch_bounds__(HOT_THREADS)
+hot_fix_kernel(const float* __restrict__ in, const int* __restrict__ counts,
+               float* __restrict__ out, int H, int W, float thresh,
+               float min_change, int max_hot) {
+  const int b = blockIdx.y;
+  const long long hw = (long long)H * W;
+  const long long i = (long long)blockIdx.x * HOT_THREADS + threadIdx.x;
+  if (i >= hw) return;
+  const float* img = in + (size_t)b * hw;
+  const float x = img[i];
+  float v = x;
+  if (x >= thresh && counts[b] <= max_hot) {
+    const float big = 3.0e38f;  // missing neighbour (ops/image.py)
+    const int y = (int)(i / W);
+    const int c = (int)(i - (long long)y * W);
+    const float up = y > 0 ? img[i - W] : big;
+    const float down = y < H - 1 ? img[i + W] : big;
+    const float left = c > 0 ? img[i - 1] : big;
+    const float right = c < W - 1 ? img[i + 1] : big;
+    const int n_valid = 4 - (up >= big) - (down >= big) - (left >= big) -
+                        (right >= big);
+    // 4-element sorting network: 2nd and 3rd smallest
+    const float mid_lo = tmax(tmin(up, down), tmin(left, right));
+    const float mid_hi = tmin(tmax(up, down), tmax(left, right));
+    const float s2 = tmin(mid_lo, mid_hi);
+    const float s3 = tmax(mid_lo, mid_hi);
+    const float median = n_valid == 4 ? s3 : s2;
+    if (x - median > min_change) v = median;
+  }
+  out[(size_t)b * hw + i] = v;
+}
+
 Taps make_taps(int k, float t0, float t1, float t2, float t3, float t4,
                float t5, float t6) {
   Taps t;
@@ -543,6 +625,23 @@ int upsp_ecc_moments(const float* iws, const float* tmpl, const float* warps,
   if (err != cudaSuccess) return (int)err;
   moments_reduce_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(partials, out,
                                                              nblk);
+  return (int)cudaGetLastError();
+}
+
+// `counts` is (B,) int32 and must hold zeros on entry
+int upsp_ecc_hot(const float* in, int* counts, float* out, int B, int H,
+                 int W, float thresh, float min_change, int max_hot,
+                 void* stream) {
+  const long long hw = (long long)H * W;
+  const int per_block = HOT_THREADS * HOT_PER_THREAD;
+  const int nblk = (int)((hw + per_block - 1) / per_block);
+  hot_count_kernel<<<dim3(nblk, B), HOT_THREADS, 0, (cudaStream_t)stream>>>(
+      in, counts, hw, thresh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int fblk = (int)((hw + HOT_THREADS - 1) / HOT_THREADS);
+  hot_fix_kernel<<<dim3(fblk, B), HOT_THREADS, 0, (cudaStream_t)stream>>>(
+      in, counts, out, H, W, thresh, min_change, max_hot);
   return (int)cudaGetLastError();
 }
 

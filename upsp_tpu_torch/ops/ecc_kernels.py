@@ -1,13 +1,13 @@
 """ECC hot-loop kernels for the H100 (csrc/ecc.cu) and their plain twins.
 
-Counterpart of ``upsp_tpu/ops/pallas_ecc.py``.  Four kernels carry the
+Counterpart of ``upsp_tpu/ops/pallas_ecc.py``.  Five kernels carry the
 phase-1 frame program; each has a wrapper here that
 
 - checks device, dtype (float32), shape and contiguity and raises on
   anything else;
 - on a CPU tensor runs the kernel's plain PyTorch twin (written from the
   JAX semantics: ``ops/image.gaussian_blur``, ``ops/warp.warp_affine_mxu``
-  at order 2, the ``_ecc_core`` jnp statistics);
+  at order 2, the ``_ecc_core`` jnp statistics, ``ops/image.fix_hot_pixels``);
 - on a CUDA tensor launches the hand-written kernel on the current stream,
   raises if the launch fails, and adds one to its launch count.
 
@@ -17,128 +17,59 @@ phase-1 frame program; each has a wrapper here that
 | :func:`warp_affine_banded` | K2 ``warp_kernel`` | ``_warp_banded_batched`` (:285) |
 | :func:`ecc_gn_moments` | K3 ``moments_kernel`` | ``_moments_batched`` (:587) |
 | :func:`warp_filter` | K4 ``warp_filter_kernel`` | ``_warp_filter_batched`` (:444) |
+| :func:`fix_hot_pixels_kernel` | K6 ``hot_count_kernel`` + ``hot_fix_kernel`` | ``_hot_batched`` (:739) |
 
 The library is compiled from ``csrc/ecc.cu`` with ``nvcc`` for ``sm_90a``
-at first use, into ``build/torch_kernels/`` at the repository root.
+at first use, into ``build/torch_kernels/`` at the repository root
+(``ops/cuda_lib.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
 
-from upsp_tpu_torch.ops.image import gaussian_kernel_1d, separable_filter
+from upsp_tpu_torch.ops.cuda_lib import (
+    CudaLibrary,
+    check_rc,
+    count_launch,
+    launch_counts,  # noqa: F401  (re-exported: every kernel's count)
+    register_kernels,
+    reset_launch_counts,  # noqa: F401
+    stream_of,
+)
+from upsp_tpu_torch.ops.image import (
+    fix_hot_pixels,
+    gaussian_kernel_1d,
+    separable_filter,
+)
 from upsp_tpu_torch.ops.warp import warp_validity_mask
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "ecc.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 MAX_TAPS = 7
 NSTAT = 42
+HOT_THRESH, HOT_MIN_CHANGE, HOT_MAX = 4064, 512, 5  # fix_hot_pixels defaults
 
-KERNELS = ("blur", "warp", "moments", "warp_filter")
-_launches = {k: 0 for k in KERNELS}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS:
-        _launches[k] = 0
+KERNELS = register_kernels(("blur", "warp", "moments", "warp_filter", "hot"))
 
 
-def launch_counts() -> dict:
-    """Kernel launches since the last reset (CUDA tensors only)."""
-    return dict(_launches)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    taps = [i] + [f] * MAX_TAPS
+    lib.upsp_ecc_moments_blocks.argtypes = [i]
+    lib.upsp_ecc_moments_blocks.restype = i
+    lib.upsp_ecc_blur.argtypes = [p, p, i, i, i] + taps + [p]
+    lib.upsp_ecc_warp.argtypes = [p, p, p, i, i, i, p]
+    lib.upsp_ecc_warp_filter.argtypes = [p, p, p, p, i, i, i] + taps + [p]
+    lib.upsp_ecc_moments.argtypes = [p] * 7 + [i, i, i, p]
+    lib.upsp_ecc_hot.argtypes = [p, p, p, i, i, i, f, f, i, p]
+    for fn in (lib.upsp_ecc_blur, lib.upsp_ecc_warp, lib.upsp_ecc_warp_filter,
+               lib.upsp_ecc_moments, lib.upsp_ecc_hot):
+        fn.restype = i
 
 
-# ---------------------------------------------------------------------------
-# build + bind
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the ECC kernels "
-        f"in {SOURCE} cannot be built"
-    )
-
-
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libupsp_ecc_{digest}.so")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile ``csrc/ecc.cu`` for sm_90a unless a build of this exact
-    source exists; returns the library path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE,
-    ]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-_lib_lock = threading.Lock()
-_lib_handle: Optional[ctypes.CDLL] = None
-
-
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    with _lib_lock:
-        if _lib_handle is None:
-            lib = ctypes.CDLL(build())
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            taps = [i] + [f] * MAX_TAPS
-            lib.upsp_ecc_moments_blocks.argtypes = [i]
-            lib.upsp_ecc_moments_blocks.restype = i
-            lib.upsp_ecc_blur.argtypes = [p, p, i, i, i] + taps + [p]
-            lib.upsp_ecc_warp.argtypes = [p, p, p, i, i, i, p]
-            lib.upsp_ecc_warp_filter.argtypes = (
-                [p, p, p, p, i, i, i] + taps + [p]
-            )
-            lib.upsp_ecc_moments.argtypes = [p] * 7 + [i, i, i, p]
-            for fn in (lib.upsp_ecc_blur, lib.upsp_ecc_warp,
-                       lib.upsp_ecc_warp_filter, lib.upsp_ecc_moments):
-                fn.restype = i
-            _lib_handle = lib
-        return _lib_handle
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_rc(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+LIBRARY = CudaLibrary("ecc", _bind)
 
 
 def _taps_args(taps: Sequence[float]):
@@ -334,12 +265,12 @@ def blur(imgs: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
         return blur_plain(imgs, taps)
     b, h, w = imgs.shape
     out = torch.empty_like(imgs)
-    rc = _lib().upsp_ecc_blur(
+    rc = LIBRARY.lib().upsp_ecc_blur(
         imgs.data_ptr(), out.data_ptr(), b, h, w, *_taps_args(taps),
-        _stream(imgs),
+        stream_of(imgs),
     )
-    _check_rc(rc, "blur")
-    _launches["blur"] += 1
+    check_rc(rc, "blur")
+    count_launch("blur")
     return out
 
 
@@ -352,12 +283,12 @@ def warp_affine_banded(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
         return warp_plain(imgs, warps)
     b, h, w = imgs.shape
     out = torch.empty_like(imgs)
-    rc = _lib().upsp_ecc_warp(
+    rc = LIBRARY.lib().upsp_ecc_warp(
         imgs.data_ptr(), warps.data_ptr(), out.data_ptr(), b, h, w,
-        _stream(imgs),
+        stream_of(imgs),
     )
-    _check_rc(rc, "warp")
-    _launches["warp"] += 1
+    check_rc(rc, "warp")
+    count_launch("warp")
     return out
 
 
@@ -377,7 +308,7 @@ def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
     if iw.device.type == "cpu":
         return moments_plain(iw, tmpl, warps, mask_warps)
     b, h, w = iw.shape
-    lib = _lib()
+    lib = LIBRARY.lib()
     kshift = tmpl.mean().reshape(1)
     partials = torch.empty(
         (b, lib.upsp_ecc_moments_blocks(h), NSTAT), dtype=torch.float64,
@@ -387,10 +318,10 @@ def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
     rc = lib.upsp_ecc_moments(
         iw.data_ptr(), tmpl.data_ptr(), warps.data_ptr(),
         mask_warps.data_ptr(), kshift.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), b, h, w, _stream(iw),
+        out.data_ptr(), b, h, w, stream_of(iw),
     )
-    _check_rc(rc, "moments")
-    _launches["moments"] += 1
+    check_rc(rc, "moments")
+    count_launch("moments")
     return out
 
 
@@ -410,14 +341,44 @@ def warp_filter(imgs: torch.Tensor, warps: torch.Tensor, taps: Sequence[float],
     b, h, w = imgs.shape
     out = torch.empty_like(imgs)
     warped = torch.empty_like(imgs) if with_warped else None
-    rc = _lib().upsp_ecc_warp_filter(
+    rc = LIBRARY.lib().upsp_ecc_warp_filter(
         imgs.data_ptr(), warps.data_ptr(), out.data_ptr(),
         warped.data_ptr() if with_warped else None, b, h, w,
-        *_taps_args(taps), _stream(imgs),
+        *_taps_args(taps), stream_of(imgs),
     )
-    _check_rc(rc, "warp_filter")
-    _launches["warp_filter"] += 1
+    check_rc(rc, "warp_filter")
+    count_launch("warp_filter")
     return (out, warped) if with_warped else out
+
+
+def fix_hot_pixels_kernel(imgs: torch.Tensor) -> torch.Tensor:
+    """K6: hot-pixel repair of a (..., H, W) float32 stack, each frame on
+    its own, with the ``fix_hot_pixels`` defaults: a pixel >= 4064 that is
+    more than 512 above its 4-neighbour median takes the median, and a
+    frame with more than 5 such candidates is left unchanged."""
+    if not isinstance(imgs, torch.Tensor) or imgs.dim() < 2:
+        raise ValueError("hot: images must be a (..., H, W) tensor")
+    if imgs.dtype != torch.float32:
+        raise TypeError(f"hot: images must be float32, got {imgs.dtype}")
+    if not imgs.is_contiguous():
+        raise ValueError("hot: images must be contiguous")
+    if imgs.device.type == "cpu":
+        return fix_hot_pixels(imgs, HOT_THRESH, HOT_MIN_CHANGE, HOT_MAX)
+    if imgs.device.type != "cuda":
+        raise ValueError(f"hot: unsupported device {imgs.device}")
+    h, w = imgs.shape[-2:]
+    b = imgs.numel() // max(h * w, 1)
+    out = torch.empty_like(imgs)
+    if b == 0 or h * w == 0:
+        return out
+    counts = torch.zeros(b, dtype=torch.int32, device=imgs.device)
+    rc = LIBRARY.lib().upsp_ecc_hot(
+        imgs.data_ptr(), counts.data_ptr(), out.data_ptr(), b, h, w,
+        float(HOT_THRESH), float(HOT_MIN_CHANGE), HOT_MAX, stream_of(imgs),
+    )
+    check_rc(rc, "hot")
+    count_launch("hot")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Image-space utilities: hot-pixel repair, blurs, histogram threshold.
 
 Port of ``upsp_tpu/ops/image.py``.  The per-frame functions take batched
-(..., H, W) tensors on any device and are plain PyTorch: the JAX package
-runs them as XLA ops at this slice's sizes (its Pallas hot-pixel kernel is
-size-gated to >= 2 MP frames).  The histogram-threshold helpers are host
-numpy, as in the JAX package.
+(..., H, W) tensors on any device and are plain PyTorch; ``fix_hot_pixels``
+is also the plain twin of the hot-pixel kernel K6
+(``ops/ecc_kernels.fix_hot_pixels_kernel``), which the frame program uses.
+The histogram-threshold helpers are host numpy, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -231,103 +231,131 @@ class PatchNodeCorrection(NamedTuple):
         )
 
 
+def _reflect101(v: np.ndarray, n: int) -> np.ndarray:
+    """BORDER_REFLECT_101 index (valid while the reach is below n)."""
+    return np.where(v < 0, -v, np.where(v >= n, 2 * (n - 1) - v, v))
+
+
+def _cluster_entries(k, M, b_idx, i_idx, int_k, int_i, taps, image_hw):
+    """Affected pixels of cluster ``k`` and their (row, source pixel,
+    coefficient) entries, in the order a loop over affected pixels, filter
+    taps (dy outer) and nonzero boundary columns meets them; None when
+    the filter window reaches another cluster's interior."""
+    h, w = image_hw
+    r = len(taps) // 2
+    d = np.arange(-r, r + 1)
+    dy, dx = np.repeat(d, d.size), np.tile(d, d.size)  # dy outer
+    wgt = taps[dy + r] * taps[dx + r]  # (T,) f64
+    q_int = i_idx[k][i_idx[k] != h * w]
+    yy = (q_int // w)[:, None] + dy[None, :]
+    xx = (q_int % w)[:, None] + dx[None, :]
+    inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+    aff = np.unique((yy * w + xx)[inside])  # sorted affected pixels
+    py, px = aff // w, aff % w
+    q = (_reflect101(py[:, None] + dy[None, :], h) * w
+         + _reflect101(px[:, None] + dx[None, :], w)).ravel()  # (A*T,)
+    kq, iq = int_k[q], int_i[q]
+    if ((kq >= 0) & (kq != k)).any():
+        return None  # interacting clusters
+    a_of = np.repeat(np.arange(aff.size), dy.size)
+    v_of = np.tile(wgt, aff.size)
+    bcols = np.nonzero((np.abs(M[k]) > 0).any(axis=0))[0]
+    mk = M[k][:, bcols]  # (I_max, nb)
+    nz_r, nz_c = np.nonzero(mk)  # row-major: columns ascending per row
+    nnz = np.bincount(nz_r, minlength=mk.shape[0])
+    row_start = np.cumsum(nnz) - nnz
+    interior = kq >= 0
+    cnt = np.where(interior, nnz[np.where(interior, iq, 0)], 1)
+    start = np.cumsum(cnt) - cnt
+    n_ent = int(cnt.sum())
+    ent_a = np.repeat(a_of, cnt)
+    ent_q = np.empty(n_ent, np.int64)
+    ent_v = np.empty(n_ent, np.float64)
+    ent_q[start[~interior]] = q[~interior]
+    ent_v[start[~interior]] = v_of[~interior]
+    j = np.nonzero(interior)[0]
+    n_j = nnz[iq[j]]
+    within = np.arange(int(n_j.sum())) - np.repeat(np.cumsum(n_j) - n_j, n_j)
+    src = np.repeat(row_start[iq[j]], n_j) + within
+    dst = np.repeat(start[j], n_j) + within
+    ent_q[dst] = b_idx[k, bcols[nz_c[src]]]
+    ent_v[dst] = np.repeat(v_of[j], n_j) * mk[nz_r[src], nz_c[src]]
+    return aff, ent_a, ent_q, ent_v
+
+
 def build_patch_node_correction(op: Optional[PatchOperator],
                                 image_hw: Tuple[int, int], filter_type: str,
                                 ksize: int) -> Optional[PatchNodeCorrection]:
     """Precompose filter(patch(warped)) at every affected pixel; None when
-    the filter is unsupported or two clusters' windows interact."""
+    the filter is unsupported or two clusters' windows interact.
+
+    Source pixels take slots in the order the reference's loop meets them,
+    and each coefficient sums its contributions in that order in f64, so
+    the result equals ``upsp_tpu.ops.patching.build_patch_node_correction``
+    exactly; the loop itself is vectorised per cluster."""
     if op is None:
         return None
     taps = filter_taps(filter_type, ksize)  # the fused tail's filter
     if taps is None:
         return None
     taps = np.asarray(taps or (1.0,), np.float64)
-    r = len(taps) // 2
     h, w = image_hw
     M = op.M.cpu().numpy().astype(np.float64)
     b_idx = op.boundary_idx.cpu().numpy()
     i_idx = op.internal_idx.cpu().numpy()
     k_n = op.n_clusters
-    col_valid = (np.abs(M) > 0).any(axis=1)  # (K, B_max)
 
-    int_map = {}  # flat pixel -> (cluster, M row)
+    # flat pixel -> (cluster, M row) of every interior pixel; later
+    # clusters win, as in the reference's dict
+    int_k = np.full(h * w + 1, -1, np.int64)
+    int_i = np.full(h * w + 1, -1, np.int64)
     for k in range(k_n):
-        for i, q in enumerate(i_idx[k]):
-            if q != h * w:
-                int_map[int(q)] = (k, i)
+        rows = np.nonzero(i_idx[k] != h * w)[0]
+        int_k[i_idx[k, rows]] = k
+        int_i[i_idx[k, rows]] = rows
 
-    def refl(v, n):  # reflect-101
-        if v < 0:
-            return -v
-        if v >= n:
-            return 2 * (n - 1) - v
-        return v
-
-    src_of: dict = {}
-    src_list: list = []
-
-    def slot(q):
-        s = src_of.get(q)
-        if s is None:
-            s = src_of[q] = len(src_list)
-            src_list.append(q)
-        return s
-
-    rows_per_cluster = []
+    per_cluster = []
     for k in range(k_n):
-        aff = set()
-        for q in (int(q) for q in i_idx[k] if q != h * w):
-            y, x = q // w, q % w
-            for dy in range(-r, r + 1):
-                for dx in range(-r, r + 1):
-                    yy, xx = y + dy, x + dx
-                    if 0 <= yy < h and 0 <= xx < w:
-                        aff.add(yy * w + xx)
-        bcols = np.nonzero(col_valid[k])[0]
-        bflat = [int(b_idx[k, c]) for c in bcols]
-        rows = []
-        for p in sorted(aff):
-            py, px = p // w, p % w
-            row: dict = {}
-            for dy in range(-r, r + 1):
-                wy = taps[dy + r]
-                qy = refl(py + dy, h)
-                for dx in range(-r, r + 1):
-                    wgt = wy * taps[dx + r]
-                    q = qy * w + refl(px + dx, w)
-                    hit = int_map.get(q)
-                    if hit is None:
-                        row[slot(q)] = row.get(slot(q), 0.0) + wgt
-                        continue
-                    kq, iq = hit
-                    if kq != k:
-                        return None  # interacting clusters
-                    for c, bf in zip(bcols, bflat):
-                        coef = M[k, iq, c]
-                        if coef != 0.0:
-                            s = slot(bf)
-                            row[s] = row.get(s, 0.0) + wgt * coef
-            rows.append((p, row))
-        rows_per_cluster.append(rows)
-
-    a_max = max((len(rs) for rs in rows_per_cluster), default=0)
+        got = _cluster_entries(k, M, b_idx, i_idx, int_k, int_i, taps, image_hw)
+        if got is None:
+            return None
+        per_cluster.append(got)
+    a_max = max((aff.size for aff, _, _, _ in per_cluster), default=0)
     if a_max == 0:
         return None
-    local_slots = [sorted({s for _, row in rs for s in row})
-                   for rs in rows_per_cluster]
-    s_max = max(len(u) for u in local_slots)
+    # global slots in order of first appearance: per cluster its distinct
+    # sources with their first entry, then across clusters in cluster order
+    per_q = [np.unique(e[2], return_index=True, return_inverse=True)
+             for e in per_cluster]
+    cand_q = np.concatenate([u for u, _, _ in per_q])
+    cand_order = np.concatenate([
+        k * (1 + max(e[2].size for e in per_cluster)) + first
+        for k, (_, first, _) in enumerate(per_q)
+    ])
+    uniq = np.unique(cand_q)
+    first = np.full(uniq.size, np.iinfo(np.int64).max)
+    np.minimum.at(first, np.searchsorted(uniq, cand_q), cand_order)
+    by_first = np.argsort(first)
+    slot_of = np.empty(uniq.size, np.int64)
+    slot_of[by_first] = np.arange(uniq.size)
+    local = []
+    for (aff, ent_a, _, ent_v), (uq, _, inv) in zip(per_cluster, per_q):
+        s_uq = slot_of[np.searchsorted(uniq, uq)]
+        slots = np.unique(s_uq)  # sorted global slots of this cluster
+        local.append((aff, ent_a, np.searchsorted(slots, s_uq)[inv.ravel()],
+                      ent_v, slots))
+    s_max = max(e[4].size for e in local)
     C = np.zeros((k_n, a_max, s_max), np.float32)
     src_slot = np.zeros((k_n, s_max), np.int64)
     pix = np.full((k_n, a_max), h * w, np.int64)
-    for k, rs in enumerate(rows_per_cluster):
-        pos = {s: j for j, s in enumerate(local_slots[k])}
-        src_slot[k, : len(local_slots[k])] = local_slots[k]
-        for a, (p, row) in enumerate(rs):
-            pix[k, a] = p
-            for s, coef in row.items():
-                C[k, a, pos[s]] = coef
+    for k, (aff, ent_a, pos, ent_v, slots) in enumerate(local):
+        acc = np.zeros((a_max, s_max), np.float64)
+        np.add.at(acc, (ent_a, pos), ent_v)  # in entry order
+        C[k] = acc
+        src_slot[k, : slots.size] = slots
+        pix[k, : aff.size] = aff
     return PatchNodeCorrection(
-        src_flat=torch.from_numpy(np.asarray(src_list, np.int64)),
+        src_flat=torch.from_numpy(uniq[by_first].astype(np.int64)),
         C=torch.from_numpy(C), src_slot=torch.from_numpy(src_slot),
         pix_idx=torch.from_numpy(pix), n_clusters=k_n,
     )

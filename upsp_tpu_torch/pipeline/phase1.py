@@ -1,12 +1,13 @@
 """Phase 1: the per-frame program — register, patch, filter, project.
 
 Port of ``upsp_tpu/pipeline/phase1.py`` on its kernel branch, batched over
-frames instead of ``vmap``-ped: per frame batch and camera, hot-pixel
-repair, the FFT phase-correlation estimate, the integer pre-shift, a
+frames instead of ``vmap``-ped: per chunk, the optional on-card unpack of
+packed video bytes (K7/K8); per frame batch and camera, hot-pixel repair
+(K6), the FFT phase-correlation estimate, the integer pre-shift, a
 fixed-iteration ECC solve (K1 pre-blur, K2 warp + K3 statistics per
 Gauss-Newton step), and the fused warp+filter tail (K4) with the patch
-overlays; then the combined best-view gather, NaN for skipped nodes and
-overlap supersession.
+overlays; then the combined best-view gather with NaN for skipped nodes
+and overlap supersession (K5), in model order.
 
 Only the fft warm start with integer pre-shift is ported (the JAX
 package's production default); ``scan`` and identity starts, the dense
@@ -24,6 +25,7 @@ import torch
 
 from upsp_tpu_torch.ops.ecc_kernels import (
     filter_taps,
+    fix_hot_pixels_kernel,
     warp_affine_banded,
     warp_displacement_bound,
     warp_filter,
@@ -34,7 +36,13 @@ from upsp_tpu_torch.ops.fftreg import (
     prepare_template,
     translation_warp,
 )
-from upsp_tpu_torch.ops.image import apply_filter, fix_hot_pixels
+from upsp_tpu_torch.ops.gather_kernels import (
+    GatherPlan,
+    apply_overlays,
+    build_gather_plan,
+    project_gather,
+)
+from upsp_tpu_torch.ops.image import apply_filter
 from upsp_tpu_torch.ops.patching import (
     apply_patches,
     build_patch_node_correction,
@@ -42,6 +50,7 @@ from upsp_tpu_torch.ops.patching import (
 )
 from upsp_tpu_torch.ops.projection import NodeProjection, project_frame
 from upsp_tpu_torch.ops.registration import ecc_affine, ecc_blur
+from upsp_tpu_torch.ops.unpack_kernels import make_unpacker
 from upsp_tpu_torch.ops.warp import MAX_INTEGER_SHIFT, integer_shift
 
 ECC_GAUSS_SIZE = 5  # the ECC pre-blur (registration.py default)
@@ -57,16 +66,24 @@ class Phase1Params:
     patch_ops: Tuple  # per camera: PatchOperator | None
     ref_frames: torch.Tensor  # (C, H, W) float32
     superseded_by: torch.Tensor  # (N,) int64
-    # best-view fast path (every node has at most one positive camera
-    # weight): ONE gather from the stacked (C*H*W,) frames
-    combined_index: Optional[torch.Tensor] = None  # (N,) int64
-    combined_weight: Optional[torch.Tensor] = None  # (N,) float32
     # fused-tail patch corrections, per camera: PatchNodeCorrection | None
     patch_corr: Tuple = ()
-    # per camera: (node_idx, value_slot, weight) overlay tensors | None
-    corr_nodes: Tuple = ()
     # the (filter_type, filter_size) the corrections were precomposed for
     corr_filter: Optional[Tuple[str, int]] = None
+    # best-view fast path (every node has at most one positive camera
+    # weight): the K5 plan of ONE gather from the stacked (C*H*W,) frames,
+    # with the per-camera patch overlays (ops/gather_kernels.py)
+    gather: Optional[GatherPlan] = None
+
+
+def best_view_gather_plan(combined_index, combined_weight, skipped,
+                          superseded_by, corr_nodes, ref_frames) -> GatherPlan:
+    """The K5 plan of the best-view path, on the reference frames' device;
+    ``corr_nodes`` per camera: (node_idx, value_slot, weight) | None."""
+    return build_gather_plan(combined_index, combined_weight, skipped,
+                             superseded_by, corr_nodes,
+                             int(np.prod(ref_frames.shape)),
+                             device=ref_frames.device)
 
 
 def phase1_params(state) -> Phase1Params:
@@ -83,18 +100,15 @@ def phase1_params(state) -> Phase1Params:
         idx = np.stack([p.pixel_index.cpu().numpy() for p in projections])
         best = w.argmax(axis=0)  # 0 where all-zero (weight 0 kills it)
         n = np.arange(w.shape[1])
-        combined_index = torch.as_tensor(best * HW + idx[best, n],
-                                         dtype=torch.int64, device=dev)
-        combined_weight = torch.as_tensor(w[best, n].astype(np.float32),
-                                          device=dev)
+        combined_index = (best * HW + idx[best, n]).astype(np.int64)
+        combined_weight = w[best, n].astype(np.float32)
     patch_corr: list = []
     corr_nodes: list = []
     if combined_index is not None and any(op is not None for op in state.patch_ops):
         cfg = state.config
-        stacked = combined_index.cpu().numpy()
-        wgt = combined_weight.cpu().numpy()
-        best = stacked // HW
-        pixel = stacked % HW
+        wgt = combined_weight
+        best = combined_index // HW
+        pixel = combined_index % HW
         for c, op in enumerate(state.patch_ops):
             corr = build_patch_node_correction(op, state.image_hw, cfg.filter,
                                                cfg.filter_size)
@@ -111,23 +125,20 @@ def phase1_params(state) -> Phase1Params:
             )[valid]
             ni = np.nonzero((best == c) & (wgt > 0) & (slot_arr[pixel] >= 0))[0]
             patch_corr.append(corr.to(dev))
-            corr_nodes.append((
-                torch.as_tensor(ni, dtype=torch.int64, device=dev),
-                torch.as_tensor(slot_arr[pixel[ni]], dtype=torch.int64, device=dev),
-                torch.as_tensor(wgt[ni], dtype=torch.float32, device=dev),
-            ))
+            corr_nodes.append((ni, slot_arr[pixel[ni]], wgt[ni]))
     return Phase1Params(
         projections=projections,
         skipped=state.skipped,
         patch_ops=tuple(state.patch_ops),
         ref_frames=state.ref_frames,
         superseded_by=state.superseded_by,
-        combined_index=combined_index,
-        combined_weight=combined_weight,
         patch_corr=tuple(patch_corr),
-        corr_nodes=tuple(corr_nodes),
         corr_filter=(
             (state.config.filter, state.config.filter_size) if patch_corr else None
+        ),
+        gather=None if combined_index is None else best_view_gather_plan(
+            combined_index, combined_weight, state.skipped, state.superseded_by,
+            corr_nodes, state.ref_frames,
         ),
     )
 
@@ -154,10 +165,9 @@ def process_frames_core(
     warps, teles, processed, overlays = [], [], [], []
     sol = None
     for c in range(n_cams):
-        img = frames[:, c].to(torch.float32)
+        img = frames[:, c].to(torch.float32).contiguous()
         if fix_hot:
-            img = fix_hot_pixels(img)
-        img = img.contiguous()
+            img = fix_hot_pixels_kernel(img)
         tail_done = False
         if registration == "pixel":
             vs_c = None if valid_shift is None else valid_shift[:, c]
@@ -173,11 +183,12 @@ def process_frames_core(
             teles.append(torch.stack([rho, conv, t_tot[:, 0], t_tot[:, 1], cert],
                                      dim=1))
             warps.append(warp)
+            # a correction exists only on the best-view path, and with it
+            # the plan's overlay of camera c
             corr = params.patch_corr[c] if c < len(params.patch_corr) else None
-            nodes = params.corr_nodes[c] if c < len(params.corr_nodes) else None
             need_patch = patch and params.patch_ops[c] is not None
             corr_ok = (
-                corr is not None and nodes is not None
+                corr is not None
                 and params.corr_filter == (filter_type, filter_size)
             )
             if tail_taps is not None and (not need_patch or corr_ok):
@@ -197,27 +208,33 @@ def process_frames_core(
             if patch and params.patch_ops[c] is not None:
                 img = apply_patches(img, params.patch_ops[c])
             img = apply_filter(img, filter_type, filter_size)
-        if params.combined_index is not None:
+        if params.gather is not None:
             processed.append(img)
         else:
             c_sol = project_frame(img, params.projections[c])
             sol = c_sol if sol is None else sol + c_sol
-    if params.combined_index is not None:
+    if params.gather is not None:
+        # K5: gather + skip mask + supersession in model order, then the
+        # patch overlays on every node that displays an overlaid node
         stacked = torch.stack(processed, dim=1).reshape(b, -1)
-        sol = stacked[:, params.combined_index] * params.combined_weight
-        for c, vals in overlays:
-            ni, ns, nw = params.corr_nodes[c]
-            sol[:, ni] = vals.reshape(b, -1)[:, ns] * nw
-    sol = torch.where(params.skipped, torch.full_like(sol, float("nan")), sol)
-    sol = sol[:, params.superseded_by]  # overlap supersession
+        sol = apply_overlays(project_gather(stacked, params.gather),
+                             params.gather, overlays)
+    else:
+        sol = torch.where(params.skipped, torch.full_like(sol, float("nan")), sol)
+        sol = sol[:, params.superseded_by]  # overlap supersession
     return sol, torch.stack(warps, dim=1), torch.stack(teles, dim=1)
 
 
 def make_chunk_processor(state, with_telemetry: bool = False,
-                         frame_batch: int = 8):
+                         frame_batch: int = 8, packed: bool = False,
+                         packed_bits: int = 12, lut=None):
     """Build the chunk program: (F, C, H, W) frames (numpy or tensor, any
     numeric dtype) -> (F, N) intensities [and (F, C, 5) telemetry], on the
     state's device.
+
+    ``packed``: the chunk is (F, C, nbytes) uint8 packed video bytes
+    (``packed_bits`` 12 or 10, with the optional (1024,) 10->12-bit
+    ``lut``), unpacked on the device by K7/K8 before the frame program.
 
     With pixel registration each frame's ECC starts from the fft warm
     start: the phase-correlation estimate, split into an integer pre-shift
@@ -248,13 +265,16 @@ def make_chunk_processor(state, with_telemetry: bool = False,
             for c in range(n_cams)
         ]
 
+    unpack = (make_unpacker(packed_bits, lut, state.image_hw, state.device)
+              if packed else None)
+
     def one_batch(frames: torch.Tensor):
         if not fft:
             sol, _, tele = process_frames_core(frames, p, **static)
             return sol, tele
         # hot-pixel repair first, then split the translation estimate:
         # integer part shifted off, sub-pixel residual solved by ECC
-        fixed = fix_hot_pixels(frames)
+        fixed = fix_hot_pixels_kernel(frames)
         tvecs = torch.stack(
             [correlate(corr_tmpls[c], fixed[:, c]) for c in range(n_cams)], dim=1
         )  # (B, C, 2)
@@ -275,6 +295,8 @@ def make_chunk_processor(state, with_telemetry: bool = False,
 
     def process(chunk):
         x = torch.as_tensor(chunk)
+        if unpack is not None:
+            x = unpack(x.to(state.device))
         sols, teles = [], []
         for s in range(0, x.shape[0], max(frame_batch, 1)):
             frames = x[s : s + max(frame_batch, 1)].to(state.device)

@@ -1,14 +1,17 @@
 """End-to-end datapoint processing on one device: the ``psp_process`` path.
 
 Port of ``upsp_tpu/pipeline/run.py`` (``run_datapoint`` :385-569) in
-memory and on a single device: open the videos (host decode through the
-``upsp_tpu.io.video`` readers), phase 0 once, phase 1 per frame chunk,
-f64 frame statistics on the host, phase 2 on the device, then the 15 flat
-files, the registration telemetry and ``output.h5``.
+memory and on a single device: open the videos, phase 0 once, phase 1 per
+frame chunk, f64 frame statistics on the host, phase 2 on the device, then
+the 15 flat files, the registration telemetry and ``output.h5``.
+
+Frames reach phase 1 as packed video bytes, unpacked on the device by
+K7/K8, whenever every camera's video supports packed reads in one format
+(``device_unpack="auto"``, the default); otherwise the
+``upsp_tpu.io.video`` readers decode them on the host.
 
 Not ported here (ROADMAP.md): out-of-core streaming, device meshes and
-multi-process runs, packed on-device ingest (kernels K7/K8; frames always
-decode on the host), and the band guard that re-runs out-of-band frames on
+multi-process runs, and the band guard that re-runs out-of-band frames on
 a dense path — the port's warp kernel has no band limit.
 """
 
@@ -23,11 +26,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-# the jax-free formats of upsp_tpu, reused by import; FLAT_FILES, read_flat
-# and read_input_deck are re-exported for callers of the port
+# the jax-free formats of upsp_tpu, reused by import; FLAT_FILES, read_flat,
+# read_input_deck and the cine 10->12-bit LUT are re-exported for callers
+# of the port
 from upsp_tpu.io.flatfile import FLAT_FILES, FlatFileSet, read_flat  # noqa: F401
 from upsp_tpu.io.paint import PaintCalibration
 from upsp_tpu.io.video import FramePrefetcher, video_reader
+from upsp_tpu.io.video.cine import LUT_10_TO_12  # noqa: F401
 from upsp_tpu.io.wtd import read_wtd
 from upsp_tpu.pipeline.config import ProcessingConfig, read_input_deck  # noqa: F401
 from upsp_tpu_torch.ops.projection import coverage as proj_coverage
@@ -36,13 +41,6 @@ from upsp_tpu_torch.pipeline.phase1 import make_chunk_processor
 from upsp_tpu_torch.pipeline.phase2 import Phase2Outputs, run_phase2
 
 log = logging.getLogger("upsp_tpu")
-
-# size classes whose JAX path runs kernels the port has not written yet:
-# the Pallas slab gather (>= 200k nodes, phase1.py:768-776) and the Pallas
-# hot-pixel kernel (>= 2 MP frames, phase1.py:874-883)
-MAX_NODES = 200_000
-MAX_PIXELS = 2_000_000
-
 
 @dataclasses.dataclass
 class DatapointOutputs:
@@ -65,18 +63,28 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_slice_size(image_hw, n_nodes: int) -> None:
-    """Refuse the size classes whose JAX path needs kernels not ported."""
-    if image_hw[0] * image_hw[1] >= MAX_PIXELS:
-        raise NotImplementedError(
-            f"{image_hw[0]}x{image_hw[1]} frames (>= 2 MP) need the hot-pixel "
-            "kernel K6, not ported yet (ROADMAP.md queue 2, K6)"
-        )
-    if n_nodes >= MAX_NODES:
-        raise NotImplementedError(
-            f"{n_nodes} nodes (>= 200k) need the slab-gather kernel K5, not "
-            "ported yet (ROADMAP.md queue 2, K5)"
-        )
+def packed_ingest_config(readers, frames_array, device_unpack):
+    """(use packed ingest, {"packed_bits", "lut"}): packed bytes go to the
+    device when every camera's video supports packed reads with one bit
+    depth and one linearisation LUT (upsp_tpu/pipeline/run.py:62-86)."""
+    if (
+        frames_array is not None
+        or device_unpack not in ("auto", True)
+        or not readers
+        or not all(r.supports_packed_reads for r in readers)
+    ):
+        return False, {}
+    bits = {r.packed_bits for r in readers}
+    if len(bits) != 1:
+        return False, {}
+    luts = [r.packed_lut for r in readers]
+    lut0 = luts[0]
+    for lut in luts[1:]:
+        if (lut is None) != (lut0 is None) or (
+            lut0 is not None and not np.array_equal(lut, lut0)
+        ):
+            return False, {}
+    return True, {"packed_bits": bits.pop(), "lut": lut0}
 
 
 def open_videos(cfg: ProcessingConfig):
@@ -124,23 +132,60 @@ def _camera_settings(readers, cfg, state) -> Dict:
     return out
 
 
-def _chunk_iter(frames_array, readers, n_frames, start0, frames_per_chunk):
-    """Yield (start, (chunk, C, H, W) uint16/float stack); file input is
-    decoded on the host by background prefetchers."""
+class _PinnedStaging:
+    """One page-locked host buffer: each chunk's per-camera bytes are
+    gathered into it and copied to the card with ``non_blocking=True``.
+    The buffer is refilled only after its last copy has finished."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.buffer = None
+        self.copied = None  # event after the last copy out of the buffer
+
+    def to_device(self, per_cam) -> torch.Tensor:
+        shape = (per_cam[0].shape[0], len(per_cam)) + per_cam[0].shape[1:]
+        buf = self.buffer
+        if buf is None or buf.shape[0] < shape[0] or buf.shape[1:] != shape[1:]:
+            buf = self.buffer = torch.empty(shape, dtype=torch.uint8,
+                                            pin_memory=True)
+        elif self.copied is not None:
+            self.copied.synchronize()
+        host = buf[: shape[0]]
+        for c, a in enumerate(per_cam):
+            host[:, c].copy_(torch.from_numpy(a))
+        dev = host.to(self.device, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        return dev
+
+
+def _chunk_iter(frames_array, readers, n_frames, start0, frames_per_chunk,
+                packed=False, device=torch.device("cpu")):
+    """Yield (start, chunk).  File input is read by background prefetchers:
+    with ``packed`` the chunk is the (chunk, C, nbytes) uint8 packed bytes,
+    already on ``device`` (through pinned host memory on CUDA); otherwise
+    the (chunk, C, H, W) frames decoded on the host."""
     if frames_array is not None:
         for s in range(0, n_frames, frames_per_chunk):
             yield s, frames_array[s : s + frames_per_chunk]
         return
     prefetchers = [
         iter(FramePrefetcher(r, n_frames, start=start0,
-                             frames_per_chunk=frames_per_chunk, packed=False))
+                             frames_per_chunk=frames_per_chunk, packed=packed))
         for r in readers
     ]
+    staging = _PinnedStaging(device) if packed and device.type == "cuda" else None
     s = 0
     while s < n_frames:
-        stack = np.stack([next(p) for p in prefetchers], axis=1)
-        yield s, stack
-        s += stack.shape[0]
+        per_cam = [next(p) for p in prefetchers]
+        if staging is not None:
+            chunk = staging.to_device(per_cam)
+        elif packed:
+            chunk = torch.from_numpy(np.stack(per_cam, axis=1)).to(device)
+        else:
+            chunk = np.stack(per_cam, axis=1)
+        yield s, chunk
+        s += chunk.shape[0]
 
 
 def run_datapoint(
@@ -151,17 +196,21 @@ def run_datapoint(
     frames_array: Optional[np.ndarray] = None,
     registration_telemetry: bool = False,
     stage_times: Optional[dict] = None,
+    device_unpack="auto",
 ) -> DatapointOutputs:
     """Process one datapoint end to end on ``device`` (ECC from the fft
     warm start, 8-frame batches); outputs go to ``cfg.out_dir`` when set.
 
     ``frames_array`` (F, C, H, W) bypasses the video files.
+    ``device_unpack``: "auto" (or True) ships the videos' packed bytes to
+    the device and unpacks them there (K7/K8) when every camera supports
+    packed reads in one format; False decodes frames on the host.
     ``registration_telemetry`` writes the per-frame, per-camera ECC record
     [rho, final |drho|, tx, ty, disp_bound] to the ``registration`` flat
     file with its ``registration.json`` sidecar.  ``stage_times``, when a
-    dict, receives the wall seconds of phase 0, phase 1 (host decode
-    included), phase 2 and the output writes, each ended by a device
-    synchronise.
+    dict, receives the wall seconds of phase 0, phase 1 (ingest included;
+    ``phase1_setup`` is its set-up part, before the first frame), phase 2
+    and the output writes, each ended by a device synchronise.
     """
     import time
 
@@ -187,11 +236,15 @@ def run_datapoint(
         readers, n_frames, start0 = open_videos(cfg)
         first_frames = [r.read_frame(start0) for r in readers]
         bit_depths = [r.bit_depth for r in readers]
-    log.info("phase1: frames decode on the host (packed on-device ingest, "
-             "kernels K7/K8, is not ported yet)")
+    use_packed, packed_kw = packed_ingest_config(readers, frames_array,
+                                                 device_unpack)
+    if use_packed:
+        log.info("phase1: packed %d-bit bytes go to %s and unpack there",
+                 packed_kw["packed_bits"], device)
+    else:
+        log.info("phase1: frames decode on the host")
 
     state = run_phase0(cfg, first_frames, bit_depths, device=device)
-    check_slice_size(state.image_hw, state.n_nodes)
     camset = _camera_settings(readers, cfg, state)
     diag_dir = cfg.add_out_dir or cfg.out_dir
     if diag_dir:
@@ -207,13 +260,15 @@ def run_datapoint(
             r.close()
         return DatapointOutputs(state, None, None, None, None, None, n_frames)
 
-    fn = make_chunk_processor(state, with_telemetry=True)
+    fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
+                              **packed_kw)
+    mark("phase1_setup", t0)  # part of phase 1: parameters, templates
     n_nodes = state.n_nodes
     intensity = np.empty((n_frames, n_nodes), np.float32)
     reg_telemetry = None
     for start, chunk in _chunk_iter(frames_array, readers, n_frames, start0,
-                                    frames_per_chunk):
-        out, tele = fn(np.ascontiguousarray(chunk))
+                                    frames_per_chunk, use_packed, device):
+        out, tele = fn(chunk if use_packed else np.ascontiguousarray(chunk))
         valid = out.shape[0]
         tele_np = tele.cpu().numpy()
         if reg_telemetry is None:

@@ -1,22 +1,25 @@
 """Synthetic datapoints on disk: the inputs of one ``upsp-process`` run.
 
 Writes, from a seed, everything an input deck names: a flat-plate PLOT3D
-grid, per-camera 12-bit ``.mraw`` videos with ``.cih`` headers and camera
-JSON calibrations, a ``.tgts`` target file, a ``.wtd`` tunnel-conditions
-file, a paint calibration and the deck itself.
+grid, per-camera videos (12-bit packed ``.mraw`` with ``.cih`` headers, or
+10-bit packed Phantom ``.cine``) and camera JSON calibrations, a ``.tgts``
+target file, a ``.wtd`` tunnel-conditions file, a paint calibration and
+the deck itself.
 
 The cameras look straight down on the plate from offset positions, so
 they overlap and best-view decides each node.  Each frame is a
 band-limited random texture (broadband, so the FFT phase correlation has
 real content in every spectral bin) with darkened fiducial dots, shifted
 by a sub-pixel translation through a Fourier phase ramp; ``n_distinct``
-frames are synthesised and tiled to ``n_frames``.
+frames are synthesised and tiled to ``n_frames``.  Optionally a few
+frames carry hot pixels (see :func:`_add_hot_pixels`).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import struct
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -101,6 +104,79 @@ def target_positions(n_targets: int, seed: int) -> np.ndarray:
     return np.array(pts)
 
 
+HOT = 4095  # a saturated 12-bit pixel
+
+
+def _add_hot_pixels(stack: np.ndarray, seed: int) -> None:
+    """Saturate pixels of frames 1-3 of an (F, C, H, W) stack in place, per
+    camera: 3 on frame 1 (a corner, an edge, the interior) and 5 on frame 2
+    (all four corners and an edge) — both repaired, at most 5 candidates —
+    and 8 interior ones on frame 3, a frame the repair leaves as it is
+    (more than 5 candidates).  Frame 0, the ECC template, stays clean."""
+    rng = np.random.default_rng(seed + 202)
+    n_f, n_c, h, w = stack.shape
+    for c in range(n_c):
+        x, y = int(rng.integers(1, w - 1)), int(rng.integers(1, h - 1))
+        pattern = {
+            1: [(0, 0), (y, w - 1), (y, x)],
+            2: [(0, 0), (0, w - 1), (h - 1, 0), (h - 1, w - 1), (0, x)],
+            3: [(int(rng.integers(1, h - 1)), int(rng.integers(1, w - 1)))
+                for _ in range(8)],
+        }
+        for f, pts in pattern.items():
+            if f < n_f:
+                for py, px in pts:
+                    stack[f, c, py, px] = HOT
+
+
+def _inverse_lut(lut: np.ndarray) -> np.ndarray:
+    """(4096,) 10-bit code whose entry in the monotone 10->12-bit ``lut``
+    lies nearest each 12-bit value (the lowest such code on ties)."""
+    v = np.arange(4096)
+    hi = np.clip(np.searchsorted(lut, v), 0, lut.size - 1)
+    lo = np.clip(hi - 1, 0, lut.size - 1)
+    lo_nearer = np.abs(lut[lo].astype(np.int64) - v) <= np.abs(
+        lut[hi].astype(np.int64) - v)
+    return np.where(lo_nearer, lo, hi)
+
+
+def _write_cine10(path: str, codes: np.ndarray, frame_rate: int = 10000,
+                 shutter_ns: int = 50000) -> None:
+    """A packed 10-bit Phantom ``.cine`` of (F, H, W) 10-bit codes, in the
+    header layout ``upsp_tpu.io.video.cine`` reads (CINEFILEHEADER,
+    BITMAPINFOHEADER with biCompression 1, SETUP with RealBPP 10, the image
+    offset table, then per image an 8-byte annotation and the payload)."""
+    from upsp_tpu.io.video.util import pack_10bpp
+
+    n_f, h, w = codes.shape
+    if (h * w) % 4:
+        raise ValueError("a 10-bit packed frame needs H*W divisible by 4")
+    setup_size = 7240
+    off_bih = 44
+    off_setup = off_bih + 40
+    off_offsets = off_setup + setup_size
+    data_start = off_offsets + 8 * n_f
+    img_bytes = h * w * 10 // 8
+    setup = bytearray(setup_size)
+    struct.pack_into("<H", setup, 142, setup_size)
+    struct.pack_into("<H", setup, 737, w)
+    struct.pack_into("<H", setup, 739, h)
+    struct.pack_into("<I", setup, 768, frame_rate)
+    struct.pack_into("<I", setup, 1568, shutter_ns)
+    struct.pack_into("<I", setup, 896, 10)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<HHHHiIiIIIIII", 0x4943, 44, 0, 1, 0, n_f, 0, n_f,
+                             off_bih, off_setup, off_offsets, 0, 0))
+        fh.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 10, 1, img_bytes,
+                             0, 0, 0, 0))
+        fh.write(setup)
+        fh.write(struct.pack(f"<{n_f}q", *(data_start + i * (8 + img_bytes)
+                                           for i in range(n_f))))
+        for i in range(n_f):
+            fh.write(struct.pack("<II", 8, img_bytes))
+            fh.write(pack_10bpp(codes[i]).tobytes())
+
+
 def write_datapoint(
     root: str,
     n_cameras: int = 2,
@@ -113,9 +189,17 @@ def write_datapoint(
     seed: int = 0,
     options: Sequence[str] = (),
     shifts: Optional[np.ndarray] = None,
+    video_format: str = "mraw12",
+    hot_pixels: bool = False,
 ) -> dict:
     """Write a datapoint under ``root``; returns {"deck", "shifts", "frames"
-    (the (F, C, H, W) uint16 stack as written), "out_dir"}.
+    (the (F, C, H, W) uint16 stack as the videos decode), "out_dir"}.
+
+    ``video_format``: "mraw12" (12-bit packed ``.mraw`` + ``.cih``) or
+    "cine10" (10-bit packed ``.cine``: each frame is quantised to the
+    10-bit code whose cine 10->12-bit LUT value is nearest, so ``frames``
+    holds the LUT values).  ``hot_pixels`` saturates pixels of frames 1-3
+    (:func:`_add_hot_pixels`).
 
     ``shifts`` (n_distinct, 2) gives the per-frame (dx, dy) jitter
     explicitly; by default it is uniform in +-``max_shift_px`` with frame 0
@@ -126,6 +210,8 @@ def write_datapoint(
     from upsp_tpu.io.plot3d import write_p3d_grid
     from upsp_tpu.io.video.util import pack_12bpp
 
+    if video_format not in ("mraw12", "cine10"):
+        raise ValueError(f"video_format must be mraw12 or cine10, got {video_format!r}")
     os.makedirs(root, exist_ok=True)
     h, w = image_hw
     rng = np.random.default_rng(seed)
@@ -176,18 +262,32 @@ def write_datapoint(
             distinct[f] = np.clip(np.rint(tex * dots * lamp), 0, 4000)
         for f in range(n_frames):
             stack[f, c] = distinct[f % n_distinct]
-        video = os.path.join(root, f"cam{c + 1:02d}.mraw")
-        with open(video, "wb") as fh:
-            for f in range(n_frames):
-                fh.write(pack_12bpp(stack[f, c]).tobytes())
-        with open(os.path.join(root, f"cam{c + 1:02d}.cih"), "w") as fh:
-            fh.write(
-                "Record Rate(fps) : 10000\nShutter Speed(s) : 1/20000\n"
-                f"Total Frame : {n_frames}\nImage Width : {w}\n"
-                f"Image Height : {h}\nColor Bit : 12\nEffectiveBit Depth : 12\n"
-                "EffectiveBit Side : Lower\nFile Format : Mraw\n"
-            )
-        cams.append((video, cam_path))
+        cams.append(cam_path)
+    if hot_pixels:
+        _add_hot_pixels(stack, seed)
+
+    videos = []
+    for c in range(n_cameras):
+        if video_format == "cine10":
+            from upsp_tpu.io.video.cine import LUT_10_TO_12
+
+            codes = _inverse_lut(LUT_10_TO_12)[stack[:, c]]
+            stack[:, c] = LUT_10_TO_12[codes]
+            video = os.path.join(root, f"cam{c + 1:02d}.cine")
+            _write_cine10(video, codes)
+        else:
+            video = os.path.join(root, f"cam{c + 1:02d}.mraw")
+            with open(video, "wb") as fh:
+                for f in range(n_frames):
+                    fh.write(pack_12bpp(stack[f, c]).tobytes())
+            with open(os.path.join(root, f"cam{c + 1:02d}.cih"), "w") as fh:
+                fh.write(
+                    "Record Rate(fps) : 10000\nShutter Speed(s) : 1/20000\n"
+                    f"Total Frame : {n_frames}\nImage Width : {w}\n"
+                    f"Image Height : {h}\nColor Bit : 12\nEffectiveBit Depth : 12\n"
+                    "EffectiveBit Side : Lower\nFile Format : Mraw\n"
+                )
+        videos.append(video)
 
     out_dir = os.path.join(root, "out")
     lines = [
@@ -196,7 +296,7 @@ def write_datapoint(
         f"\ttargets = {root}/plate.tgts",
         f"\tpaint_calibration = {root}/paint.cal",
     ]
-    for c, (video, cam_path) in enumerate(cams):
+    for c, (video, cam_path) in enumerate(zip(videos, cams)):
         lines += ["@camera", f"\tnumber = {c + 1}", f"\tcine = {video}",
                   f"\tcalibration = {cam_path}"]
     lines += ["@options", "\ttarget_patcher = polynomial",

@@ -18,7 +18,7 @@ from upsp_tpu_torch.camera.model import CameraParams
 from upsp_tpu_torch.ops.patching import PatchNodeCorrection, PatchOperator
 from upsp_tpu_torch.ops.projection import NodeProjection
 from upsp_tpu_torch.pipeline.phase0 import Phase0State
-from upsp_tpu_torch.pipeline.phase1 import Phase1Params
+from upsp_tpu_torch.pipeline.phase1 import Phase1Params, best_view_gather_plan
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -63,31 +63,31 @@ def _camera(p) -> CameraParams:
 
 
 def _params_from_jax(params, device) -> Phase1Params:
-    """A JAX ``Phase1Params`` as the port's :class:`Phase1Params`."""
+    """A JAX ``Phase1Params`` as the port's :class:`Phase1Params`, with the
+    K5 gather plan built from its combined projection and overlay nodes."""
     dev = torch.device(device)
-    nodes = tuple(
-        None if cn is None
-        else (_t(cn[0], dev, np.int64), _t(cn[1], dev, np.int64),
-              _t(cn[2], dev, np.float32))
-        for cn in params.corr_nodes
-    )
+    skipped = _t(params.skipped, dev, bool)
+    superseded_by = _t(params.superseded_by, dev, np.int64)
+    ref_frames = _t(params.ref_frames, dev, np.float32)
+    gather = None
+    if params.combined_index is not None:
+        # np.array copies: a jax array reads back as a read-only buffer
+        gather = best_view_gather_plan(
+            np.array(params.combined_index), np.array(params.combined_weight),
+            skipped, superseded_by,
+            [None if cn is None else tuple(np.array(a) for a in cn)
+             for cn in params.corr_nodes],
+            ref_frames,
+        )
     return Phase1Params(
         projections=tuple(_projection(p, dev) for p in params.projections),
-        skipped=_t(params.skipped, dev, bool),
+        skipped=skipped,
         patch_ops=tuple(_patch_op(op, dev) for op in params.patch_ops),
-        ref_frames=_t(params.ref_frames, dev, np.float32),
-        superseded_by=_t(params.superseded_by, dev, np.int64),
-        combined_index=(
-            None if params.combined_index is None
-            else _t(params.combined_index, dev, np.int64)
-        ),
-        combined_weight=(
-            None if params.combined_weight is None
-            else _t(params.combined_weight, dev, np.float32)
-        ),
+        ref_frames=ref_frames,
+        superseded_by=superseded_by,
         patch_corr=tuple(_patch_corr(c, dev) for c in params.patch_corr),
-        corr_nodes=nodes,
         corr_filter=params.corr_filter,
+        gather=gather,
     )
 
 
