@@ -9,28 +9,39 @@ From the root of a checkout, on a machine with a CUDA device:
 2. builds every CUDA source of the port (upsp_tpu_torch/csrc/*.cu, one
    nvcc each, all started together) and prints the time;
 3. holds each kernel against its plain PyTorch twin on the card and times
-   both with CUDA events: K1-K4 on 8 frames of 1024x1024 and of 1200x1800
-   f32, K5-K8 at the full configuration's shapes (8 frames x 4 cameras x
-   1200x1800, a 1,048,576-node gather plan);
-4. drives three synthetic datapoints through scripts/upsp-process-torch,
+   both with CUDA events, and the one PyTorch call that computes the same
+   function where there is one (K1: conv2d over a reflect pad): K1-K4 on 8
+   frames of 1024x1024 and of 1200x1800, in float32 and in bfloat16; K9
+   (the fused GN step) on 8 frames of 1200x1800 in both, also against K2
+   then K3; K5-K8 at the full configuration's shapes (8 frames x 4
+   cameras x 1200x1800, a 1,048,576-node gather plan; K5 with f32 and with
+   bf16 frames);
+4. drives four synthetic datapoints through scripts/upsp-process-torch,
    each with the kernel launch counts reset just before and read just
-   after, packed ingest on and hot pixels injected:
+   after, packed ingest on and hot pixels injected, in this order:
    (a) 2 cameras x 1024x1024 12-bit .mraw, 64 frames, 81,920 nodes;
+   (c) 2 cameras x 1024x1024 10-bit packed .cine, 32 frames;
    (b) the full configuration: 4 cameras x 1200x1800 12-bit .mraw, 64
        frames, a 1024x1024 grid (1,048,576 nodes);
-   (c) 2 cameras x 1024x1024 10-bit packed .cine, 32 frames;
-   every path uses polynomial patches, gaussian 3, best view and the fft
-   warm start;
+   (d) path (b)'s files again with --compute-dtype bfloat16;
+   then (b)'s files once more in f32 and in bf16, for a bf16-against-f32
+   frames/s that (b)'s first run at 1200x1800 does not bias; every path
+   uses polynomial patches, gaussian 3, best view and the fft warm start;
 5. checks each path's outputs (all flat files, the registration sidecar,
    output.h5 where h5py is installed, finite values on visible nodes, the
-   kernels the path must launch) and one batch of its frames — packed
-   bytes unpacked on the card — against the port's CPU twin path.
+   kernels the path must launch, and for (d) that no f32 ECC kernel ran)
+   and one batch of its frames — packed bytes unpacked on the card —
+   against the port's CPU twin path; (d)'s batch also against (b)'s.
 
-Prints the kernel table as one JSON line (per kernel: ``launches`` over
-the three paths and ``launches_by_path``; ``ms``/``plain_ms`` at the full
-configuration's shape, every measured shape under ``shapes``), then as
-the last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
-CUDA is unavailable, the repository is missing, or any phase fails.
+Prints the seconds of each phase, then the kernel table as one JSON line
+(per kernel: ``launches`` over the paths and ``launches_by_path``;
+``ms``/``plain_ms``/``library_ms`` and ``bound_ms``/``bound_by`` at the
+full configuration's shape, every measured shape under ``shapes``; K9
+also ``split_ms``, the time of K2 then K3, and ``kernel_phase_only``: no
+datapoint path runs it), the card's name and power limit, then as the
+last line {"ok": true, "device": {...}}.
+Exits non-zero, printing no result, when CUDA is unavailable, the
+repository is missing, or any phase fails.
 """
 
 import importlib.util
@@ -46,38 +57,72 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 SCRIPT = os.path.join(REPO, "scripts", "upsp-process-torch")
 ECC_CU = "upsp_tpu_torch/csrc/ecc.cu"
+GATHER_CU = "upsp_tpu_torch/csrc/gather.cu"
 KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "blur": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:829"),
     "warp": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:285"),
     "moments": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:587"),
     "warp_filter": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:444"),
-    "gather": ("upsp_tpu_torch/csrc/gather.cu", "upsp_tpu/ops/pallas_gather.py:251"),
+    "gn_fused": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:1044"),
+    "gather": (GATHER_CU, "upsp_tpu/ops/pallas_gather.py:251"),
     "hot": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:739"),
     "unpack12": ("upsp_tpu_torch/csrc/unpack.cu", "upsp_tpu/ops/pallas_unpack.py:37"),
     "unpack10": ("upsp_tpu_torch/csrc/unpack.cu", "upsp_tpu/ops/pallas_unpack.py:76"),
 }
+# the bfloat16 instantiations replace the same TPU kernels (out_dtype=imgs.dtype)
+for _k in ("blur", "warp", "moments", "warp_filter", "gn_fused", "gather"):
+    KERNEL_INFO[f"{_k}_bf16"] = KERNEL_INFO[_k]
+KERNEL_PHASE_ONLY = ("gn_fused", "gn_fused_bf16")  # no datapoint path runs K9
+# the least time of a call: bytes over the HBM rate, operations over the
+# f32 (CUDA-core) rate -- every kernel computes in f32 -- whichever is
+# larger (NVIDIA H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# floating-point operations per output pixel (per node for K5) that the
+# function needs, an FMA as two.  Work that is constant along a row or a
+# column is done once per row or column and left out: sample positions and
+# tent weights, the Taylor displacements, and the y factors of the
+# statistics (sum f*x*y = y * sum_row f*x).  K1: a 5-tap pass (9), twice.
+# K2: four tent taps (9) and the order-2 Taylor term (27: five derivatives
+# 16, the cross displacement 1, five FMAs 10).  K4: K2 and a 3-tap pass
+# (5), twice.  K3: central differences 4, the rotated gradient 6, the
+# brightness shifts 2, the three Hessian products 3 and their x-moments 15
+# (f*x, then sums of f*x*x, f*x, f), the gradient-times-z products 4 and
+# their sums 18 (g*z*x and g*z for two g and three z), the masked sums 9.
+# K9: K2 + K3.  K5: one multiply.  K6: two compares.  K7/K8: integer work.
+FLOPS = {"blur": 2 * 9, "warp": 9 + 27, "warp_filter": 36 + 2 * 5, "moments": 61,
+         "gn_fused": 36 + 61, "gather": 1, "hot": 2, "unpack12": 0, "unpack10": 0}
 B = 8  # the frame batch of the frame program
 FULL_C, FULL_H, FULL_W = 4, 1200, 1800
 # K1-K4 are checked at the frame sizes of paths (a)/(c) and of (b), whose
 # 1800-px rows end in partial tiles
 ECC_SHAPES = ((1024, 1024), (FULL_H, FULL_W))
 N_DISTINCT, N_TARGETS = 16, 12
-# (name, write_datapoint arguments, frames of the card-vs-CPU batch,
-#  kernels the path must launch)
-FRAME_KERNELS = ("blur", "warp", "moments", "warp_filter", "gather", "hot")
+F32_ECC = ("blur", "warp", "moments", "warp_filter")
+FRAME_KERNELS = F32_ECC + ("gather", "hot")
+BF16_KERNELS = tuple(f"{k}_bf16" for k in F32_ECC + ("gather",)) + ("hot",)
+# (label, write_datapoint arguments, frames of the card-vs-CPU batch,
+#  kernels the path must launch), f32
 PATHS = [
     ("a: 2 x 1024x1024 mraw12, 64 frames, 81,920 nodes",
      dict(n_cameras=2, image_hw=(1024, 1024), n_frames=64, grid_shape=(320, 256)),
      slice(0, 8), FRAME_KERNELS + ("unpack12",)),
-    ("b: full config, 4 x 1200x1800 mraw12, 64 frames, 1,048,576 nodes",
-     dict(n_cameras=FULL_C, image_hw=(FULL_H, FULL_W), n_frames=64,
-          grid_shape=(1024, 1024)),
-     slice(1, 3), FRAME_KERNELS + ("unpack12",)),
     ("c: 2 x 1024x1024 cine10, 32 frames, 81,920 nodes",
      dict(n_cameras=2, image_hw=(1024, 1024), n_frames=32, grid_shape=(320, 256),
           video_format="cine10"),
      slice(0, 8), FRAME_KERNELS + ("unpack10",)),
 ]
+# the full configuration, written once and run as (b) in f32 and (d) in
+# bf16: (label, compute dtype, kernels the path must launch)
+FULL = dict(n_cameras=FULL_C, image_hw=(FULL_H, FULL_W), n_frames=64,
+            grid_shape=(1024, 1024))
+FULL_BATCH = slice(1, 3)
+FULL_PATHS = (
+    ("b: full config, 4 x 1200x1800 mraw12, 64 frames, 1,048,576 nodes",
+     "float32", FRAME_KERNELS + ("unpack12",)),
+    ("d: full config in bfloat16 (--compute-dtype bfloat16), path (b)'s files",
+     "bfloat16", BF16_KERNELS + ("unpack12",)),
+)
 DEVICE = "cuda"
 
 
@@ -107,18 +152,28 @@ def cuda_time(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def add_row(rows, name, shape, err, ok, detail, fn, plain_fn, nbytes):
-    """Time a kernel and its twin (kernel, plain) at ``shape`` and record
-    them in the kernel's row; the achieved HBM rate is ``nbytes`` (what the
-    call must move) over the kernel time.  A kernel checked at several
-    shapes keeps each under ``shapes``; its top-level ``ms``/``plain_ms``
-    are the last shape's (the full configuration's), its ``max_abs_err``
-    the largest."""
+def add_row(rows, name, shape, err, ok, detail, fn, plain_fn, nbytes, flops,
+            library_fn=None, **extra):
+    """Time a kernel, its twin and (where there is one) the one PyTorch
+    call that computes the same function, in turns, at ``shape``, and
+    record them in the kernel's row with the least time the card could
+    take: ``nbytes`` (each input read once, each output written once) over
+    the HBM rate or ``flops`` over the f32 rate, whichever is larger.  A
+    kernel checked at several shapes keeps each under ``shapes``; its
+    top-level numbers are the last shape's (the full configuration's), its
+    ``max_abs_err`` the largest."""
     ms = cuda_time(fn)
     plain_ms = cuda_time(plain_fn, iters=5, warmup=1)
+    library_ms = cuda_time(library_fn) if library_fn is not None else None
+    by_bytes, by_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    bound_ms = max(by_bytes, by_flops)
+    bound_by = "bytes" if by_bytes >= by_flops else "operations"
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"  {name} at {shape}: max_abs_err {err:.4g} ({detail}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {nbytes / 1e6:.1f} MB per "
-          f"call, {nbytes / ms / 1e6:.0f} GB/s", flush=True)
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP), {100 * bound_ms / ms:.0f}% of it; "
+          f"{nbytes / ms / 1e6:.0f} GB/s", flush=True)
     check(ok, f"{name} kernel within bound of its twin at {shape}")
     row = next((r for r in rows if r["name"] == name), None)
     if row is None:
@@ -126,24 +181,32 @@ def add_row(rows, name, shape, err, ok, detail, fn, plain_fn, nbytes):
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, launches_by_path={}, max_abs_err=0.0, shapes=[])
         rows.append(row)
-    row["shapes"].append(dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms))
-    row.update(max_abs_err=max(row["max_abs_err"], err), ms=ms, plain_ms=plain_ms)
+    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                  bound_ms=bound_ms, bound_by=bound_by, **extra)
+    row["shapes"].append(dict(shape=shape, max_abs_err=err, **timing))
+    row.update(max_abs_err=max(row["max_abs_err"], err), **timing)
 
 
-def kernel_phase_ecc(rows, H, W):
-    """K1-K4 against their twins on B frames of H x W."""
+def bf16_ulp(want):
+    """The spacing of bfloat16 (8 significant bits) at |want|."""
+    import torch
+
+    a = want.float().abs().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def ecc_inputs(H, W, dtype):
+    """B frames of H x W (a smooth field plus noise), a template, sub-pixel
+    warps with a shear, and mask warps with an integer pre-shift."""
     import numpy as np
     import torch
 
-    from upsp_tpu_torch.ops import ecc_kernels as K
-
-    shape = f"{B}x{H}x{W}"
     rng = np.random.default_rng(0)
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     base = 2000 + 300 * np.sin(xx / 7.3) * np.cos(yy / 5.1)
     imgs = torch.tensor(base[None] + rng.normal(0, 40, (B, H, W)).astype(np.float32),
-                        device=DEVICE)
-    tmpl = torch.tensor(base.astype(np.float32), device=DEVICE)
+                        device=DEVICE).to(dtype)
+    tmpl = torch.tensor(base.astype(np.float32), device=DEVICE).to(dtype)
     w = np.zeros((B, 2, 3), np.float32)
     w[:, 0, 0] = 1 + rng.uniform(-1e-3, 1e-3, B)
     w[:, 1, 1] = 1 + rng.uniform(-1e-3, 1e-3, B)
@@ -153,6 +216,39 @@ def kernel_phase_ecc(rows, H, W):
     warps = torch.tensor(w, device=DEVICE)
     mask = warps.clone()
     mask[:, :, 2] += torch.tensor([1.0, -1.0], device=DEVICE)
+    return imgs, tmpl, warps, mask, w
+
+
+def stats_err(got, want):
+    """Largest error of the 42 statistics relative to |value| plus its
+    group's largest member (f32 reduction order)."""
+    import numpy as np
+
+    got, want = got.cpu().numpy()[:, :42], want.cpu().numpy()[:, :42]
+    diff = np.abs(got - want)
+    rel = 0.0
+    for lo, hi in [(0, 18), (18, 24), (24, 30), (30, 36), (36, 37), (37, 39),
+                   (39, 42)]:
+        scale = np.abs(want[:, lo:hi]).max(axis=1, keepdims=True)
+        rel = max(rel, float((diff[:, lo:hi] / (np.abs(want[:, lo:hi]) + scale)).max()))
+    return float(diff.max()), rel
+
+
+def kernel_phase_ecc(rows, H, W, dtype_name):
+    """K1-K4 against their twins on B frames of H x W, float32 or bfloat16:
+    f32 within 2e-3 counts, bf16 within 1 bf16 ulp of the twin (both
+    compute in f32 and round once), K3 within 2e-4 relative."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from upsp_tpu_torch.ops import ecc_kernels as K
+
+    dtype = getattr(torch, dtype_name)
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    e = 4 if dtype == torch.float32 else 2  # bytes per pixel
+    shape = f"{B}x{H}x{W} {dtype_name}"
+    imgs, tmpl, warps, mask, w = ecc_inputs(H, W, dtype)
     taps5 = (0.0625, 0.25, 0.375, 0.25, 0.0625)
     taps3 = (0.25, 0.5, 0.25)
     px = B * H * W
@@ -166,40 +262,43 @@ def kernel_phase_ecc(rows, H, W):
         xs = w[:, 0, 0, None] * np.arange(W) + w[:, 0, 2, None] + w[:, 0, 1, None] * (H - 1) / 2
         ry = (ys < 3) | (ys > H - 4)
         rx = (xs < 3) | (xs > W - 4)
-        return ry[:, :, None] | rx[:, None, :]
+        return torch.tensor(ry[:, :, None] | rx[:, None, :], device=DEVICE)
 
     edge = edge_mask(w)
     edge_bound = 4 * float(np.spacing(np.float32(max(H, W)))) * 4096
 
-    def image_err(got, want, bound=2e-3):
-        d = (got - want).abs().cpu().numpy()
-        inner = float(d[~edge].max())
-        outer = float(d[edge].max()) if edge.any() else 0.0
-        ok = inner <= bound and outer <= edge_bound + bound
-        return max(inner, outer), ok, f"interior {inner:.3g} <= {bound}, edge {outer:.3g} <= {edge_bound + bound:.3g}"
+    def image_err(got, want, warped=True):
+        d = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            bound = torch.full_like(d, 2e-3)
+        else:
+            bound = bf16_ulp(want)
+        if warped:  # the blur has no sample positions to round
+            bound = torch.where(edge, bound + edge_bound, bound)
+        worst = float((d / bound).max())
+        return float(d.max()), worst <= 1.0, f"max |d| / bound {worst:.3g} <= 1"
 
-    got = K.blur(imgs, taps5)
-    want = K.blur_plain(imgs, taps5)
-    d = float((got - want).abs().max())
-    add_row(rows, "blur", shape, d, d <= 2e-3, "bound 2e-3",
-            lambda: K.blur(imgs, taps5), lambda: K.blur_plain(imgs, taps5), 8 * px)
+    k2d = torch.outer(*(torch.tensor(taps5, device=DEVICE),) * 2).to(dtype)[None, None]
+
+    def conv2d_blur():
+        return F.conv2d(F.pad(imgs[:, None], (2, 2, 2, 2), mode="reflect"), k2d)
+
+    err, ok, det = image_err(K.blur(imgs, taps5), K.blur_plain(imgs, taps5), warped=False)
+    add_row(rows, "blur" + sfx, shape, err, ok, det,
+            lambda: K.blur(imgs, taps5), lambda: K.blur_plain(imgs, taps5),
+            2 * e * px, FLOPS["blur"] * px, library_fn=conv2d_blur)
 
     err, ok, det = image_err(K.warp_affine_banded(imgs, warps), K.warp_plain(imgs, warps))
-    add_row(rows, "warp", shape, err, ok, det, lambda: K.warp_affine_banded(imgs, warps),
-            lambda: K.warp_plain(imgs, warps), 8 * px)
+    add_row(rows, "warp" + sfx, shape, err, ok, det, lambda: K.warp_affine_banded(imgs, warps),
+            lambda: K.warp_plain(imgs, warps), 2 * e * px, FLOPS["warp"] * px)
 
-    got = K.ecc_gn_moments(imgs, tmpl, warps, mask).cpu().numpy()[:, :42]
-    want = K.moments_plain(imgs, tmpl, warps, mask).cpu().numpy()[:, :42]
-    diff = np.abs(got - want)
-    rel = 0.0  # per statistic group, relative to its own largest member
-    for lo, hi in [(0, 18), (18, 24), (24, 30), (30, 36), (36, 37), (37, 39),
-                   (39, 42)]:
-        scale = np.abs(want[:, lo:hi]).max(axis=1, keepdims=True)
-        rel = max(rel, float((diff[:, lo:hi] / (np.abs(want[:, lo:hi]) + scale)).max()))
-    add_row(rows, "moments", shape, float(diff.max()), rel <= 2e-4,
+    err, rel = stats_err(K.ecc_gn_moments(imgs, tmpl, warps, mask),
+                         K.moments_plain(imgs, tmpl, warps, mask))
+    add_row(rows, "moments" + sfx, shape, err, rel <= 2e-4,
             f"max rel {rel:.3g} <= 2e-4 (f32 reduction order)",
             lambda: K.ecc_gn_moments(imgs, tmpl, warps, mask),
-            lambda: K.moments_plain(imgs, tmpl, warps, mask), 4 * px + 4 * H * W)
+            lambda: K.moments_plain(imgs, tmpl, warps, mask),
+            e * (px + H * W) + B * 128 * 4, FLOPS["moments"] * px)
 
     o1 = K.warp_filter(imgs, warps, taps3)
     o2, iw = K.warp_filter(imgs, warps, taps3, with_warped=True)
@@ -207,10 +306,48 @@ def kernel_phase_ecc(rows, H, W):
     e1, k1, d1 = image_err(o1, p_out)
     e2, k2, d2 = image_err(o2, p_out)
     e3, k3, d3 = image_err(iw, p_iw)
-    add_row(rows, "warp_filter", shape, max(e1, e2, e3), k1 and k2 and k3,
+    add_row(rows, "warp_filter" + sfx, shape, max(e1, e2, e3), k1 and k2 and k3,
             f"filtered {d1}; with_warped {d2}; warped {d3}",
             lambda: K.warp_filter(imgs, warps, taps3, with_warped=True),
-            lambda: K.warp_filter_plain(imgs, warps, taps3, True), 12 * px)
+            lambda: K.warp_filter_plain(imgs, warps, taps3, True), 3 * e * px,
+            FLOPS["warp_filter"] * px)
+    torch.cuda.synchronize()
+
+
+def kernel_phase_gn_fused(rows, dtype_name):
+    """K9 on B frames of the full configuration's 1200x1800 (a height its
+    32-row tile does not divide) against its twin, and in f32 against K2
+    then K3, within 2e-4 relative; timed beside K2 + K3."""
+    import torch
+
+    from upsp_tpu_torch.ops import ecc_kernels as K
+
+    dtype = getattr(torch, dtype_name)
+    sfx = "" if dtype == torch.float32 else "_bf16"
+    e = 4 if dtype == torch.float32 else 2
+    H, W = FULL_H, FULL_W
+    imgs, tmpl, warps, mask, _ = ecc_inputs(H, W, dtype)
+    px = B * H * W
+
+    def fused():
+        return K.ecc_gn_fused(imgs, tmpl, warps, mask)
+
+    def split():
+        return K.ecc_gn_moments(K.warp_affine_banded(imgs, warps), tmpl, warps, mask)
+
+    got = fused()
+    err, rel = stats_err(got, K.gn_fused_plain(imgs, tmpl, warps, mask))
+    ok, detail = rel <= 2e-4, f"twin: max rel {rel:.3g} <= 2e-4"
+    if dtype == torch.float32:
+        err2, rel2 = stats_err(got, split())
+        ok, err = ok and rel2 <= 2e-4, max(err, err2)
+        detail += f"; K2 then K3: max rel {rel2:.3g} <= 2e-4"
+    else:
+        detail += " (the bf16 K2 then K3 rounds the warped image; K9 does not)"
+    add_row(rows, "gn_fused" + sfx, f"{B}x{H}x{W} {dtype_name}", err, ok, detail,
+            fused, lambda: K.gn_fused_plain(imgs, tmpl, warps, mask),
+            e * (px + H * W) + B * 128 * 4, FLOPS["gn_fused"] * px,
+            split_ms=cuda_time(split))
     torch.cuda.synchronize()
 
 
@@ -244,32 +381,38 @@ def synthetic_plan(rng):
 def kernel_phase_ingest(rows):
     """K5-K8 against their twins at the full configuration's shapes: all
     four do selects, integer operations and one multiply, so they must
-    match exactly."""
+    match exactly (K5 with f32 and with bf16 frames)."""
     import numpy as np
     import torch
 
+    from upsp_tpu_torch.io.video.cine import LUT_10_TO_12
     from upsp_tpu_torch.ops import ecc_kernels as K
     from upsp_tpu_torch.ops import gather_kernels as G
     from upsp_tpu_torch.ops import unpack_kernels as U
-    from upsp_tpu_torch.pipeline.run import LUT_10_TO_12
 
     rng = np.random.default_rng(2)
     n_img, px = B * FULL_C, FULL_H * FULL_W
     frames = f"{B}x{FULL_C}x{FULL_H}x{FULL_W}"
 
-    # K5: (8, 4*1200*1800) frames through a 1,048,576-node plan
+    # K5: (8, 4*1200*1800) frames through a 1,048,576-node plan; each
+    # non-skipped node reads one pixel, every node is written
     plan = synthetic_plan(rng)
-    stacked = (2000 + 300 * torch.randn((B, plan.n_pixels), device=DEVICE,
-                                        generator=torch.Generator(DEVICE).manual_seed(5)))
-    got, want = G.project_gather(stacked, plan), G.gather_plain(stacked, plan)
-    same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
-    fin = ~torch.isnan(want)
-    err = float((got[fin] - want[fin]).abs().max())
     nodes = plan.n_nodes
-    add_row(rows, "gather", f"{frames} -> {nodes} nodes", err, same_nan and err == 0.0,
-            f"exact; NaN at the same {int((~fin).sum())} entries",
-            lambda: G.project_gather(stacked, plan),
-            lambda: G.gather_plain(stacked, plan), B * nodes * 8 + nodes * 12)
+    n_read = int((plan.src >= 0).sum())
+    stacked32 = (2000 + 300 * torch.randn((B, plan.n_pixels), device=DEVICE,
+                                          generator=torch.Generator(DEVICE).manual_seed(5)))
+    for name, stacked, e in (("gather", stacked32, 4),
+                             ("gather_bf16", stacked32.to(torch.bfloat16), 2)):
+        got, want = G.project_gather(stacked, plan), G.gather_plain(stacked, plan)
+        same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+        fin = ~torch.isnan(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        add_row(rows, name, f"{frames} {stacked.dtype} -> {nodes} nodes", err,
+                same_nan and err == 0.0,
+                f"exact; NaN at the same {int((~fin).sum())} entries",
+                lambda: G.project_gather(stacked, plan),
+                lambda: G.gather_plain(stacked, plan),
+                B * (n_read * e + nodes * 4) + nodes * 12, FLOPS["gather"] * B * n_read)
 
     # K6: 32 images of 1200x1800 with 0, 3, 5 and 6 hot pixels (6 > 5:
     # left as it is); corners and edges included
@@ -287,7 +430,7 @@ def kernel_phase_ingest(rows):
             bool(torch.equal(got, want)) and changed > 0,
             f"exact; the twin repaired {changed} pixels",
             lambda: K.fix_hot_pixels_kernel(imgs), lambda: K.fix_hot_pixels(imgs),
-            12 * n_img * px)
+            8 * n_img * px, FLOPS["hot"] * n_img * px)
 
     # K7/K8: random packed bytes of 8 frames x 4 cameras x 1200x1800
     gen = torch.Generator(DEVICE).manual_seed(7)
@@ -297,7 +440,7 @@ def kernel_phase_ingest(rows):
     err = float((got - want).abs().max())
     add_row(rows, "unpack12", f"{frames} packed", err, bool(torch.equal(got, want)), "exact",
             lambda: U.unpack_12bpp(b12), lambda: U.unpack_12bpp_plain(b12),
-            n_img * px * 11 // 2)
+            n_img * px * 11 // 2, 0)
     b10 = torch.randint(0, 256, (n_img * px * 5 // 4,), dtype=torch.uint8,
                         device=DEVICE, generator=gen)
     lut = torch.tensor(LUT_10_TO_12.astype(np.float32), device=DEVICE)
@@ -308,7 +451,7 @@ def kernel_phase_ingest(rows):
             bool(torch.equal(got, want)) and raw_ok,
             "exact, with the cine 10->12 LUT and without",
             lambda: U.unpack_10bpp(b10, lut), lambda: U.unpack_10bpp_plain(b10, lut),
-            n_img * px * 21 // 4)
+            n_img * px * 21 // 4 + 4096, 0)
     torch.cuda.synchronize()
 
 
@@ -324,61 +467,92 @@ def run_cli(argv):
         sys.argv = saved
 
 
-def datapoint_path(label, spec, batch, expect):
-    """One datapoint through the CLI, its outputs, and one batch of its
-    packed frames on the card against the CPU twins; returns the kernel
-    launch counts of the CLI run."""
+def bf16_bounds(got, want, scale):
+    """tests/test_torch_bf16.py's bounds on intensities: NaN where NaN,
+    mean |diff| < 2e-3 and the 99.9% quantile < 2e-2 of full scale."""
     import numpy as np
-    import torch
 
-    from upsp_tpu_torch.ops import cuda_lib
-    from upsp_tpu_torch.pipeline.phase0 import run_phase0
-    from upsp_tpu_torch.pipeline.phase1 import make_chunk_processor
-    from upsp_tpu_torch.pipeline.run import (
-        FLAT_FILES,
-        open_videos,
-        packed_ingest_config,
-        read_flat,
-        read_input_deck,
-    )
+    v = np.isfinite(want)
+    d = np.abs(got[v] - want[v])
+    mean, q = float(d.mean()) / scale, float(np.quantile(d, 0.999)) / scale
+    ok = np.array_equal(np.isnan(got), np.isnan(want)) and mean < 2e-3 and q < 2e-2
+    return ok, f"mean |d| {mean:.3g} < 2e-3, 99.9% {q:.3g} < 2e-2 of full scale"
+
+
+def write_path_datapoint(p, spec):
+    """Write path ``p``'s datapoint under WORK from a seed."""
+    import numpy as np
+
     from upsp_tpu_torch.pipeline.synthetic import write_datapoint
 
-    print(f"  -- path {label}", flush=True)
     rng = np.random.default_rng(1)
     # jitter <= 2 px whose fractional parts stay clear of +-0.5, so the
     # integer pre-shift cannot round differently on the card and the CPU
     shifts = rng.integers(-1, 2, (N_DISTINCT, 2)) + rng.uniform(-0.3, 0.3, (N_DISTINCT, 2))
     shifts[0] = 0.0
-    root = os.path.join(WORK, "dp")
+    root = os.path.join(WORK, p)
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     dp = write_datapoint(root, n_targets=N_TARGETS, seed=1, shifts=shifts,
                          hot_pixels=True, **spec)
+    print(f"  datapoint written in {time.perf_counter() - t0:.2f} s", flush=True)
+    return dp
+
+
+def cli_run(dp, dtype):
+    """The datapoint once through the CLI; prints and returns its stage
+    seconds (``--timings``)."""
+    import torch
+
+    timings = os.path.join(os.path.dirname(dp["deck"]), "timings.json")
+    t0 = time.perf_counter()
+    run_cli([SCRIPT, "-input_deck", dp["deck"], "--registration-telemetry",
+             "--timings", timings, "--device", DEVICE, "--compute-dtype", dtype])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(timings) as fh:
+        t = json.load(fh)
+    t["frames_per_s"] = t["n_frames"] / (t["phase1"] - t["phase1_setup"])
+    print(f"  {dtype} CLI run {wall:.2f} s: phase 0 {t['phase0']:.3f} s; phase 1 "
+          f"{t['phase1']:.3f} s = {t['n_frames'] / t['phase1']:.1f} frames/s, of "
+          f"which set-up {t['phase1_setup']:.3f} s and frames "
+          f"{t['phase1'] - t['phase1_setup']:.3f} s = {t['frames_per_s']:.1f} "
+          f"frames/s, packed ingest included; phase 2 {t['phase2']:.3f} s; "
+          f"outputs {t['outputs']:.3f} s", flush=True)
+    return t
+
+
+def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None):
+    """One datapoint through the CLI, its outputs, and one batch of its
+    packed frames on the card against the CPU twins (a bf16 batch also
+    against ``ref``, an f32 path's result on the same files).  Returns the
+    kernel launch counts of the CLI run and the batch's card results."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.io.flatfile import FLAT_FILES, read_flat
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.pipeline.config import read_input_deck
+    from upsp_tpu_torch.pipeline.phase0 import run_phase0
+    from upsp_tpu_torch.pipeline.phase1 import make_chunk_processor
+    from upsp_tpu_torch.pipeline.run import open_videos, packed_ingest_config
+
+    print(f"  -- path {label}", flush=True)
     n_frames = spec["n_frames"]
     n_cams = spec["n_cameras"]
     n_nodes = spec["grid_shape"][0] * spec["grid_shape"][1]
-    print(f"  datapoint written in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    timings = os.path.join(root, "timings.json")
     cuda_lib.reset_launch_counts()
-    run_cli([SCRIPT, "-input_deck", dp["deck"], "--registration-telemetry",
-             "--timings", timings, "--device", DEVICE])
-    torch.cuda.synchronize()
+    stages = cli_run(dp, dtype)
     counts = cuda_lib.launch_counts()
     print(f"  launches on this path: {counts}", flush=True)
     for name in expect:
         check(counts[name] > 0, f"kernel {name} launched on this path")
+    if dtype == "bfloat16":
+        check(not any(counts[k] for k in F32_ECC + ("gather",)),
+              "no f32 ECC or gather kernel launched on this path")
 
-    with open(timings) as fh:
-        t = json.load(fh)
-    frames_s = t["phase1"] - t["phase1_setup"]
-    print(f"  phase 0 {t['phase0']:.3f} s; phase 1 {t['phase1']:.3f} s for "
-          f"{t['n_frames']} frames x {n_cams} cameras = "
-          f"{t['n_frames'] / t['phase1']:.1f} frames/s, of which set-up "
-          f"{t['phase1_setup']:.3f} s and frames {frames_s:.3f} s = "
-          f"{t['n_frames'] / frames_s:.1f} frames/s, packed ingest included; "
-          f"phase 2 {t['phase2']:.3f} s; outputs {t['outputs']:.3f} s", flush=True)
-
+    t_check = time.perf_counter()
     out = dp["out_dir"]
     for name in FLAT_FILES + ("registration", "registration.json"):
         check(os.path.exists(os.path.join(out, name)), f"output {name}")
@@ -402,8 +576,11 @@ def datapoint_path(label, spec, batch, expect):
           f"{tele[..., 4].max():.3f} px", flush=True)
     check(np.isfinite(tele).all() and tele[..., 0].min() > 0.9, "registration telemetry")
 
+    print(f"  outputs checked in {time.perf_counter() - t_check:.2f} s", flush=True)
+
     # one batch: the videos' packed bytes unpacked on the card, against the
     # CPU twins on the decoded frames
+    t_batch = time.perf_counter()
     cfg = read_input_deck(dp["deck"])
     readers, _, _ = open_videos(cfg)
     try:
@@ -416,24 +593,70 @@ def datapoint_path(label, spec, batch, expect):
     finally:
         for r in readers:
             r.close()
-    gpu, gtele = make_chunk_processor(state, with_telemetry=True, packed=True, **kw)(
+    gpu, gtele = make_chunk_processor(state, with_telemetry=True, packed=True,
+                                      compute_dtype=dtype, **kw)(
         torch.from_numpy(packed).to(DEVICE))
-    cpu, ctele = make_chunk_processor(state.to("cpu"), with_telemetry=True)(
-        dp["frames"][batch])
-    gpu, cpu = gpu.cpu().numpy(), cpu.numpy()
-    check(np.array_equal(np.isnan(gpu), np.isnan(cpu)), "NaN at the same nodes")
-    v = np.isfinite(cpu)
-    d = np.abs(gpu[v] - cpu[v])
-    viol = int((d > 0.2 + 1e-4 * np.abs(cpu[v])).sum())
-    print(f"  frames {k0}-{k1 - 1}, card (packed) vs CPU twins: max abs "
-          f"{d.max():.4g} counts, {viol} beyond rtol 1e-4 + atol 0.2; telemetry "
-          f"max abs {np.abs(gtele.cpu().numpy() - ctele.numpy()).max():.3g}",
+    torch.cuda.synchronize()
+    t_cpu = time.perf_counter()
+    cpu, ctele = make_chunk_processor(state.to("cpu"), with_telemetry=True,
+                                      compute_dtype=dtype)(dp["frames"][batch])
+    print(f"  batch of {batch.stop - batch.start} frames: phase 0 and the card "
+          f"{t_cpu - t_batch:.2f} s, the CPU twins {time.perf_counter() - t_cpu:.2f} s",
           flush=True)
-    check(viol == 0, "card path matches the CPU twin path (rtol 1e-4, atol 0.2)")
-    check(np.allclose(intensity[batch][:, visible], gpu[:, visible], rtol=1e-5, atol=1e-3),
-          "the batch equals the CLI's intensity rows")
-    shutil.rmtree(root, ignore_errors=True)
-    return counts
+    gpu, cpu = gpu.cpu().numpy(), cpu.numpy()
+    gtele, ctele = gtele.cpu().numpy(), ctele.numpy()
+    d_t = float(np.abs(gtele[..., 2:4] - ctele[..., 2:4]).max())
+    if dtype == "float32":
+        check(np.array_equal(np.isnan(gpu), np.isnan(cpu)), "NaN at the same nodes")
+        v = np.isfinite(cpu)
+        d = np.abs(gpu[v] - cpu[v])
+        viol = int((d > 0.2 + 1e-4 * np.abs(cpu[v])).sum())
+        print(f"  frames {k0}-{k1 - 1}, card (packed) vs CPU twins: max abs "
+              f"{d.max():.4g} counts, {viol} beyond rtol 1e-4 + atol 0.2; telemetry "
+              f"max abs {np.abs(gtele - ctele).max():.3g}", flush=True)
+        check(viol == 0, "card path matches the CPU twin path (rtol 1e-4, atol 0.2)")
+        check(np.allclose(intensity[batch][:, visible], gpu[:, visible], rtol=1e-5,
+                          atol=1e-3), "the batch equals the CLI's intensity rows")
+    else:
+        scale = float(np.max(dp["frames"]))
+        ok, det = bf16_bounds(gpu, cpu, scale)
+        print(f"  frames {k0}-{k1 - 1}, card (packed, bf16) vs CPU bf16 twins: "
+              f"{det}; max abs {np.nanmax(np.abs(gpu - cpu)):.4g} counts; "
+              f"translations max abs {d_t:.3g} px", flush=True)
+        check(ok and d_t < 0.05, "card bf16 path matches the CPU bf16 path")
+        ok, det = bf16_bounds(gpu, ref["gpu"], scale)
+        d_f = float(np.abs(gtele[..., 2:4] - ref["tele"][..., 2:4]).max())
+        print(f"  the same frames, bf16 vs path ({ref['label']})'s f32 on the "
+              f"card: {det}; max abs {np.nanmax(np.abs(gpu - ref['gpu'])):.4g} "
+              f"counts; translations max abs {d_f:.3g} px", flush=True)
+        check(ok and d_f < 0.05, "card bf16 path matches the card f32 path")
+        ok, det = bf16_bounds(intensity[batch][:, visible], gpu[:, visible], scale)
+        check(ok, f"the batch matches the CLI's intensity rows ({det})")
+    return counts, dict(gpu=gpu, tele=gtele, label=label.split(":")[0], stages=stages)
+
+
+def full_config_paths(by_path):
+    """Paths (b) and (d) on one full-config datapoint, written once: (b) in
+    f32, (d) in bf16 with its batch also held against (b)'s.  (b) is the
+    process's first run at 1200x1800 (it creates the cuFFT plans and the
+    allocator's blocks), so the CLI then runs once more in f32 (b') and in
+    bf16 (d'), and bf16 is compared with f32 as the mean of (d) and (d')
+    against (b'): d, b', d' is balanced around b' in time."""
+    dp = write_path_datapoint("b", FULL)
+    try:
+        (lb, dtype_b, exp_b), (ld, dtype_d, exp_d) = FULL_PATHS
+        by_path["b"], ref = datapoint_path(lb, dp, FULL, FULL_BATCH, exp_b, dtype_b)
+        by_path["d"], res = datapoint_path(ld, dp, FULL, FULL_BATCH, exp_d, dtype_d,
+                                           ref=ref)
+        print("  -- (b') and (d'): the same files through the CLI again, f32 then "
+              "bf16, for the paired timing", flush=True)
+        runs = [ref["stages"], res["stages"], cli_run(dp, dtype_b), cli_run(dp, dtype_d)]
+    finally:
+        shutil.rmtree(os.path.join(WORK, "b"), ignore_errors=True)
+    b, d, b2, d2 = (t["frames_per_s"] for t in runs)
+    print(f"  phase-1 frames/s (ingest included): b {b:.2f} (first at this size), "
+          f"d {d:.2f}, b' {b2:.2f}, d' {d2:.2f}; bf16 / f32 = mean(d, d') / b' = "
+          f"{(d + d2) / 2 / b2:.3f}", flush=True)
 
 
 def main() -> int:
@@ -459,6 +682,7 @@ def main() -> int:
             else "nvidia-smi unavailable")
     print(card, flush=True)
     t_start = time.perf_counter()
+    phase_s = {}  # seconds of each phase after the card check
     try:
         import upsp_tpu_torch  # noqa: F401  (sets the TF32 policy)
         from upsp_tpu_torch.ops import cuda_lib
@@ -466,17 +690,37 @@ def main() -> int:
         print("[1/3] build", flush=True)
         t0 = time.perf_counter()
         cuda_lib.build_all()
-        print(f"  kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
+        phase_s["build"] = time.perf_counter() - t0
+        print(f"  kernels built in {phase_s['build']:.2f} s", flush=True)
         print("[2/3] kernels against their twins", flush=True)
         rows = []
-        for h, w in ECC_SHAPES:
-            kernel_phase_ecc(rows, h, w)
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            for h, w in ECC_SHAPES:
+                kernel_phase_ecc(rows, h, w, dtype)
+            phase_s[f"K1-K4 {dtype}"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            kernel_phase_gn_fused(rows, dtype)
+            phase_s[f"K9 {dtype}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         kernel_phase_ingest(rows)
+        phase_s["K5-K8"] = time.perf_counter() - t0
         print("[3/3] datapoints through scripts/upsp-process-torch", flush=True)
-        by_path = {}  # "a", "b", "c" -> that path's launch counts
+        by_path = {}  # "a".."d" -> the launch counts of its CLI run
         for label, spec, batch, expect in PATHS:
-            by_path[label.split(":")[0]] = datapoint_path(label, spec, batch, expect)
+            t0 = time.perf_counter()
+            p = label.split(":")[0]
+            dp = write_path_datapoint(p, spec)
+            by_path[p], _ = datapoint_path(label, dp, spec, batch, expect, "float32")
+            shutil.rmtree(os.path.join(WORK, p), ignore_errors=True)
+            phase_s[f"path {p}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full_config_paths(by_path)
+        phase_s["paths b, d, b', d'"] = time.perf_counter() - t0
         for r in rows:
+            if r["name"] in KERNEL_PHASE_ONLY:
+                r.update(launches_by_path={}, launches=0, kernel_phase_only=True)
+                continue
             r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
             r["launches"] = sum(r["launches_by_path"].values())
             check(r["launches"] > 0, f"kernel {r['name']} launched on the main paths")
@@ -487,7 +731,8 @@ def main() -> int:
         return 3
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
-    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check",
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check; "
+          f"by phase: " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items()),
           flush=True)
     print(json.dumps({"kernels": rows}))
     print(card, flush=True)

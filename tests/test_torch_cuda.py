@@ -1,7 +1,10 @@
 """The hand-written CUDA kernels against their plain twins, on the card.
 
-K1-K4 and K6 compare within the stated bounds (K6, like K5, K7 and K8,
-exactly: they only select, shift bits and multiply once).
+K1-K4, K6 and K9 compare within the stated bounds (K6, like K5, K7 and K8,
+exactly: they only select, shift bits and multiply once).  The bfloat16
+instantiations of K1, K2 and K4 hold their twins to 1 bf16 ulp of the
+output (both compute in f32 and round once; the f32 sums may straddle one
+rounding boundary), K3 and K9 to 2e-4 relative, K5 exactly.
 
 Marked ``cuda``; skips where torch has no CUDA device (the kernels have no
 CPU mode).  This file imports no jax, so it also runs on a machine with
@@ -9,8 +12,9 @@ only the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-It also holds the seeded inputs and the image tolerance shared with
-tests/test_torch_ecc_kernels.py.
+It also holds the seeded inputs and the image and statistics tolerances
+shared with tests/test_torch_ecc_kernels.py, test_torch_bf16.py and
+test_torch_gn_fused.py.
 """
 
 import numpy as np
@@ -122,13 +126,109 @@ def test_kernels_match_twins_on_card(cuda, shape):
                                   K.fix_hot_pixels(hot))
     torch.cuda.synchronize()
     after = K.launch_counts()
-    assert all(after[k] > before[k] for k in K.KERNELS)
+    assert all(after[k] > before[k]
+               for k in ("blur", "warp", "moments", "warp_filter", "hot"))
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 (8 significant bits) at |x|."""
+    a = np.maximum(np.abs(np.asarray(x, np.float32)), np.float32(2.0**-126))
+    return np.exp2(np.floor(np.log2(a)) - 7).astype(np.float32)
+
+
+def assert_within_ulp(got, want, warp_np=None, halo=0):
+    """|got - want| <= 1 bf16 ulp of ``want`` (float arrays); at
+    border-straddling pixels the f32 position-rounding bound on top."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    for i in range(got.shape[0]):
+        d = np.abs(got[i] - want[i])
+        bound = bf16_ulp(want[i])
+        if warp_np is not None:
+            edge = border_straddle(warp_np[i], *got.shape[1:], halo=halo)
+            pos = 4 * np.spacing(np.float32(max(got.shape[1:]))) * np.abs(want[i]).max()
+            bound = np.where(edge, bound + pos, bound)
+        assert (d <= bound).all(), (i, float((d / bound).max()))
+
+
+GROUPS = [(0, 18), (18, 24), (24, 30), (30, 36), (36, 37), (37, 39), (39, 42)]
+
+
+def assert_stats_close(got, want, tmpl):
+    """The 42 statistics within 2e-4 relative per group, with a floor of
+    2e-4 of the group's largest member (f32 reduction order).  S_t and S_i
+    sum brightness-shifted values that nearly cancel, and each side takes
+    the shift mean(tmpl) in f32 in its own order (a few ulps apart), so
+    those two also get area x 8 f32 ulps of the shift."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    assert not got[..., 42:].any()
+    shift_ulps = want[..., 36:37] * 8 * np.spacing(np.float32(np.mean(tmpl)))
+    for lo, hi in GROUPS:
+        scale = np.abs(want[..., lo:hi]).max(axis=-1, keepdims=True)
+        err = np.abs(got[..., lo:hi] - want[..., lo:hi])
+        bound = 2e-4 * np.abs(want[..., lo:hi]) + 2e-4 * scale
+        if lo == 37:
+            bound = bound + shift_ulps
+        assert (err <= bound).all(), (lo, hi, float(err.max()))
+
+
+def _np(t):
+    return t.float().cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(3, 1024, 1024), (2, 1200, 1800)])
+def test_bf16_kernels_match_twins_on_card(cuda, shape):
+    x = torch.tensor(images(18, *shape)).to(torch.bfloat16)
+    tm = torch.tensor(images(19, 1, *shape[1:])[0]).to(torch.bfloat16)
+    w = torch.tensor(warps(18, shape[0]))
+    mw = w.clone()
+    mw[:, :, 2] += torch.tensor([1.0, -2.0])
+    c = [t.to(cuda) for t in (x, tm, w, mw)]
+    before = K.launch_counts()
+    got = K.blur(c[0], GAUSS[5])
+    assert got.dtype == torch.bfloat16
+    assert_within_ulp(_np(got), _np(K.blur_plain(x, GAUSS[5])))
+    assert_within_ulp(_np(K.warp_affine_banded(c[0], c[2])), _np(K.warp_plain(x, w)),
+                      w.numpy())
+    for taps in (GAUSS[3], GAUSS[7]):
+        o, iw = K.warp_filter(c[0], c[2], taps, with_warped=True)
+        po, piw = K.warp_filter_plain(x, w, taps, True)
+        assert_within_ulp(_np(o), _np(po), w.numpy(), halo=len(taps) // 2)
+        assert_within_ulp(_np(iw), _np(piw), w.numpy())
+    t = _np(tm)
+    assert_stats_close(_np(K.ecc_gn_moments(*c)), _np(K.moments_plain(x, tm, w, mw)), t)
+    assert_stats_close(_np(K.ecc_gn_fused(*c)), _np(K.gn_fused_plain(x, tm, w, mw)), t)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert all(after[f"{k}_bf16"] > before[f"{k}_bf16"] for k in K.TYPED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES + [(2, 90, 131), (8, 1200, 1800)])
+def test_gn_fused_matches_twin_and_split_pair_on_card(cuda, shape):
+    """K9 in f32 against its twin and against K2 then K3 on the card; the
+    heights 90, 97 and 1200 are not multiples of its 32-row tile."""
+    x = torch.tensor(images(20, *shape))
+    tm = torch.tensor(images(21, 1, *shape[1:])[0])
+    w = torch.tensor(warps(20, shape[0]))
+    mw = w.clone()
+    mw[:, :, 2] += torch.tensor([2.0, -1.0])
+    c = [t.to(cuda) for t in (x, tm, w, mw)]
+    before = K.launch_counts()["gn_fused"]
+    got = _np(K.ecc_gn_fused(*c))
+    assert_stats_close(got, _np(K.gn_fused_plain(x, tm, w, mw)), tm.numpy())
+    split = K.ecc_gn_moments(K.warp_affine_banded(c[0], c[2]), c[1], c[2], c[3])
+    assert_stats_close(got, _np(split), tm.numpy())
+    torch.cuda.synchronize()
+    assert K.launch_counts()["gn_fused"] == before + 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_bytes", [15, 3 * 5 * 257 * 256 + 7])
 def test_unpack_kernels_match_twins_on_card(cuda, n_bytes):
-    from upsp_tpu.io.video.cine import LUT_10_TO_12
+    from upsp_tpu_torch.io.video.cine import LUT_10_TO_12
     from upsp_tpu_torch.ops import unpack_kernels as U
 
     b = torch.from_numpy(np.random.default_rng(n_bytes).integers(
@@ -161,9 +261,12 @@ def test_gather_kernel_matches_twin_on_card(cuda, n_nodes, frames):
     plan = G.build_gather_plan(idx, w, skipped, sup, (), n_pixels)
     on_card = G.build_gather_plan(idx, w, skipped, sup, (), n_pixels, device=cuda)
     x = torch.from_numpy(rng.normal(2000, 300, (frames, n_pixels)).astype(np.float32))
-    before = K.launch_counts()["gather"]
-    got = G.project_gather(x.to(cuda), on_card).cpu().numpy()
-    want = G.gather_plain(x, plan).numpy()
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
-    np.testing.assert_array_equal(got[~np.isnan(want)], want[~np.isnan(want)])
-    assert K.launch_counts()["gather"] == before + 1
+    before = K.launch_counts()
+    for xs in (x, x.to(torch.bfloat16)):
+        got = G.project_gather(xs.to(cuda), on_card).cpu().numpy()
+        want = G.gather_plain(xs, plan).numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(got[~np.isnan(want)], want[~np.isnan(want)])
+    after = K.launch_counts()
+    assert after["gather"] == before["gather"] + 1
+    assert after["gather_bf16"] == before["gather_bf16"] + 1

@@ -1,9 +1,15 @@
-"""The port imports torch and never jax, and its CLI drives a datapoint.
+"""The port imports torch and never jax, nor anything of the JAX package,
+and its CLI drives a datapoint.
 
-Each case runs in a fresh interpreter, since this pytest process has jax
-loaded already.
+By source: no file of the port, nor its CLI, nor ``chip_smoke.py`` names an
+import root ``jax``, ``jaxlib`` or ``upsp_tpu``.  At run time: each case
+runs in a fresh interpreter (this pytest process has both loaded already)
+and finds no ``jax`` and no ``upsp_tpu`` module in ``sys.modules`` after a
+datapoint.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -11,15 +17,28 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "scripts", "upsp-process-torch")
+PORT_SOURCES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "upsp_tpu_torch", "**", "*.py"),
+                       recursive=True)
+) + ["scripts/upsp-process-torch", "chip_smoke.py"]
+
+# no module of jax nor of the JAX package may be loaded
+_NO_JAX = r"""
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "upsp_tpu"))
+assert not bad, bad[:5]
+"""
 
 _SLICE = r"""
 import os, sys, tempfile
 import numpy as np
 import upsp_tpu_torch
-from upsp_tpu.pipeline.config import read_input_deck
+from upsp_tpu_torch.io.flatfile import FLAT_FILES
+from upsp_tpu_torch.pipeline.config import read_input_deck
 from upsp_tpu_torch.pipeline.run import run_datapoint
 from upsp_tpu_torch.pipeline.synthetic import write_datapoint
-from upsp_tpu.io.flatfile import FLAT_FILES
 dp = write_datapoint(tempfile.mkdtemp(), image_hw=(64, 96), n_frames=4,
                      n_distinct=4, grid_shape=(21, 17), n_targets=3, seed=3)
 out = run_datapoint(read_input_deck(dp["deck"]), device="cpu",
@@ -28,7 +47,7 @@ assert out.intensity.shape == (4, 21 * 17)
 assert np.isfinite(out.intensity).any()
 missing = [n for n in FLAT_FILES if not os.path.exists(os.path.join(dp["out_dir"], n))]
 assert not missing, missing
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)[:5]
+""" + _NO_JAX + """
 print("OK")
 """
 
@@ -37,9 +56,9 @@ _PACKED = r"""
 import os, sys, tempfile
 import numpy as np
 import upsp_tpu_torch
-from upsp_tpu.io.video import video_reader
-from upsp_tpu.pipeline.config import read_input_deck
+from upsp_tpu_torch.io.video import video_reader
 from upsp_tpu_torch.ops import cuda_lib
+from upsp_tpu_torch.pipeline.config import read_input_deck
 from upsp_tpu_torch.pipeline.run import packed_ingest_config, run_datapoint
 from upsp_tpu_torch.pipeline.synthetic import write_datapoint
 for fmt, bits in (("mraw12", 12), ("cine10", 10)):
@@ -56,7 +75,19 @@ for fmt, bits in (("mraw12", 12), ("cine10", 10)):
     assert np.isfinite(out.intensity).all()
 assert set(cuda_lib.launch_counts()) >= {"gather", "hot", "unpack12", "unpack10"}
 assert not any(cuda_lib.launch_counts().values())  # no card: plain twins only
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)[:5]
+""" + _NO_JAX + """
+print("OK")
+"""
+
+# the CLI in this interpreter (runpy), then the module check
+_CLI = r"""
+import runpy, sys
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+""" + _NO_JAX + """
 print("OK")
 """
 
@@ -81,21 +112,30 @@ def test_packed_path_runs_without_jax():
     assert r.stdout.strip().endswith("OK")
 
 
-def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py reaches the JAX package's jax-free formats only through
-    the port's re-exports, and never imports jax."""
-    import ast
-
-    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+def _import_roots(path):
+    with open(os.path.join(REPO, path)) as fh:
         tree = ast.parse(fh.read())
     roots = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py imports the port, and never jax nor the JAX package."""
+    roots = _import_roots("chip_smoke.py")
     assert "upsp_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "upsp_tpu"}, roots
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES)
+def test_port_source_imports_no_jax_package(path):
+    """Every import statement of the port, its CLI and chip_smoke.py,
+    function-level ones included."""
+    assert not _import_roots(path) & {"jax", "jaxlib", "upsp_tpu"}
 
 
 @pytest.fixture(scope="module")
@@ -109,8 +149,7 @@ def deck(tmp_path_factory):
 
 
 def test_cli_on_cpu(deck):
-    script = os.path.join(REPO, "scripts", "upsp-process-torch")
-    r = _run([sys.executable, script, "-input_deck", deck["deck"], "--device",
+    r = _run([sys.executable, SCRIPT, "-input_deck", deck["deck"], "--device",
               "cpu", "--registration-telemetry"])
     assert r.returncode == 0, r.stderr[-3000:]
     assert "processed 3 frames, 357 nodes" in r.stdout
@@ -119,16 +158,38 @@ def test_cli_on_cpu(deck):
         assert os.path.exists(os.path.join(deck["out_dir"], name)), name
 
 
+@pytest.mark.parametrize("mode", ["deck", "tree"])
+def test_cli_loads_no_jax_package(deck, tmp_path, mode):
+    """The CLI in deck mode and in tree mode (``--datapoint``/``--root``,
+    through the port's ``processing.context``) leaves no jax and no
+    ``upsp_tpu`` module loaded."""
+    import json
+    import shutil
+
+    if mode == "deck":
+        args = ["-input_deck", deck["deck"]]
+    else:
+        root = tmp_path / "tree"
+        dp_dir = root / "04_processing" / "psp_process" / "301"
+        dp_dir.mkdir(parents=True)
+        shutil.copy(deck["deck"], dp_dir / "input_deck.inp")
+        (root / "context.json").write_text(json.dumps(
+            {"datapoints": {"301": {}}, "processing": {"301": {}}}))
+        args = ["--datapoint", "301", "--root", str(root)]
+    r = _run([sys.executable, "-c", _CLI, SCRIPT] + args + ["--device", "cpu"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "processed 3 frames, 357 nodes" in r.stdout
+    assert r.stdout.strip().endswith("OK")
+
+
 @pytest.mark.parametrize("flags,needle", [
     (["--streaming"], "M9"),
     (["--mesh", "auto"], "M10"),
     (["--no-warm-start"], "M4/M6"),
     (["--ecc-init", "scan"], "M4/M6"),
-    (["--compute-dtype", "bfloat16"], "bf16"),
 ])
 def test_cli_refuses_unported_paths(deck, flags, needle):
-    script = os.path.join(REPO, "scripts", "upsp-process-torch")
-    r = _run([sys.executable, script, "-input_deck", deck["deck"], "--device",
+    r = _run([sys.executable, SCRIPT, "-input_deck", deck["deck"], "--device",
               "cpu"] + flags)
     assert r.returncode != 0
     assert "NotImplementedError" in r.stderr and needle in r.stderr

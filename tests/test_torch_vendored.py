@@ -1,0 +1,282 @@
+"""The port's copies of the JAX package's numpy modules against the originals.
+
+``upsp_tpu_torch`` imports nothing of ``upsp_tpu``, so the modules it needs
+that need no jax (``io``, ``geometry``, ``native``, ``pipeline.config``,
+``pipeline.interpolate``, ``processing.context``) are copied into it.  Each
+case feeds one seeded input to a copy and to its original and requires the
+same result: equal arrays (NaN at the same places), equal fields, equal
+bytes on disk.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+
+from upsp_tpu import native as j_native
+from upsp_tpu.geometry import bvh as j_bvh
+from upsp_tpu.geometry import grids as j_grids
+from upsp_tpu.io import camera_json as j_camera_json
+from upsp_tpu.io import cart3d as j_cart3d
+from upsp_tpu.io import comps as j_comps
+from upsp_tpu.io import flatfile as j_flatfile
+from upsp_tpu.io import paint as j_paint
+from upsp_tpu.io import tgts as j_tgts
+from upsp_tpu.io import video as j_video
+from upsp_tpu.io import wtd as j_wtd
+from upsp_tpu.io.video import util as j_util
+from upsp_tpu.pipeline import config as j_config
+from upsp_tpu.pipeline import interpolate as j_interpolate
+from upsp_tpu.processing import context as j_context
+from upsp_tpu_torch.geometry import bvh as t_bvh
+from upsp_tpu_torch.geometry import grids as t_grids
+from upsp_tpu_torch.io import camera_json as t_camera_json
+from upsp_tpu_torch.io import cart3d as t_cart3d
+from upsp_tpu_torch.io import comps as t_comps
+from upsp_tpu_torch.io import flatfile as t_flatfile
+from upsp_tpu_torch.io import paint as t_paint
+from upsp_tpu_torch.io import tgts as t_tgts
+from upsp_tpu_torch.io import video as t_video
+from upsp_tpu_torch.io import wtd as t_wtd
+from upsp_tpu_torch.io.video import util as t_util
+from upsp_tpu_torch.pipeline import config as t_config
+from upsp_tpu_torch.pipeline import interpolate as t_interpolate
+from upsp_tpu_torch.pipeline.synthetic import write_datapoint
+from upsp_tpu_torch.processing import context as t_context
+
+
+def assert_same(a, b, where="value"):
+    """Recursive equality of results: dataclasses field by field (private
+    caches skipped), arrays exactly with NaN where NaN, containers item by
+    item."""
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, where
+        for f in dataclasses.fields(a):
+            if not f.name.startswith("_"):
+                assert_same(getattr(a, f.name), getattr(b, f.name),
+                            f"{where}.{f.name}")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        np.testing.assert_array_equal(a, b, err_msg=where)
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), where
+        for k, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{where}[{k}]")
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            assert_same(a[k], b[k], f"{where}[{k!r}]")
+    else:
+        assert a == b or (a != a and b != b), (where, a, b)
+
+
+@pytest.fixture(scope="module")
+def dp(tmp_path_factory):
+    """One 12-bit mraw and one 10-bit cine datapoint, hot pixels included."""
+    root = tmp_path_factory.mktemp("vendored")
+    kw = dict(image_hw=(40, 64), n_frames=4, n_distinct=4, grid_shape=(21, 17),
+              n_targets=3, seed=11, hot_pixels=True)
+    return {fmt: write_datapoint(str(root / fmt), video_format=fmt, **kw)
+            for fmt in ("mraw12", "cine10")}
+
+
+def _deck(dp, _tmp):
+    for d in dp.values():
+        assert_same(t_config.read_input_deck(d["deck"]),
+                    j_config.read_input_deck(d["deck"]))
+
+
+def _flat_files(dp, tmp):
+    model = j_grids.load_model(j_config.read_input_deck(dp["mraw12"]["deck"]).grid)
+    rng = np.random.default_rng(1)
+    n = model.size
+    inten = rng.normal(2000, 50, (3, n)).astype(np.float32)
+    inten[:, ::7] = np.nan
+    p1 = dict(intensity=inten, intensity_avg=inten.mean(0),
+              intensity_rms=inten.std(0), intensity_ratio_0=inten[0] / inten[1],
+              coverage=rng.integers(0, 3, n).astype(np.float32))
+    p2 = dict(pressure_transpose=inten.T.copy(), avg=inten[0], rms=inten[1],
+              gain=inten[2], steady_state=inten[0] * 0.1, model_temp=inten[1])
+    t_flatfile.FlatFileSet(str(tmp / "t")).write_standard_outputs(model, p1, p2)
+    j_flatfile.FlatFileSet(str(tmp / "j")).write_standard_outputs(model, p1, p2)
+    names = sorted(os.listdir(tmp / "j"))
+    assert names == sorted(os.listdir(tmp / "t"))
+    assert set(j_flatfile.FLAT_FILES) <= set(names)
+    assert t_flatfile.FLAT_FILES == j_flatfile.FLAT_FILES
+    for name in names:
+        assert (tmp / "t" / name).read_bytes() == (tmp / "j" / name).read_bytes(), name
+
+
+def _read_flat(_dp, tmp):
+    x = np.random.default_rng(2).normal(0, 1, 1000).astype(np.float32)
+    path = str(tmp / "flat")
+    j_flatfile.write_flat(path, x)
+    for kw in (dict(), dict(count=100, offset_values=37)):
+        assert_same(t_flatfile.read_flat(path, **kw), j_flatfile.read_flat(path, **kw))
+    assert_same(t_flatfile.vv_subsample(x, 99), j_flatfile.vv_subsample(x, 99))
+
+
+def _pack_unpack(_dp, _tmp):
+    rng = np.random.default_rng(3)
+    p12 = rng.integers(0, 4096, 3 * 4 * 64).astype(np.uint16)
+    p10 = rng.integers(0, 1024, 5 * 4 * 64).astype(np.uint16)
+    assert_same(t_util.pack_12bpp(p12), j_util.pack_12bpp(p12))
+    assert_same(t_util.pack_10bpp(p10), j_util.pack_10bpp(p10))
+    raw = rng.integers(0, 256, 15 * 41).astype(np.uint8)
+    assert_same(t_util.unpack_12bpp(raw), j_util.unpack_12bpp(raw))
+    assert_same(t_util.unpack_10bpp(raw), j_util.unpack_10bpp(raw))
+
+
+def _videos(dp, _tmp):
+    from upsp_tpu.io.video.cine import LUT_10_TO_12 as j_lut
+    from upsp_tpu_torch.io.video.cine import LUT_10_TO_12 as t_lut
+
+    assert_same(t_lut, j_lut)
+    for d in dp.values():
+        for cam in t_config.read_input_deck(d["deck"]).cameras:
+            t, j = t_video.video_reader(cam.video), j_video.video_reader(cam.video)
+            assert type(t).__name__ == type(j).__name__
+            t.open()
+            j.open()
+            try:
+                for attr in ("frame_count", "frame_rate", "width", "height",
+                             "bit_depth", "raw_bit_depth", "exposure_us",
+                             "supports_packed_reads", "packed_bits", "packed_lut"):
+                    assert_same(getattr(t, attr), getattr(j, attr), attr)
+                for f in range(t.frame_count):
+                    assert_same(t.read_frame(f), j.read_frame(f))
+                assert_same(t.read_packed_frames(3, start=1), j.read_packed_frames(3, start=1))
+            finally:
+                t.close()
+                j.close()
+
+
+def _load_model(dp, tmp):
+    grid = t_config.read_input_deck(dp["mraw12"]["deck"]).grid
+    for tol in (0.0, 1e-3):
+        assert_same(t_grids.load_model(grid, tolerance=tol),
+                    j_grids.load_model(grid, tolerance=tol))
+    # a Cart3D triangulation (io/cart3d.py) through both loaders
+    m = j_grids.load_model(grid)
+    mesh = j_cart3d.TriMesh(vertices=m.vertices, triangles=m.triangles,
+                            components=np.ones(m.triangles.shape[0], np.int32))
+    path = str(tmp / "plate.tri")
+    j_cart3d.write_tri(path, mesh)
+    assert_same(t_cart3d.read_tri(path), j_cart3d.read_tri(path))
+    assert_same(t_grids.load_model(path), j_grids.load_model(path))
+
+
+def _idw(_dp, _tmp):
+    rng = np.random.default_rng(4)
+    src = rng.uniform(0, 1, (300, 3))
+    dst = np.concatenate([rng.uniform(0, 1, (50, 3)), src[:5]])  # exact hits
+    vals = rng.normal(0, 1, 300)
+    assert_same(t_interpolate.idw_interpolate(src, vals, dst),
+                j_interpolate.idw_interpolate(src, vals, dst))
+
+
+def _targets_cameras_conditions(dp, _tmp):
+    cfg = t_config.read_input_deck(dp["mraw12"]["deck"])
+    for cam in cfg.cameras:
+        assert_same(t_tgts.read_tgts(cam.targets), j_tgts.read_tgts(cam.targets))
+        assert_same(t_tgts.targets_as_arrays(t_tgts.read_tgts(cam.targets)),
+                    j_tgts.targets_as_arrays(j_tgts.read_tgts(cam.targets)))
+        assert_same(t_tgts.read_tgts_header(cam.targets),
+                    j_tgts.read_tgts_header(cam.targets))
+        assert_same(t_camera_json.read_camera_json(cam.calibration, (40, 64)),
+                    j_camera_json.read_camera_json(cam.calibration, (40, 64)))
+    assert_same(t_wtd.read_wtd(cfg.sds), j_wtd.read_wtd(cfg.sds))
+    assert_same(t_paint.PaintCalibration.read(cfg.paint_cal),
+                j_paint.PaintCalibration.read(cfg.paint_cal))
+
+
+def _comps(_dp, tmp):
+    path = str(tmp / "comps.csv")
+    with open(path, "w") as fh:
+        fh.write("comp,active\n1,1\n2,0\n3,-2\n\n")
+    assert_same(t_comps.read_active_comp_file(path), j_comps.read_active_comp_file(path))
+
+
+def _native_bvh(dp, _tmp):
+    from upsp_tpu_torch.pipeline.phase0 import native_library
+
+    t_native = native_library()  # builds cpp/ with make when missing
+    import importlib
+
+    jn = importlib.reload(j_native)
+    assert jn.available()
+    m = j_grids.load_model(t_config.read_input_deck(dp["mraw12"]["deck"]).grid)
+    for method in ("median", "sah"):
+        tb = t_native.build_bvh(m.vertices, m.triangles, method=method)
+        jb = jn.build_bvh(m.vertices, m.triangles, method=method)
+        assert_same(tb, jb)
+    rng = np.random.default_rng(5)
+    o = np.concatenate([rng.uniform(0, 10, (200, 2)), np.full((200, 1), 5.0)], 1)
+    d = np.tile([0.0, 0.0, -1.0], (200, 1)) + rng.normal(0, 0.05, (200, 3))
+    assert_same(t_native.bvh_intersect(tb, o, d), jn.bvh_intersect(jb, o, d))
+    raw = rng.integers(0, 256, 15 * 40).astype(np.uint8).tobytes()
+    assert_same(t_native.unpack_12bpp(raw), jn.unpack_12bpp(raw))
+    assert_same(t_native.unpack_10bpp(raw), jn.unpack_10bpp(raw))
+
+
+def _python_bvh(dp, _tmp):
+    m = j_grids.load_model(t_config.read_input_deck(dp["mraw12"]["deck"]).grid)
+    assert_same(t_bvh.build_bvh(m.vertices, m.triangles, 4),
+                j_bvh.build_bvh(m.vertices, m.triangles, 4))
+
+
+def _tree_context(_dp, tmp):
+    root = tmp / "tree"
+    root.mkdir()
+    (root / "context.json").write_text(json.dumps(
+        {"datapoints": {"301": {"grid": "g"}}, "processing": {"301": {"x": 1}}}))
+    t, j = t_context.Pipeline(str(root)), j_context.Pipeline(str(root))
+    for a, b in zip(t.datapoints, j.datapoints):
+        assert_same((a.name, a.inputs, a.processing, a.input_deck_path(),
+                     a.pressure_transpose_path(), a.output_path("s", "f")),
+                    (b.name, b.inputs, b.processing, b.input_deck_path(),
+                     b.pressure_transpose_path(), b.output_path("s", "f")))
+
+
+def _hdf5(dp, tmp):
+    h5py = pytest.importorskip("h5py")
+    from upsp_tpu.io import hdf5io as j_hdf5io
+    from upsp_tpu_torch.io import hdf5io as t_hdf5io
+
+    cfg = t_config.read_input_deck(dp["mraw12"]["deck"])
+    model = j_grids.load_model(cfg.grid)
+    cond = j_wtd.read_wtd(cfg.sds)
+    block = np.random.default_rng(6).normal(0, 1, (model.size, 3)).astype(np.float32)
+    out = {}
+    for name, mod in (("t", t_hdf5io), ("j", j_hdf5io)):
+        path = str(tmp / f"{name}.h5")
+        with mod.PSPWriter(path, model, n_frames=3, transposed=True,
+                           chunk_nodes=64) as w:
+            w.write_grid("in")
+            w.write_tunnel_conditions(cond)
+            w.write_camera_settings(focal_lengths=[100.0, 110.0], cam_nums=[1, 2],
+                                    framerate=10000, fstop=2.8, exposure=50.0)
+            w.write_frames_block(block)
+            w.write_new_dataset("rms", block[:, 0], "delta Cp")
+        vals = {}
+        with h5py.File(path, "r") as f:
+            f.visititems(lambda k, v: vals.__setitem__(
+                k, v[()] if isinstance(v, h5py.Dataset) else None))
+            vals["attrs"] = {k: f.attrs[k] for k in f.attrs}
+        out[name] = vals
+    assert_same(out["t"], out["j"])
+
+
+CASES = {f.__name__[1:]: f for f in (
+    _deck, _flat_files, _read_flat, _pack_unpack, _videos, _load_model, _idw,
+    _targets_cameras_conditions, _comps, _native_bvh, _python_bvh,
+    _tree_context, _hdf5,
+)}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_copy_matches_original(case, dp, tmp_path):
+    CASES[case](dp, tmp_path)

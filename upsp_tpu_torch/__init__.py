@@ -9,10 +9,14 @@ counterpart:
 - :mod:`upsp_tpu_torch.camera`    — pinhole + Brown distortion camera model
 - :mod:`upsp_tpu_torch.pipeline`  — phase 0/1/2 and the datapoint driver
 - :mod:`upsp_tpu_torch.state`     — the JAX phase-0 state as port tensors
+- :mod:`upsp_tpu_torch.io`, :mod:`upsp_tpu_torch.geometry` — file formats
+  and surface models (numpy)
 
-Modules of ``upsp_tpu`` that do not import jax (``io``, ``geometry``,
-``native``, ``pipeline.config``) are reused by import.  This package
-imports ``torch`` and never ``jax``.
+The modules of ``upsp_tpu`` that need no jax and that the port uses
+(``io``, ``geometry``, ``native``, ``pipeline.config``,
+``pipeline.interpolate``, ``processing.context``) are copied here at the
+same relative paths.  This package imports ``torch`` and never ``jax``,
+nor anything of ``upsp_tpu``.
 """
 
 import torch

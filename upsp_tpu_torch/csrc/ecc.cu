@@ -1,6 +1,6 @@
 // Hopper kernels for the ECC hot loop of the phase-1 frame program.
 //
-// Five kernels, each the counterpart of one Pallas TPU kernel in
+// Six kernels, each the counterpart of one Pallas TPU kernel in
 // upsp_tpu/ops/pallas_ecc.py:
 //
 //   K1 blur         <- _blur_kernel via _blur_batched / make_blur
@@ -11,13 +11,26 @@
 //                      make_warp_filter
 //   K6 hot pixels   <- _hot_kernel via _hot_batched / fix_hot_pixels_pallas
 //                      (count pass + repair pass, below)
+//   K9 fused GN     <- _gn_fused_kernel via _gn_fused_batched / ecc_gn_fused
+//                      (K2 then K3 without the warped image in HBM)
 //
-// What bounds them on the H100: all four are memory-bound.  Per pixel they
-// move 8 bytes (K1, K2: one f32 read, one f32 write), 8 bytes (K3: the
-// warped image and the template) or 8-12 bytes (K4: one read, one or two
-// writes), against 3.35 TB/s of HBM; the arithmetic (at most ~150 flops a
-// pixel in K3) stays far under the card's f32 rate.  So the design goal is
-// one HBM pass per image and coalesced rows:
+// K1-K4 and K9 take float32 or bfloat16 images (the JAX package's
+// compute_dtype=bfloat16 path): each is a template on the image type, loads
+// bf16, computes in f32 and rounds once, at its store, to nearest even
+// (__float2bfloat16_rn, as astype(bfloat16) does).  Warps, statistics and
+// K9/K3's outputs stay f32.
+//
+// What bounds them on the H100, at its peak rates: K1-K4 in f32 their
+// bytes -- per pixel 8 (K1, K2: one f32 read, one f32 write; K3: the
+// image and the template), 8-12 (K4: one read, one or two writes), half
+// that in bf16, against 3.35 TB/s of HBM.  The functions need about 18
+// (K1), 36 (K2), 46 (K4), 61 (K3) and 97 (K9) flops a pixel once the
+// row- and column-constant work (sample positions, weights, the y factors
+// of the statistics) is taken out, against 67 TFLOP/s of f32; that holds
+// K9, and K3 in bf16.  As written they reach 10-28% of that bound and run
+// no faster in bf16 than in f32 (PERF.md), so instruction work per pixel,
+// not HBM, holds them today (accumulate_pixel, for one, sums the y terms
+// per pixel).  The design goal is one HBM pass per image and coalesced rows:
 //
 //   - K1, K2 and K4 work on 32x32 output tiles with their halo staged in
 //     shared memory, so every input pixel is read from HBM once per tile
@@ -32,7 +45,7 @@
 //     in f64: no float atomics, so the statistics (and with them the ECC
 //     telemetry and the intensities) are the same from run to run.
 //
-// The plain PyTorch twins of all four live beside the wrappers in
+// The plain PyTorch twins of all of them live beside the wrappers in
 // upsp_tpu_torch/ops/ecc_kernels.py and define the semantics.
 //
 // Build (plain C interface, loaded with ctypes):
@@ -41,6 +54,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "image_io.cuh"
 
 namespace {
 
@@ -102,9 +117,9 @@ __device__ __forceinline__ int reflect101(int i, int n) {
 // Separable resample at source position (ys, xs): the tent taps
 // floor(p), floor(p)+1 per axis, rows first, zero outside the image
 // (BORDER_CONSTANT) -- R @ img @ C^T of ops/warp.py, one entry.
-__device__ __forceinline__ float sep_value(const float* __restrict__ img,
-                                           int H, int W, float ys,
-                                           float xs) {
+template <typename T>
+__device__ __forceinline__ float sep_value(const T* __restrict__ img, int H,
+                                           int W, float ys, float xs) {
   if (!(ys > -1.f && ys < (float)H && xs > -1.f && xs < (float)W)) {
     return 0.f;  // both taps of one axis outside the image (or NaN)
   }
@@ -122,12 +137,12 @@ __device__ __forceinline__ float sep_value(const float* __restrict__ img,
   const bool vx1 = x0 + 1 < W;
   float t0 = 0.f, t1 = 0.f;
   if (vx0) {
-    if (vy0) t0 = wy0 * __ldg(img + (size_t)y0 * W + x0);
-    if (vy1) t0 += wy1 * __ldg(img + (size_t)(y0 + 1) * W + x0);
+    if (vy0) t0 = wy0 * ldf(img + (size_t)y0 * W + x0);
+    if (vy1) t0 += wy1 * ldf(img + (size_t)(y0 + 1) * W + x0);
   }
   if (vx1) {
-    if (vy0) t1 = wy0 * __ldg(img + (size_t)y0 * W + x0 + 1);
-    if (vy1) t1 += wy1 * __ldg(img + (size_t)(y0 + 1) * W + x0 + 1);
+    if (vy0) t1 = wy0 * ldf(img + (size_t)y0 * W + x0 + 1);
+    if (vy1) t1 += wy1 * ldf(img + (size_t)(y0 + 1) * W + x0 + 1);
   }
   float out = 0.f;
   if (vx0) out = wx0 * t0;
@@ -173,10 +188,11 @@ __device__ __forceinline__ float taylor(const float* s, int p, int r, int c,
 // Fill a shared tile with the separable image over rows [r0, r0+ny) and
 // columns [c0, c0+nx) (any integers: outside the image it is still the
 // BORDER_CONSTANT resample).
+template <typename T>
 __device__ __forceinline__ void fill_sep(float* sep, int pitch, int r0,
                                          int c0, int ny, int nx,
-                                         const float* __restrict__ img,
-                                         int H, int W, const WarpP& w) {
+                                         const T* __restrict__ img, int H,
+                                         int W, const WarpP& w) {
   const float cy = (H - 1) * 0.5f;
   const float cx = (W - 1) * 0.5f;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
@@ -194,10 +210,11 @@ __device__ __forceinline__ void fill_sep(float* sep, int pitch, int r0,
 
 // Separable filter of a staged (TILE_Y+2r) x (TILE_X+2r) tile: vertical
 // pass into `vbuf`, then the horizontal pass straight to `out`.
+template <typename T>
 __device__ __forceinline__ void filter_tile(const float* src, float* vbuf,
                                             const Taps& taps, int ty0,
                                             int tx0, int H, int W,
-                                            float* __restrict__ out) {
+                                            T* __restrict__ out) {
   const int r = taps.k / 2;
   const int nx = TILE_X + 2 * r;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
@@ -220,7 +237,7 @@ __device__ __forceinline__ void filter_tile(const float* src, float* vbuf,
       for (int j = 0; j < taps.k; ++j) {
         acc += taps.t[j] * vbuf[ly * WRP_P + lx + j];
       }
-      out[(size_t)y * W + x] = acc;
+      stf(out + (size_t)y * W + x, acc);
     }
   }
 }
@@ -231,15 +248,16 @@ __device__ __forceinline__ void filter_tile(const float* src, float* vbuf,
 // Bound: 8 B/pixel of HBM traffic.  Design: a 32x32 tile plus its r-pixel
 // reflected halo is read once into shared memory; both passes run there.
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-blur_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
-            int W, Taps taps) {
+blur_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W,
+            Taps taps) {
   __shared__ float tile[WRP_ROWS * WRP_P];
   __shared__ float vbuf[TILE_Y * WRP_P];
   const int b = blockIdx.z;
   const int ty0 = blockIdx.y * TILE_Y;
   const int tx0 = blockIdx.x * TILE_X;
-  const float* img = in + (size_t)b * H * W;
+  const T* img = in + (size_t)b * H * W;
   const int r = taps.k / 2;
   const int ny = TILE_Y + 2 * r;
   const int nx = TILE_X + 2 * r;
@@ -253,7 +271,7 @@ blur_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
     // rows/columns past the last tile's ragged edge are never read by a
     // written output; everything else mirrors reflect-101
     if (y < H + r && x < W + r) {
-      v = __ldg(img + (size_t)reflect101(y, H) * W + reflect101(x, W));
+      v = ldf(img + (size_t)reflect101(y, H) * W + reflect101(x, W));
     }
     tile[ly * WRP_P + lx] = v;
   }
@@ -270,26 +288,27 @@ blur_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
 // image of the tile and a 1-pixel ring is computed once into shared
 // memory, so the Taylor term's 3x3 differences cost no further samples.
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-warp_kernel(const float* __restrict__ in, const float* __restrict__ warps,
-            float* __restrict__ out, int H, int W) {
+warp_kernel(const T* __restrict__ in, const float* __restrict__ warps,
+            T* __restrict__ out, int H, int W) {
   __shared__ float sep[(TILE_Y + 2) * SEP_P];
   const int b = blockIdx.z;
   const int ty0 = blockIdx.y * TILE_Y;
   const int tx0 = blockIdx.x * TILE_X;
-  const float* img = in + (size_t)b * H * W;
+  const T* img = in + (size_t)b * H * W;
   const WarpP w = load_warp(warps, b);
   fill_sep(sep, SEP_P, ty0 - 1, tx0 - 1, TILE_Y + 2, TILE_X + 2, img, H, W,
            w);
   __syncthreads();
-  float* o = out + (size_t)b * H * W;
+  T* o = out + (size_t)b * H * W;
   for (int ly = threadIdx.y; ly < TILE_Y; ly += BLOCK_Y) {
     const int lx = threadIdx.x;
     const int y = ty0 + ly;
     const int x = tx0 + lx;
     if (y < H && x < W) {
-      o[(size_t)y * W + x] =
-          taylor(sep + (ly + 1) * SEP_P + lx + 1, SEP_P, y, x, w, H, W);
+      stf(o + (size_t)y * W + x,
+          taylor(sep + (ly + 1) * SEP_P + lx + 1, SEP_P, y, x, w, H, W));
     }
   }
 }
@@ -303,17 +322,18 @@ warp_kernel(const float* __restrict__ in, const float* __restrict__ warps,
 // filter halo, vertical pass -- so the warped image never goes to HBM
 // unless asked for.
 
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-warp_filter_kernel(const float* __restrict__ in,
-                   const float* __restrict__ warps, float* __restrict__ out,
-                   float* __restrict__ warped_out, int H, int W, Taps taps) {
+warp_filter_kernel(const T* __restrict__ in, const float* __restrict__ warps,
+                   T* __restrict__ out, T* __restrict__ warped_out, int H,
+                   int W, Taps taps) {
   __shared__ float sep[SEP_ROWS * SEP_P];
   __shared__ float wrp[WRP_ROWS * WRP_P];
   __shared__ float vbuf[TILE_Y * WRP_P];
   const int b = blockIdx.z;
   const int ty0 = blockIdx.y * TILE_Y;
   const int tx0 = blockIdx.x * TILE_X;
-  const float* img = in + (size_t)b * H * W;
+  const T* img = in + (size_t)b * H * W;
   const WarpP w = load_warp(warps, b);
   const int r = taps.k / 2;
 
@@ -332,7 +352,7 @@ warp_filter_kernel(const float* __restrict__ in,
   const int ny = TILE_Y + 2 * r;
   const int nx = TILE_X + 2 * r;
   const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
-  float* wo = warped_out ? warped_out + (size_t)b * H * W : nullptr;
+  T* wo = warped_out ? warped_out + (size_t)b * H * W : nullptr;
   for (int i = tid; i < ny * nx; i += NTHREADS) {
     const int ly = i / nx;
     const int lx = i - ly * nx;
@@ -346,7 +366,7 @@ warp_filter_kernel(const float* __restrict__ in,
                  W);
       if (wo && y == gy && x == gx && ly >= r && ly < r + TILE_Y &&
           lx >= r && lx < r + TILE_X) {
-        wo[(size_t)y * W + x] = v;
+        stf(wo + (size_t)y * W + x, v);
       }
     }
     wrp[ly * WRP_P + lx] = v;
@@ -358,7 +378,7 @@ warp_filter_kernel(const float* __restrict__ in,
 // ---------------------------------------------------------------------------
 // K3: the 42 raw Gauss-Newton statistics of (warped image, template).
 // Replaces _moments_kernel (pallas_ecc.py:534, via _moments_batched :587).
-// Bound: 8 B/pixel read, ~150 flops/pixel.  Design: one block per 4-row
+// Bound: 8 B/pixel read (f32), ~61 flops/pixel.  Design: one block per 4-row
 // strip, f32 register accumulation per thread, f64 warp-shuffle block
 // reduction, one (42,) f64 partial per block; moments_reduce_kernel sums
 // the partials in a fixed order (no atomics: deterministic statistics).
@@ -370,8 +390,85 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// One valid pixel's share of the 42 statistics: the warped gradient from
+// the central differences (gix, giy) of the warped image, the
+// brightness-shifted image and template values (pallas_ecc.py:536-543).
+__device__ __forceinline__ void accumulate_pixel(float* acc, float gix,
+                                                 float giy, float iv,
+                                                 float tv, float xf, float yf,
+                                                 const WarpP& w,
+                                                 float inv_det) {
+  const float gx = (w.a11 * gix - w.a10 * giy) * inv_det;
+  const float gy = (-w.a01 * gix + w.a00 * giy) * inv_det;
+  const float f3[3] = {gx * gx, gx * gy, gy * gy};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {  // Hessian moments [xx,xy,yy,x,y,1]
+    const float f = f3[q];
+    acc[6 * q + 0] += f * xf * xf;
+    acc[6 * q + 1] += f * xf * yf;
+    acc[6 * q + 2] += f * yf * yf;
+    acc[6 * q + 3] += f * xf;
+    acc[6 * q + 4] += f * yf;
+    acc[6 * q + 5] += f;
+  }
+  const float z3[3] = {tv, iv, 1.f};
+#pragma unroll
+  for (int zi = 0; zi < 3; ++zi) {  // [gx x, gy x, gx y, gy y, gx, gy].z
+    const float gxz = gx * z3[zi];
+    const float gyz = gy * z3[zi];
+    acc[18 + 6 * zi + 0] += gxz * xf;
+    acc[18 + 6 * zi + 1] += gyz * xf;
+    acc[18 + 6 * zi + 2] += gxz * yf;
+    acc[18 + 6 * zi + 3] += gyz * yf;
+    acc[18 + 6 * zi + 4] += gxz;
+    acc[18 + 6 * zi + 5] += gyz;
+  }
+  // masked sums: area, S_t, S_i, S_tt, S_ii, S_ti
+  acc[36] += 1.f;
+  acc[37] += tv;
+  acc[38] += iv;
+  acc[39] += tv * tv;
+  acc[40] += iv * iv;
+  acc[41] += tv * iv;
+}
+
+// validity of pixel (y, x)'s separable sample under the MASK warp (the
+// composed integer pre-shift), pallas_ecc.py:555-556, 899-900
+__device__ __forceinline__ bool mask_row(const WarpP& m, int y, int H,
+                                         float cx) {
+  const float ysm = affine_pos(m.a11, (float)y, m.ty, m.a10, cx);
+  return (ysm >= 0.f) && (ysm <= (float)(H - 1));
+}
+__device__ __forceinline__ bool mask_col(const WarpP& m, int x, int W,
+                                         float cy) {
+  const float xsm = affine_pos(m.a00, (float)x, m.tx, m.a01, cy);
+  return xsm >= 0.f && xsm <= (float)(W - 1);
+}
+
+// f64 sum of a block's per-thread accumulators (warp shuffles, then the
+// warps in order); thread 0..41 writes statistic k of the block's partial
+template <int THREADS>
+__device__ __forceinline__ void block_partial(const float* acc, int tid,
+                                              double (*red)[NSTAT],
+                                              double* __restrict__ out) {
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < NSTAT; ++k) {
+    const double v = warp_sum((double)acc[k]);
+    if (lane == 0) red[wid][k] = v;
+  }
+  __syncthreads();
+  if (tid < NSTAT) {
+    double s = 0.0;
+    for (int i = 0; i < THREADS / 32; ++i) s += red[i][tid];
+    out[tid] = s;
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(MOM_THREADS)
-moments_kernel(const float* __restrict__ iws, const float* __restrict__ tmpl,
+moments_kernel(const T* __restrict__ iws, const T* __restrict__ tmpl,
                const float* __restrict__ warps,
                const float* __restrict__ mask_warps,
                const float* __restrict__ kshift_p,
@@ -379,7 +476,7 @@ moments_kernel(const float* __restrict__ iws, const float* __restrict__ tmpl,
   __shared__ double red[MOM_THREADS / 32][NSTAT];
   const int b = blockIdx.y;
   const int blk = blockIdx.x;
-  const float* iw = iws + (size_t)b * H * W;
+  const T* iw = iws + (size_t)b * H * W;
   const WarpP w = load_warp(warps, b);
   const WarpP m = load_warp(mask_warps, b);
   const float kshift = *kshift_p;
@@ -394,74 +491,26 @@ moments_kernel(const float* __restrict__ iws, const float* __restrict__ tmpl,
   for (int rr = 0; rr < MOM_ROWS; ++rr) {
     const int y = blk * MOM_ROWS + rr;
     if (y >= H) break;
-    // validity of the separable sample under the MASK warp (the composed
-    // integer pre-shift), pallas_ecc.py:555-556, 899-900
-    const float ysm = affine_pos(m.a11, (float)y, m.ty, m.a10, cx);
-    const bool my = (ysm >= 0.f) && (ysm <= (float)(H - 1));
-    if (!my) continue;
+    if (!mask_row(m, y, H, cx)) continue;
     const bool gmask = (y > 0) && (y < H - 1);
-    const float yf = (float)y;
-    const float* row = iw + (size_t)y * W;
-    const float* trow = tmpl + (size_t)y * W;
+    const T* row = iw + (size_t)y * W;
+    const T* trow = tmpl + (size_t)y * W;
     for (int x = threadIdx.x; x < W; x += MOM_THREADS) {
-      const float xsm = affine_pos(m.a00, (float)x, m.tx, m.a01, cy);
-      if (!(xsm >= 0.f && xsm <= (float)(W - 1))) continue;
+      if (!mask_col(m, x, W, cy)) continue;
       const bool emask = (x > 0) && (x < W - 1);
       // central differences, zero on the outer ring
-      const float gix = emask ? 0.5f * (row[x + 1] - row[x - 1]) : 0.f;
-      const float giy = gmask ? 0.5f * (row[x + W] - row[x - W]) : 0.f;
-      const float gx = (w.a11 * gix - w.a10 * giy) * inv_det;
-      const float gy = (-w.a01 * gix + w.a00 * giy) * inv_det;
-      // brightness-shifted fields (pallas_ecc.py:536-543)
-      const float iv = row[x] - kshift;
-      const float tv = __ldg(trow + x) - kshift;
-      const float xf = (float)x;
-      const float f3[3] = {gx * gx, gx * gy, gy * gy};
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {  // Hessian moments [xx,xy,yy,x,y,1]
-        const float f = f3[q];
-        acc[6 * q + 0] += f * xf * xf;
-        acc[6 * q + 1] += f * xf * yf;
-        acc[6 * q + 2] += f * yf * yf;
-        acc[6 * q + 3] += f * xf;
-        acc[6 * q + 4] += f * yf;
-        acc[6 * q + 5] += f;
-      }
-      const float z3[3] = {tv, iv, 1.f};
-#pragma unroll
-      for (int zi = 0; zi < 3; ++zi) {  // [gx x, gy x, gx y, gy y, gx, gy].z
-        const float gxz = gx * z3[zi];
-        const float gyz = gy * z3[zi];
-        acc[18 + 6 * zi + 0] += gxz * xf;
-        acc[18 + 6 * zi + 1] += gyz * xf;
-        acc[18 + 6 * zi + 2] += gxz * yf;
-        acc[18 + 6 * zi + 3] += gyz * yf;
-        acc[18 + 6 * zi + 4] += gxz;
-        acc[18 + 6 * zi + 5] += gyz;
-      }
-      // masked sums: area, S_t, S_i, S_tt, S_ii, S_ti
-      acc[36] += 1.f;
-      acc[37] += tv;
-      acc[38] += iv;
-      acc[39] += tv * tv;
-      acc[40] += iv * iv;
-      acc[41] += tv * iv;
+      const float gix =
+          emask ? 0.5f * (ldf(row + x + 1) - ldf(row + x - 1)) : 0.f;
+      const float giy =
+          gmask ? 0.5f * (ldf(row + x + W) - ldf(row + x - W)) : 0.f;
+      accumulate_pixel(acc, gix, giy, ldf(row + x) - kshift,
+                       ldf(trow + x) - kshift, (float)x, (float)y, w,
+                       inv_det);
     }
   }
-
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NSTAT; ++k) {
-    const double v = warp_sum((double)acc[k]);
-    if (lane == 0) red[wid][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < NSTAT) {
-    double s = 0.0;
-    for (int i = 0; i < MOM_THREADS / 32; ++i) s += red[i][threadIdx.x];
-    partials[((size_t)b * gridDim.x + blk) * NSTAT + threadIdx.x] = s;
-  }
+  block_partial<MOM_THREADS>(
+      acc, threadIdx.x, red,
+      partials + ((size_t)b * gridDim.x + blk) * NSTAT);
 }
 
 // fixed-order f64 sum of the per-block partials -> (B, 128) f32
@@ -477,6 +526,96 @@ __global__ void moments_reduce_kernel(const double* __restrict__ partials,
     v = (float)s;
   }
   out[(size_t)b * 128 + k] = v;
+}
+
+// ---------------------------------------------------------------------------
+// K9: one Gauss-Newton step's statistics straight from the UNWARPED image:
+// K3's 42 statistics of K2's warped image, without the warped image.
+// Replaces _gn_fused_kernel (pallas_ecc.py:968, via _gn_fused_batched
+// :1044).  Bound: reading the image and the template, 8 B/pixel in f32 (4
+// in bf16) -- against K2 then K3's 16 (8): the warped image is neither
+// written nor read back (17.3 MB per 1200x1800 f32 frame per step).
+// Design: each block owns a GN_TY x GN_TX tile.  It computes K2's
+// separable image over the tile plus a 2-pixel ring into shared memory
+// (fill_sep, the same sampling as K2), then the warped image over the tile
+// plus a 1-pixel ring (taylor, as K2; zero outside the image), so the
+// central differences at the tile's seams read the neighbouring tiles'
+// rows and columns from shared memory.  The statistics then follow K3
+// pixel by pixel (accumulate_pixel), one f64 partial per block, summed by
+// moments_reduce_kernel in a fixed order.  The warped values stay f32 also
+// for bf16 images (the JAX kernel's _sep_rows_block does the same), so
+// K9 does not round where K2 then K3 rounds the warped image.
+
+constexpr int GN_TX = 128;
+constexpr int GN_TY = 32;
+constexpr int GN_SP = GN_TX + 4 + 1;  // separable tile pitch (+2 ring)
+constexpr int GN_WP = GN_TX + 2 + 1;  // warped tile pitch (+1 ring)
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+gn_fused_kernel(const T* __restrict__ imgs, const T* __restrict__ tmpl,
+                const float* __restrict__ warps,
+                const float* __restrict__ mask_warps,
+                const float* __restrict__ kshift_p,
+                double* __restrict__ partials, int H, int W) {
+  __shared__ float sep[(GN_TY + 4) * GN_SP];
+  __shared__ float wrp[(GN_TY + 2) * GN_WP];
+  __shared__ double red[NTHREADS / 32][NSTAT];
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.y * GN_TY;
+  const int x0 = blockIdx.x * GN_TX;
+  const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
+  const T* img = imgs + (size_t)b * H * W;
+  const WarpP w = load_warp(warps, b);
+  const WarpP m = load_warp(mask_warps, b);
+
+  fill_sep(sep, GN_SP, y0 - 2, x0 - 2, GN_TY + 4, GN_TX + 4, img, H, W, w);
+  __syncthreads();
+  // warped rows [y0-1, y0+GN_TY+1), columns [x0-1, x0+GN_TX+1); zero
+  // outside the image (the moments kernel never reads those: the outer
+  // ring has no central difference)
+  constexpr int NY = GN_TY + 2;
+  constexpr int NX = GN_TX + 2;
+  for (int i = tid; i < NY * NX; i += NTHREADS) {
+    const int ly = i / NX;
+    const int lx = i - ly * NX;
+    const int r = y0 - 1 + ly;
+    const int c = x0 - 1 + lx;
+    float v = 0.f;
+    if (r >= 0 && r < H && c >= 0 && c < W) {
+      v = taylor(sep + (ly + 1) * GN_SP + lx + 1, GN_SP, r, c, w, H, W);
+    }
+    wrp[ly * GN_WP + lx] = v;
+  }
+  __syncthreads();
+
+  const float kshift = *kshift_p;
+  const float inv_det = 1.f / (w.a00 * w.a11 - w.a01 * w.a10);
+  const float cy = (H - 1) * 0.5f;
+  const float cx = (W - 1) * 0.5f;
+  float acc[NSTAT];
+#pragma unroll
+  for (int k = 0; k < NSTAT; ++k) acc[k] = 0.f;
+  for (int i = tid; i < GN_TY * GN_TX; i += NTHREADS) {
+    const int ly = i / GN_TX;
+    const int lx = i - ly * GN_TX;
+    const int y = y0 + ly;
+    const int x = x0 + lx;
+    if (y >= H || x >= W || !mask_row(m, y, H, cx) || !mask_col(m, x, W, cy)) {
+      continue;
+    }
+    const float* c = wrp + (ly + 1) * GN_WP + lx + 1;
+    const float gix = (x > 0 && x < W - 1) ? 0.5f * (c[1] - c[-1]) : 0.f;
+    const float giy =
+        (y > 0 && y < H - 1) ? 0.5f * (c[GN_WP] - c[-GN_WP]) : 0.f;
+    accumulate_pixel(acc, gix, giy, c[0] - kshift,
+                     ldf(tmpl + (size_t)y * W + x) - kshift, (float)x,
+                     (float)y, w, inv_det);
+  }
+  const int nblk = gridDim.x * gridDim.y;
+  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+  block_partial<NTHREADS>(acc, tid, red,
+                          partials + ((size_t)b * nblk + blk) * NSTAT);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,55 +716,149 @@ dim3 tile_grid(int B, int H, int W) {
   return dim3((W + TILE_X - 1) / TILE_X, (H + TILE_Y - 1) / TILE_Y, B);
 }
 
-}  // namespace
+dim3 gn_grid(int B, int H, int W) {
+  return dim3((W + GN_TX - 1) / GN_TX, (H + GN_TY - 1) / GN_TY, B);
+}
 
-// ---------------------------------------------------------------------------
-// Plain C interface.  Every function enqueues on `stream`, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// launchers of the image-type templates (T = float or bf16)
 
-extern "C" {
-
-int upsp_ecc_moments_blocks(int H) { return (H + MOM_ROWS - 1) / MOM_ROWS; }
-
-int upsp_ecc_blur(const float* in, float* out, int B, int H, int W, int k,
-                  float t0, float t1, float t2, float t3, float t4, float t5,
-                  float t6, void* stream) {
-  const Taps taps = make_taps(k, t0, t1, t2, t3, t4, t5, t6);
-  blur_kernel<<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
-                (cudaStream_t)stream>>>(in, out, H, W, taps);
+template <typename T>
+int launch_blur(const T* in, T* out, int B, int H, int W, Taps taps,
+                void* stream) {
+  blur_kernel<T><<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
+                   (cudaStream_t)stream>>>(in, out, H, W, taps);
   return (int)cudaGetLastError();
 }
 
-int upsp_ecc_warp(const float* in, const float* warps, float* out, int B,
-                  int H, int W, void* stream) {
-  warp_kernel<<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
-                (cudaStream_t)stream>>>(in, warps, out, H, W);
+template <typename T>
+int launch_warp(const T* in, const float* warps, T* out, int B, int H, int W,
+                void* stream) {
+  warp_kernel<T><<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
+                   (cudaStream_t)stream>>>(in, warps, out, H, W);
   return (int)cudaGetLastError();
 }
 
-int upsp_ecc_warp_filter(const float* in, const float* warps, float* out,
-                         float* warped, int B, int H, int W, int k, float t0,
-                         float t1, float t2, float t3, float t4, float t5,
-                         float t6, void* stream) {
-  const Taps taps = make_taps(k, t0, t1, t2, t3, t4, t5, t6);
-  warp_filter_kernel<<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
-                       (cudaStream_t)stream>>>(in, warps, out, warped, H, W,
-                                               taps);
+template <typename T>
+int launch_warp_filter(const T* in, const float* warps, T* out, T* warped,
+                       int B, int H, int W, Taps taps, void* stream) {
+  warp_filter_kernel<T><<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
+                          (cudaStream_t)stream>>>(in, warps, out, warped, H,
+                                                  W, taps);
   return (int)cudaGetLastError();
 }
 
-int upsp_ecc_moments(const float* iws, const float* tmpl, const float* warps,
-                     const float* mask_warps, const float* kshift,
-                     double* partials, float* out, int B, int H, int W,
-                     void* stream) {
-  const int nblk = upsp_ecc_moments_blocks(H);
-  moments_kernel<<<dim3(nblk, B), MOM_THREADS, 0, (cudaStream_t)stream>>>(
+template <typename T>
+int launch_moments(const T* iws, const T* tmpl, const float* warps,
+                   const float* mask_warps, const float* kshift,
+                   double* partials, float* out, int B, int H, int W,
+                   void* stream) {
+  const int nblk = (H + MOM_ROWS - 1) / MOM_ROWS;
+  moments_kernel<T><<<dim3(nblk, B), MOM_THREADS, 0, (cudaStream_t)stream>>>(
       iws, tmpl, warps, mask_warps, kshift, partials, H, W);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   moments_reduce_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(partials, out,
                                                              nblk);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gn_fused(const T* imgs, const T* tmpl, const float* warps,
+                    const float* mask_warps, const float* kshift,
+                    double* partials, float* out, int B, int H, int W,
+                    void* stream) {
+  const dim3 grid = gn_grid(B, H, W);
+  gn_fused_kernel<T><<<grid, dim3(BLOCK_X, BLOCK_Y), 0,
+                       (cudaStream_t)stream>>>(imgs, tmpl, warps, mask_warps,
+                                               kshift, partials, H, W);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  moments_reduce_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
+      partials, out, grid.x * grid.y);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Plain C interface.  Every function enqueues on `stream`, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().  The
+// _bf16 entry points take bfloat16 images (and template); warps, kshift,
+// partials and statistics are float32/float64 in both.
+
+#define UPSP_TAPS_ARGS                                                     \
+  int k, float t0, float t1, float t2, float t3, float t4, float t5,      \
+      float t6
+#define UPSP_TAPS make_taps(k, t0, t1, t2, t3, t4, t5, t6)
+
+extern "C" {
+
+// (B, nblk, 42) float64 partials of upsp_ecc_moments / upsp_ecc_gn_fused
+int upsp_ecc_moments_blocks(int H) { return (H + MOM_ROWS - 1) / MOM_ROWS; }
+int upsp_ecc_gn_fused_blocks(int H, int W) {
+  const dim3 g = gn_grid(1, H, W);
+  return (int)(g.x * g.y);
+}
+
+int upsp_ecc_blur(const float* in, float* out, int B, int H, int W,
+                  UPSP_TAPS_ARGS, void* stream) {
+  return launch_blur(in, out, B, H, W, UPSP_TAPS, stream);
+}
+int upsp_ecc_blur_bf16(const bf16* in, bf16* out, int B, int H, int W,
+                       UPSP_TAPS_ARGS, void* stream) {
+  return launch_blur(in, out, B, H, W, UPSP_TAPS, stream);
+}
+
+int upsp_ecc_warp(const float* in, const float* warps, float* out, int B,
+                  int H, int W, void* stream) {
+  return launch_warp(in, warps, out, B, H, W, stream);
+}
+int upsp_ecc_warp_bf16(const bf16* in, const float* warps, bf16* out, int B,
+                       int H, int W, void* stream) {
+  return launch_warp(in, warps, out, B, H, W, stream);
+}
+
+int upsp_ecc_warp_filter(const float* in, const float* warps, float* out,
+                         float* warped, int B, int H, int W, UPSP_TAPS_ARGS,
+                         void* stream) {
+  return launch_warp_filter(in, warps, out, warped, B, H, W, UPSP_TAPS,
+                            stream);
+}
+int upsp_ecc_warp_filter_bf16(const bf16* in, const float* warps, bf16* out,
+                              bf16* warped, int B, int H, int W,
+                              UPSP_TAPS_ARGS, void* stream) {
+  return launch_warp_filter(in, warps, out, warped, B, H, W, UPSP_TAPS,
+                            stream);
+}
+
+int upsp_ecc_moments(const float* iws, const float* tmpl, const float* warps,
+                     const float* mask_warps, const float* kshift,
+                     double* partials, float* out, int B, int H, int W,
+                     void* stream) {
+  return launch_moments(iws, tmpl, warps, mask_warps, kshift, partials, out,
+                        B, H, W, stream);
+}
+int upsp_ecc_moments_bf16(const bf16* iws, const bf16* tmpl,
+                          const float* warps, const float* mask_warps,
+                          const float* kshift, double* partials, float* out,
+                          int B, int H, int W, void* stream) {
+  return launch_moments(iws, tmpl, warps, mask_warps, kshift, partials, out,
+                        B, H, W, stream);
+}
+
+int upsp_ecc_gn_fused(const float* imgs, const float* tmpl,
+                      const float* warps, const float* mask_warps,
+                      const float* kshift, double* partials, float* out,
+                      int B, int H, int W, void* stream) {
+  return launch_gn_fused(imgs, tmpl, warps, mask_warps, kshift, partials,
+                         out, B, H, W, stream);
+}
+int upsp_ecc_gn_fused_bf16(const bf16* imgs, const bf16* tmpl,
+                           const float* warps, const float* mask_warps,
+                           const float* kshift, double* partials, float* out,
+                           int B, int H, int W, void* stream) {
+  return launch_gn_fused(imgs, tmpl, warps, mask_warps, kshift, partials,
+                         out, B, H, W, stream);
 }
 
 // `counts` is (B,) int32 and must hold zeros on entry

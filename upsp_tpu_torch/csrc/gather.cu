@@ -11,6 +11,9 @@
 // which is the port's plain tail (gather, NaN for skipped nodes, overlap
 // supersession; upsp_tpu_torch/ops/gather_kernels.py gather_plain) in one
 // pass.  The patch overlays go on afterwards, as a small torch index step.
+// The frames are float32 or bfloat16 (the compute_dtype=bfloat16 path); a
+// bf16 pixel widens exactly to f32 before the multiply, as the TPU kernel's
+// astype(float32) does (pallas_gather.py:328), and the output is float32.
 //
 // The TPU kernel exists because a TPU gathers 1M scattered indices slowly:
 // it re-sorts nodes by 8-row image slab, streams each slab through VMEM
@@ -36,12 +39,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "image_io.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-gather_kernel(const float* __restrict__ stacked, const int* __restrict__ src,
+gather_kernel(const T* __restrict__ stacked, const int* __restrict__ src,
               const float* __restrict__ weight, const int* __restrict__ node,
               float* __restrict__ out, int n, long long pixels, int B) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
@@ -52,26 +58,40 @@ gather_kernel(const float* __restrict__ stacked, const int* __restrict__ src,
   const float nan = __int_as_float(0x7fc00000);
   for (int b = 0; b < B; ++b) {
     out[(long long)b * n + o] =
-        s < 0 ? nan : __fmul_rn(__ldg(stacked + (long long)b * pixels + s), w);
+        s < 0 ? nan : __fmul_rn(ldf(stacked + (long long)b * pixels + s), w);
   }
+}
+
+template <typename T>
+int launch_gather(const T* stacked, const int* src, const float* weight,
+                  const int* node, float* out, int n, long long pixels, int B,
+                  void* stream) {
+  const unsigned int blocks = (unsigned int)((n + THREADS - 1) / THREADS);
+  gather_kernel<T><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      stacked, src, weight, node, out, n, pixels, B);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
 // Plain C interface: enqueues on `stream`, does not synchronise, allocates
-// nothing, returns cudaGetLastError().  `stacked` is (B, pixels) float32,
-// `out` (B, n) float32; src/weight/node are the plan's (n,) arrays.
+// nothing, returns cudaGetLastError().  `stacked` is (B, pixels) float32
+// (upsp_gather) or bfloat16 (upsp_gather_bf16), `out` (B, n) float32;
+// src/weight/node are the plan's (n,) arrays.
 
 extern "C" {
 
 int upsp_gather(const float* stacked, const int* src, const float* weight,
                 const int* node, float* out, int n, long long pixels, int B,
                 void* stream) {
-  const unsigned int blocks = (unsigned int)((n + THREADS - 1) / THREADS);
-  gather_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      stacked, src, weight, node, out, n, pixels, B);
-  return (int)cudaGetLastError();
+  return launch_gather(stacked, src, weight, node, out, n, pixels, B, stream);
+}
+
+int upsp_gather_bf16(const bf16* stacked, const int* src, const float* weight,
+                     const int* node, float* out, int n, long long pixels,
+                     int B, void* stream) {
+  return launch_gather(stacked, src, weight, node, out, n, pixels, B, stream);
 }
 
 }  // extern "C"

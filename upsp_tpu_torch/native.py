@@ -1,0 +1,182 @@
+"""ctypes bindings for the native host-runtime library (cpp/upsp_native.cpp).
+
+Every function degrades to the pure-numpy implementation when the shared
+library is absent, so the package never *requires* a compiler.  Build with::
+
+    make -C cpp
+
+A copy of ``upsp_tpu/native.py`` (the port imports nothing of the JAX
+package), less the flat-file transpose and the async writer, which the
+port does not call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional
+
+import numpy as np
+
+_LIB_PATHS = (
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "cpp", "libupsp_native.so"),
+    "libupsp_native.so",
+)
+
+
+def _load() -> Optional[ctypes.CDLL]:
+    for p in _LIB_PATHS:
+        try:
+            lib = ctypes.CDLL(p)
+            break
+        except OSError:
+            continue
+    else:
+        return None
+    lib.upsp_unpack_12bpp.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p
+    ]
+    lib.upsp_unpack_10bpp.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p
+    ]
+    lib.upsp_bvh_max_nodes.argtypes = [ctypes.c_int64]
+    lib.upsp_bvh_max_nodes.restype = ctypes.c_int64
+    lib.upsp_bvh_build.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int
+    ] + [ctypes.c_void_p] * 6
+    lib.upsp_bvh_build.restype = ctypes.c_int64
+    lib.upsp_bvh_intersect.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+    )
+    return lib
+
+
+_LIB = _load()
+
+
+def available() -> bool:
+    return _LIB is not None
+
+
+def unpack_12bpp(buf) -> np.ndarray:
+    """Native 12-bit unpack; numpy fallback otherwise."""
+    data = np.frombuffer(buf, np.uint8)
+    if _LIB is None:
+        from upsp_tpu_torch.io.video.util import unpack_12bpp as np_unpack
+
+        return np_unpack(data)
+    n = data.size // 3 * 2
+    out = np.empty(n, np.uint16)
+    _LIB.upsp_unpack_12bpp(
+        data.ctypes.data_as(ctypes.c_void_p), data.size // 3 * 3,
+        out.ctypes.data_as(ctypes.c_void_p),
+    )
+    return out
+
+
+def unpack_10bpp(buf) -> np.ndarray:
+    data = np.frombuffer(buf, np.uint8)
+    if _LIB is None:
+        from upsp_tpu_torch.io.video.util import unpack_10bpp as np_unpack
+
+        return np_unpack(data)
+    n = data.size // 5 * 4
+    out = np.empty(n, np.uint16)
+    _LIB.upsp_unpack_10bpp(
+        data.ctypes.data_as(ctypes.c_void_p), data.size // 5 * 5,
+        out.ctypes.data_as(ctypes.c_void_p),
+    )
+    return out
+
+
+def build_bvh(vertices: np.ndarray, triangles: np.ndarray, leaf_size: int = 4,
+              method: str = "median"):
+    """Native BVH build returning a FlatBVH (python layout contract).
+
+    ``method``: "median" (fast build — phase-0 default) or "sah" (bucketed
+    surface-area-heuristic splits, the reference's pbrt-style choice at
+    pspRT.cpp:499-525 — slower build, faster traversal; worth it at
+    campaign scale where the visibility ray budget dominates the build)."""
+    from upsp_tpu_torch.geometry.bvh import FlatBVH, build_bvh as py_build
+
+    if method not in ("median", "sah"):
+        raise ValueError(f"method must be median|sah, got {method!r}")
+    if _LIB is None:
+        return py_build(vertices, triangles, leaf_size, method=method)
+    v = np.ascontiguousarray(vertices, np.float32)
+    t = np.ascontiguousarray(triangles, np.int32)
+    T = t.shape[0]
+    cap = int(_LIB.upsp_bvh_max_nodes(T))
+    bmin = np.empty((cap, 3), np.float32)
+    bmax = np.empty((cap, 3), np.float32)
+    escape = np.empty(cap, np.int32)
+    leaf_start = np.empty(cap, np.int32)
+    leaf_count = np.empty(cap, np.int32)
+    order = np.empty(T, np.int64)
+    M = int(
+        _LIB.upsp_bvh_build(
+            v.ctypes.data_as(ctypes.c_void_p),
+            t.ctypes.data_as(ctypes.c_void_p),
+            T, leaf_size, 1 if method == "sah" else 0,
+            bmin.ctypes.data_as(ctypes.c_void_p),
+            bmax.ctypes.data_as(ctypes.c_void_p),
+            escape.ctypes.data_as(ctypes.c_void_p),
+            leaf_start.ctypes.data_as(ctypes.c_void_p),
+            leaf_count.ctypes.data_as(ctypes.c_void_p),
+            order.ctypes.data_as(ctypes.c_void_p),
+        )
+    )
+    p0 = v[t[order, 0]]
+    p1 = v[t[order, 1]]
+    p2 = v[t[order, 2]]
+    return FlatBVH(
+        bbox_min=bmin[:M].copy(),
+        bbox_max=bmax[:M].copy(),
+        escape=escape[:M].copy(),
+        leaf_start=leaf_start[:M].copy(),
+        leaf_count=leaf_count[:M].copy(),
+        tri_v0=p0,
+        tri_e1=p1 - p0,
+        tri_e2=p2 - p0,
+        tri_id=order.astype(np.int32),
+    )
+
+
+def bvh_intersect(flat, origins: np.ndarray, directions: np.ndarray):
+    """Native multithreaded closest-hit traversal over a FlatBVH.
+
+    Returns (t (R,), prim (R,), hit (R,)) with the same semantics as the JAX
+    traversal (ops/raycast.py).  Raises when the library is unavailable —
+    callers choose the JAX path explicitly in that case.
+    """
+    if _LIB is None:
+        raise RuntimeError("native library unavailable")
+    o = np.ascontiguousarray(origins, np.float32)
+    d = np.ascontiguousarray(directions, np.float32)
+    R = o.shape[0]
+    out_t = np.empty(R, np.float32)
+    out_prim = np.empty(R, np.int32)
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.c_void_p)
+
+    bb_min = np.ascontiguousarray(flat.bbox_min, np.float32)
+    bb_max = np.ascontiguousarray(flat.bbox_max, np.float32)
+    esc = np.ascontiguousarray(flat.escape, np.int32)
+    ls = np.ascontiguousarray(flat.leaf_start, np.int32)
+    lc = np.ascontiguousarray(flat.leaf_count, np.int32)
+    v0 = np.ascontiguousarray(flat.tri_v0, np.float32)
+    e1 = np.ascontiguousarray(flat.tri_e1, np.float32)
+    e2 = np.ascontiguousarray(flat.tri_e2, np.float32)
+    ti = np.ascontiguousarray(flat.tri_id, np.int32)
+    _LIB.upsp_bvh_intersect(
+        ptr(bb_min), ptr(bb_max), ptr(esc), ptr(ls), ptr(lc),
+        ptr(v0), ptr(e1), ptr(e2), ptr(ti),
+        flat.n_nodes, ptr(o), ptr(d), R, ptr(out_t), ptr(out_prim),
+    )
+    hit = out_prim >= 0
+    return out_t, out_prim, hit
+
+

@@ -3,7 +3,8 @@
 Every source under ``upsp_tpu_torch/csrc/`` is a plain C interface over its
 kernels.  A :class:`CudaLibrary` compiles one source with ``nvcc`` for
 ``sm_90a`` at first use, into ``build/torch_kernels/`` at the repository
-root (keyed by the source's hash, so an edited source builds anew), loads
+root (keyed by the hash of the source and the shared ``csrc/*.cuh``
+headers, so an edited source or header builds anew), loads
 it with ``ctypes`` and sets the argument types.  :func:`build_all` starts
 one ``nvcc`` per source, all at once.
 
@@ -15,6 +16,7 @@ and :func:`reset_launch_counts` sets them to zero.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -91,8 +93,12 @@ class CudaLibrary:
         LIBRARIES.append(self)
 
     def path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        h = hashlib.sha256()
+        # the source and the shared headers it may include
+        for p in [self.source] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+            with open(p, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:12]
         return os.path.join(BUILD_DIR, f"libupsp_{self.name}_{digest}.so")
 
     def _start(self, verbose: bool):

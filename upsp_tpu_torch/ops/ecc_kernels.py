@@ -1,10 +1,10 @@
 """ECC hot-loop kernels for the H100 (csrc/ecc.cu) and their plain twins.
 
 Counterpart of ``upsp_tpu/ops/pallas_ecc.py``.  Five kernels carry the
-phase-1 frame program; each has a wrapper here that
+phase-1 frame program, and K9 fuses one Gauss-Newton step; each has a
+wrapper here that
 
-- checks device, dtype (float32), shape and contiguity and raises on
-  anything else;
+- checks device, dtype, shape and contiguity and raises on anything else;
 - on a CPU tensor runs the kernel's plain PyTorch twin (written from the
   JAX semantics: ``ops/image.gaussian_blur``, ``ops/warp.warp_affine_mxu``
   at order 2, the ``_ecc_core`` jnp statistics, ``ops/image.fix_hot_pixels``);
@@ -18,6 +18,16 @@ phase-1 frame program; each has a wrapper here that
 | :func:`ecc_gn_moments` | K3 ``moments_kernel`` | ``_moments_batched`` (:587) |
 | :func:`warp_filter` | K4 ``warp_filter_kernel`` | ``_warp_filter_batched`` (:444) |
 | :func:`fix_hot_pixels_kernel` | K6 ``hot_count_kernel`` + ``hot_fix_kernel`` | ``_hot_batched`` (:739) |
+| :func:`ecc_gn_fused` | K9 ``gn_fused_kernel`` | ``_gn_fused_batched`` (:1044) |
+
+K1-K4 and K9 take float32 or bfloat16 images, as the JAX kernels do under
+``compute_dtype="bfloat16"``: the kernel loads bf16, computes in f32 and
+rounds once at its store (round to nearest even); warps and statistics
+stay f32.  The plain twins do the same: they widen bf16 to f32, compute as
+for f32 and round the output once (never bf16 arithmetic op by op).  The
+launch counts tell the instantiations apart (``blur`` and ``blur_bf16``,
+...).  K9 is no step of the frame program (neither package's datapoint
+path calls it; ``registration._gn_step`` stays K2 then K3).
 
 The library is compiled from ``csrc/ecc.cu`` with ``nvcc`` for ``sm_90a``
 at first use, into ``build/torch_kernels/`` at the repository root
@@ -51,25 +61,43 @@ MAX_TAPS = 7
 NSTAT = 42
 HOT_THRESH, HOT_MIN_CHANGE, HOT_MAX = 4064, 512, 5  # fix_hot_pixels defaults
 
-KERNELS = register_kernels(("blur", "warp", "moments", "warp_filter", "hot"))
+# the image-type kernels: (kernel, its bf16 instantiation) each
+TYPED = ("blur", "warp", "moments", "warp_filter", "gn_fused")
+KERNELS = register_kernels(TYPED + ("hot",) + tuple(f"{k}_bf16" for k in TYPED))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     taps = [i] + [f] * MAX_TAPS
     lib.upsp_ecc_moments_blocks.argtypes = [i]
+    lib.upsp_ecc_gn_fused_blocks.argtypes = [i, i]
+    argtypes = {
+        "blur": [p, p, i, i, i] + taps + [p],
+        "warp": [p, p, p, i, i, i, p],
+        "warp_filter": [p, p, p, p, i, i, i] + taps + [p],
+        "moments": [p] * 7 + [i, i, i, p],
+        "gn_fused": [p] * 7 + [i, i, i, p],
+        "hot": [p, p, p, i, i, i, f, f, i, p],
+    }
+    for name, args in argtypes.items():
+        for suffix in ("", "_bf16") if name in TYPED else ("",):
+            fn = getattr(lib, f"upsp_ecc_{name}{suffix}")
+            fn.argtypes = args
+            fn.restype = i
     lib.upsp_ecc_moments_blocks.restype = i
-    lib.upsp_ecc_blur.argtypes = [p, p, i, i, i] + taps + [p]
-    lib.upsp_ecc_warp.argtypes = [p, p, p, i, i, i, p]
-    lib.upsp_ecc_warp_filter.argtypes = [p, p, p, p, i, i, i] + taps + [p]
-    lib.upsp_ecc_moments.argtypes = [p] * 7 + [i, i, i, p]
-    lib.upsp_ecc_hot.argtypes = [p, p, p, i, i, i, f, f, i, p]
-    for fn in (lib.upsp_ecc_blur, lib.upsp_ecc_warp, lib.upsp_ecc_warp_filter,
-               lib.upsp_ecc_moments, lib.upsp_ecc_hot):
-        fn.restype = i
+    lib.upsp_ecc_gn_fused_blocks.restype = i
 
 
 LIBRARY = CudaLibrary("ecc", _bind)
+
+
+def _launch(name: str, imgs: torch.Tensor, *args) -> None:
+    """Launch the instantiation of ``name`` for ``imgs``' dtype, raise if
+    the launch failed, and count it under its own name."""
+    kname = name if imgs.dtype == torch.float32 else f"{name}_bf16"
+    rc = getattr(LIBRARY.lib(), f"upsp_ecc_{kname}")(*args, stream_of(imgs))
+    check_rc(rc, kname)
+    count_launch(kname)
 
 
 def _taps_args(taps: Sequence[float]):
@@ -84,8 +112,10 @@ def _taps_args(taps: Sequence[float]):
 def _check_images(imgs: torch.Tensor, name: str) -> None:
     if not isinstance(imgs, torch.Tensor) or imgs.dim() != 3:
         raise ValueError(f"{name}: images must be a (B, H, W) tensor")
-    if imgs.dtype != torch.float32:
-        raise TypeError(f"{name}: images must be float32, got {imgs.dtype}")
+    if imgs.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"{name}: images must be float32 or bfloat16, got {imgs.dtype}"
+        )
     if not imgs.is_contiguous():
         raise ValueError(f"{name}: images must be contiguous")
     if imgs.device.type not in ("cpu", "cuda"):
@@ -119,8 +149,9 @@ def _check_taps(taps: Sequence[float], imgs: torch.Tensor, name: str) -> None:
 
 def blur_plain(imgs: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
     """Separable reflect-101 filter, horizontal then vertical
-    (``ops/image.gaussian_blur`` semantics)."""
-    return separable_filter(imgs, taps)
+    (``ops/image.gaussian_blur`` semantics), in f32, rounded once to the
+    images' dtype."""
+    return separable_filter(imgs, taps).to(imgs.dtype)
 
 
 def _tent_pair(pos: torch.Tensor, n: int):
@@ -142,7 +173,8 @@ def _warp_scalars(warps: torch.Tensor):
 
 
 def separable_warp_plain(imgs: torch.Tensor, warps: torch.Tensor):
-    """R @ img @ C^T: rows resampled at y_sep, then columns at x_sep."""
+    """R @ img @ C^T of f32 images: rows resampled at y_sep, then columns
+    at x_sep."""
     b, h, w = imgs.shape
     a00, a01, tx, a10, a11, ty = _warp_scalars(warps)
     dev = imgs.device
@@ -165,8 +197,13 @@ def separable_warp_plain(imgs: torch.Tensor, warps: torch.Tensor):
 
 
 def warp_plain(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
-    """``warp_affine_mxu(img, warp, order=2)`` semantics, batched: the
-    separable resample plus the 2nd-order shear Taylor term, whose
+    """``warp_affine_mxu(img, warp, order=2)`` semantics, batched, in f32,
+    rounded once to the images' dtype."""
+    return _warp_f32(imgs.float(), warps).to(imgs.dtype)
+
+
+def _warp_f32(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
+    """The separable resample plus the 2nd-order shear Taylor term, whose
     derivatives are zero on the outer ring (ops/warp.py:159-197)."""
     b, h, w = imgs.shape
     sep = separable_warp_plain(imgs, warps)
@@ -202,14 +239,22 @@ def warp_plain(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
     return out + 0.5 * dx * dx * gxx + dx * dy * gxy + 0.5 * dy * dy * gyy
 
 
+def _kshift(tmpl: torch.Tensor) -> torch.Tensor:
+    """The brightness shift mean(tmpl), in the template's dtype as
+    ``jnp.mean`` gives it (bf16 rounded), as f32."""
+    return tmpl.float().mean().to(tmpl.dtype).float()
+
+
 def moments_plain(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
                   mask_warps: torch.Tensor) -> torch.Tensor:
     """(B, 128) raw GN statistics (layout of ``ecc_gn_moments``) from the
     ``_ecc_core`` jnp step's fields, brightness-shifted by mean(tmpl);
-    summed in f64."""
+    f32 fields (bf16 widened), summed in f64."""
+    kshift = _kshift(tmpl)
+    iw = iw.float()
+    tmpl = tmpl.float()
     b, h, w = iw.shape
     dev = iw.device
-    kshift = tmpl.mean()
     a00, a01, _, a10, a11, _ = (v[:, None, None] for v in _warp_scalars(warps))
     ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
     xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
@@ -245,9 +290,19 @@ def moments_plain(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
 
 
 def warp_filter_plain(imgs, warps, taps, with_warped: bool = False):
-    iw = warp_plain(imgs, warps)
-    out = blur_plain(iw, taps) if taps else iw
+    """Filter of the f32 warped image; both outputs rounded once to the
+    images' dtype (the warp is not rounded before the filter)."""
+    iw = _warp_f32(imgs.float(), warps)
+    out = separable_filter(iw, taps) if taps else iw
+    out, iw = out.to(imgs.dtype), iw.to(imgs.dtype)
     return (out, iw) if with_warped else out
+
+
+def gn_fused_plain(imgs, tmpl, warps, mask_warps) -> torch.Tensor:
+    """K2 then K3 with the warped image kept in f32 (not rounded to a bf16
+    image's dtype): ``ecc_gn_fused`` semantics."""
+    return moments_plain(_warp_f32(imgs.float(), warps), tmpl, warps,
+                         mask_warps)
 
 
 # ---------------------------------------------------------------------------
@@ -255,8 +310,8 @@ def warp_filter_plain(imgs, warps, taps, with_warped: bool = False):
 
 
 def blur(imgs: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
-    """K1: separable reflect-101 blur of a (B, H, W) float32 stack with
-    <= 7 taps (``make_blur(taps)`` under vmap)."""
+    """K1: separable reflect-101 blur of a (B, H, W) float32 or bfloat16
+    stack with <= 7 taps (``make_blur(taps)`` under vmap); same dtype out."""
     _check_images(imgs, "blur")
     if not taps:
         return imgs
@@ -265,12 +320,8 @@ def blur(imgs: torch.Tensor, taps: Sequence[float]) -> torch.Tensor:
         return blur_plain(imgs, taps)
     b, h, w = imgs.shape
     out = torch.empty_like(imgs)
-    rc = LIBRARY.lib().upsp_ecc_blur(
-        imgs.data_ptr(), out.data_ptr(), b, h, w, *_taps_args(taps),
-        stream_of(imgs),
-    )
-    check_rc(rc, "blur")
-    count_launch("blur")
+    _launch("blur", imgs, imgs.data_ptr(), out.data_ptr(), b, h, w,
+            *_taps_args(taps))
     return out
 
 
@@ -283,45 +334,61 @@ def warp_affine_banded(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
         return warp_plain(imgs, warps)
     b, h, w = imgs.shape
     out = torch.empty_like(imgs)
-    rc = LIBRARY.lib().upsp_ecc_warp(
-        imgs.data_ptr(), warps.data_ptr(), out.data_ptr(), b, h, w,
-        stream_of(imgs),
-    )
-    check_rc(rc, "warp")
-    count_launch("warp")
+    _launch("warp", imgs, imgs.data_ptr(), warps.data_ptr(), out.data_ptr(),
+            b, h, w)
     return out
 
 
 def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
                    mask_warps: torch.Tensor) -> torch.Tensor:
-    """K3: (B, 128) raw GN statistics of warped images against one
-    template.  Layout as ``pallas_ecc.ecc_gn_moments``: [0:18] Hessian
-    moments, [18:36] template/image/mask projections, [36:42] the masked
-    sums [area, S_t, S_i, S_tt, S_ii, S_ti]; validity from ``mask_warps``."""
-    _check_images(iw, "moments")
-    _check_warps(warps, iw, "moments")
-    _check_warps(mask_warps, iw, "moments")
-    if tmpl.shape != iw.shape[1:] or tmpl.dtype != torch.float32:
-        raise ValueError("moments: template must be float32 of shape (H, W)")
-    if not tmpl.is_contiguous() or tmpl.device != iw.device:
-        raise ValueError("moments: template must be contiguous, same device")
+    """K3: (B, 128) float32 raw GN statistics of warped images against one
+    template of their dtype.  Layout as ``pallas_ecc.ecc_gn_moments``:
+    [0:18] Hessian moments, [18:36] template/image/mask projections,
+    [36:42] the masked sums [area, S_t, S_i, S_tt, S_ii, S_ti]; validity
+    from ``mask_warps``."""
+    _check_stats_args(iw, tmpl, warps, mask_warps, "moments")
     if iw.device.type == "cpu":
         return moments_plain(iw, tmpl, warps, mask_warps)
-    b, h, w = iw.shape
-    lib = LIBRARY.lib()
-    kshift = tmpl.mean().reshape(1)
-    partials = torch.empty(
-        (b, lib.upsp_ecc_moments_blocks(h), NSTAT), dtype=torch.float64,
-        device=iw.device,
-    )
-    out = torch.empty((b, 128), dtype=torch.float32, device=iw.device)
-    rc = lib.upsp_ecc_moments(
-        iw.data_ptr(), tmpl.data_ptr(), warps.data_ptr(),
-        mask_warps.data_ptr(), kshift.data_ptr(), partials.data_ptr(),
-        out.data_ptr(), b, h, w, stream_of(iw),
-    )
-    check_rc(rc, "moments")
-    count_launch("moments")
+    return _launch_stats("moments", iw, tmpl, warps, mask_warps,
+                         LIBRARY.lib().upsp_ecc_moments_blocks(iw.shape[1]))
+
+
+def ecc_gn_fused(imgs: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
+                 mask_warps: torch.Tensor) -> torch.Tensor:
+    """K9: ``ecc_gn_moments(warp_affine_banded(imgs, warps), ...)`` in one
+    kernel from the UNWARPED (blurred) (B, H, W) images; the warped image
+    never reaches device memory and stays f32 for bf16 images."""
+    _check_stats_args(imgs, tmpl, warps, mask_warps, "gn_fused")
+    if imgs.device.type == "cpu":
+        return gn_fused_plain(imgs, tmpl, warps, mask_warps)
+    b, h, w = imgs.shape
+    return _launch_stats("gn_fused", imgs, tmpl, warps, mask_warps,
+                         LIBRARY.lib().upsp_ecc_gn_fused_blocks(h, w))
+
+
+def _check_stats_args(imgs, tmpl, warps, mask_warps, name: str) -> None:
+    _check_images(imgs, name)
+    _check_warps(warps, imgs, name)
+    _check_warps(mask_warps, imgs, name)
+    if tmpl.shape != imgs.shape[1:] or tmpl.dtype != imgs.dtype:
+        raise ValueError(
+            f"{name}: template must be ({imgs.shape[1]}, {imgs.shape[2]}) "
+            f"of the images' dtype {imgs.dtype}"
+        )
+    if not tmpl.is_contiguous() or tmpl.device != imgs.device:
+        raise ValueError(f"{name}: template must be contiguous, same device")
+
+
+def _launch_stats(name, imgs, tmpl, warps, mask_warps, nblk: int):
+    """K3 or K9: per-block f64 partials, then their fixed-order sum."""
+    b, h, w = imgs.shape
+    kshift = _kshift(tmpl).reshape(1)
+    partials = torch.empty((b, nblk, NSTAT), dtype=torch.float64,
+                           device=imgs.device)
+    out = torch.empty((b, 128), dtype=torch.float32, device=imgs.device)
+    _launch(name, imgs, imgs.data_ptr(), tmpl.data_ptr(), warps.data_ptr(),
+            mask_warps.data_ptr(), kshift.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), b, h, w)
     return out
 
 
@@ -341,13 +408,9 @@ def warp_filter(imgs: torch.Tensor, warps: torch.Tensor, taps: Sequence[float],
     b, h, w = imgs.shape
     out = torch.empty_like(imgs)
     warped = torch.empty_like(imgs) if with_warped else None
-    rc = LIBRARY.lib().upsp_ecc_warp_filter(
-        imgs.data_ptr(), warps.data_ptr(), out.data_ptr(),
-        warped.data_ptr() if with_warped else None, b, h, w,
-        *_taps_args(taps), stream_of(imgs),
-    )
-    check_rc(rc, "warp_filter")
-    count_launch("warp_filter")
+    _launch("warp_filter", imgs, imgs.data_ptr(), warps.data_ptr(),
+            out.data_ptr(), warped.data_ptr() if with_warped else None, b, h,
+            w, *_taps_args(taps))
     return (out, warped) if with_warped else out
 
 

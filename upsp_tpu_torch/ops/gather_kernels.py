@@ -13,6 +13,11 @@ host un-permute (``finalize_host``) and no node-count gate.
 | --- | --- | --- |
 | :func:`project_gather` | K5 ``gather_kernel`` | ``_slab_gather_apply`` (pallas_gather.py:251) |
 
+The frames may be float32 or bfloat16 (``compute_dtype="bfloat16"``); the
+output is float32 either way, each pixel widened before its one multiply
+(pallas_gather.py:328).  The launch counts tell the two apart: ``gather``
+and ``gather_bf16``.
+
 :func:`build_gather_plan` runs once, when the phase-1 parameters are
 derived; :func:`gather_plain` is the port's plain tail (gather, NaN for
 skipped nodes, overlap supersession) and the kernel's oracle.
@@ -35,13 +40,14 @@ from upsp_tpu_torch.ops.cuda_lib import (
     stream_of,
 )
 
-KERNELS = register_kernels(("gather",))
+KERNELS = register_kernels(("gather", "gather_bf16"))
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.upsp_gather.argtypes = [p, p, p, p, p, i, ctypes.c_longlong, i, p]
-    lib.upsp_gather.restype = i
+    for fn in (lib.upsp_gather, lib.upsp_gather_bf16):
+        fn.argtypes = [p, p, p, p, p, i, ctypes.c_longlong, i, p]
+        fn.restype = i
 
 
 LIBRARY = CudaLibrary("gather", _bind)
@@ -129,20 +135,24 @@ def build_gather_plan(combined_index, combined_weight, skipped, superseded_by,
 
 
 def gather_plain(stacked: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
-    """(B, C*H*W) stacked frames -> (B, N): the combined gather, NaN for
-    skipped nodes, then overlap supersession (model order throughout)."""
-    sol = stacked[:, plan.combined_index] * plan.combined_weight
+    """(B, C*H*W) stacked frames (float32 or bfloat16) -> (B, N) float32:
+    the combined gather, NaN for skipped nodes, then overlap supersession
+    (model order throughout)."""
+    sol = stacked[:, plan.combined_index].float() * plan.combined_weight
     sol = torch.where(plan.skipped, torch.full_like(sol, float("nan")), sol)
     return sol[:, plan.superseded_by]
 
 
 def project_gather(stacked: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
-    """K5: :func:`gather_plain` of a (B, C*H*W) float32 frame stack in one
-    pass, on the stack's device."""
+    """K5: :func:`gather_plain` of a (B, C*H*W) float32 or bfloat16 frame
+    stack in one pass, on the stack's device; float32 out."""
     if not isinstance(stacked, torch.Tensor) or stacked.dim() != 2:
         raise ValueError("gather: stacked frames must be a (B, C*H*W) tensor")
-    if stacked.dtype != torch.float32 or not stacked.is_contiguous():
-        raise TypeError("gather: stacked frames must be contiguous float32")
+    if (stacked.dtype not in (torch.float32, torch.bfloat16)
+            or not stacked.is_contiguous()):
+        raise TypeError(
+            "gather: stacked frames must be contiguous float32 or bfloat16"
+        )
     if stacked.shape[1] != plan.n_pixels:
         raise ValueError(
             f"gather: {stacked.shape[1]} pixels per frame, the plan has "
@@ -158,13 +168,15 @@ def project_gather(stacked: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
     n = plan.n_nodes
     out = torch.empty((b, n), dtype=torch.float32, device=stacked.device)
     if b and n:
-        rc = LIBRARY.lib().upsp_gather(
+        bf16 = stacked.dtype == torch.bfloat16
+        lib = LIBRARY.lib()
+        rc = (lib.upsp_gather_bf16 if bf16 else lib.upsp_gather)(
             stacked.data_ptr(), plan.src.data_ptr(), plan.weight.data_ptr(),
             plan.node.data_ptr(), out.data_ptr(), n, plan.n_pixels, b,
             stream_of(stacked),
         )
         check_rc(rc, "gather")
-        count_launch("gather")
+        count_launch("gather_bf16" if bf16 else "gather")
     return out
 
 

@@ -104,15 +104,23 @@ def separable_filter(img: torch.Tensor, taps, scale: float = 1.0) -> torch.Tenso
     return xv if scale == 1.0 else xv / scale
 
 
+def image_dtype(img: torch.Tensor) -> torch.dtype:
+    """bfloat16 images stay bfloat16 (the ``compute_dtype="bfloat16"``
+    pipeline: computed in f32, rounded once); everything else is f32."""
+    return torch.bfloat16 if img.dtype == torch.bfloat16 else torch.float32
+
+
 def gaussian_blur(img: torch.Tensor, ksize: int = 3, sigma: float = 0.0):
     """Separable Gaussian blur with reflect-101 borders (cv2.GaussianBlur
-    parity), horizontal then vertical, in f32."""
-    return separable_filter(img, gaussian_kernel_1d(ksize, sigma))
+    parity), horizontal then vertical, in f32 (:func:`image_dtype` out)."""
+    out = separable_filter(img, gaussian_kernel_1d(ksize, sigma))
+    return out.to(image_dtype(img))
 
 
 def box_blur(img: torch.Tensor, ksize: int = 3) -> torch.Tensor:
     """Normalized box filter with reflect-101 borders (cv2.blur parity)."""
-    return separable_filter(img, [1.0] * ksize, float(ksize * ksize))
+    out = separable_filter(img, [1.0] * ksize, float(ksize * ksize))
+    return out.to(image_dtype(img))
 
 
 def apply_filter(img: torch.Tensor, filter_type: str, ksize: int):
@@ -121,7 +129,7 @@ def apply_filter(img: torch.Tensor, filter_type: str, ksize: int):
         return gaussian_blur(img, ksize)
     if filter_type == "box":
         return box_blur(img, ksize)
-    return img.to(torch.float32)
+    return img.to(image_dtype(img))
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from upsp_tpu_torch.ops.ecc_kernels import filter_taps
+from upsp_tpu_torch.ops.image import image_dtype
 
 # ---------------------------------------------------------------------------
 # host-side cluster construction
@@ -377,16 +378,17 @@ def patch_correction_values(warped: torch.Tensor,
 def apply_patches(frames: torch.Tensor,
                   op: Optional[PatchOperator]) -> torch.Tensor:
     """Patch all clusters of (B, H, W) frames: gather boundaries, one
-    batched matmul, scatter interiors (pad slots are dropped)."""
-    frames = frames.to(torch.float32)
+    batched f32 matmul, scatter interiors (pad slots are dropped).
+    bfloat16 frames stay bfloat16, the fill rounded once; others are f32."""
+    frames = frames.to(image_dtype(frames))
     if op is None:
         return frames
     b = frames.shape[0]
     flat = frames.reshape(b, -1)
-    z = flat[:, op.boundary_idx]  # (B, K, B_max); pad columns of M are 0
+    z = flat[:, op.boundary_idx].float()  # (B, K, B_max); M's pad columns are 0
     fill = torch.einsum("kib,nkb->nki", op.M, z).reshape(b, -1)
     idx = op.internal_idx.reshape(-1)
     keep = idx < flat.shape[1]
     out = flat.clone()
-    out[:, idx[keep]] = fill[:, keep]
+    out[:, idx[keep]] = fill[:, keep].to(flat.dtype)
     return out.reshape(frames.shape)

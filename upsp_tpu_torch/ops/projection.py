@@ -3,7 +3,7 @@
 Port of ``upsp_tpu/ops/projection.py``.  Each camera carries, per node, a
 flat pixel index and a weight; a frame projects by one gather and a
 multiply.  Visibility is built on the host with the native BVH walker
-(``upsp_tpu.native``, built from ``cpp/``), as the JAX package does when
+(``upsp_tpu_torch.native``, built from ``cpp/``), as the JAX package does when
 that library is present.
 """
 
@@ -40,7 +40,7 @@ def build_node_projection_host(
     the closest hit of the camera->node ray lands on a triangle of the node
     (6 jittered retries), then the oblique-angle cull
     (psp_process.cpp:167-355 semantics)."""
-    from upsp_tpu import native
+    from upsp_tpu_torch import native
 
     n = vertices.shape[0]
     center = cam_center(params).numpy().astype(np.float64)

@@ -9,7 +9,10 @@ over frames: one template, (B, H, W) inputs, (B, 2, 3) warps.
 Conventions (as the reference): the warp maps template pixel coordinates
 to input coordinates, ``out(x) = input(W @ [x, y, 1])``; the pre-blur is a
 ksize-5 Gaussian (K1); with ``valid_shift`` (the fft integer pre-shift) the
-statistics are masked by the composed warp.
+statistics are masked by the composed warp.  If either image is bfloat16,
+template and image are blurred and warped in bfloat16 (the JAX
+``_ecc_core`` rule, registration.py:259-269); warps, statistics and the
+solve stay f32.
 """
 
 from __future__ import annotations
@@ -68,8 +71,9 @@ def chol_solve_unrolled(L, b: torch.Tensor, n: int = 6) -> torch.Tensor:
 
 
 def ecc_blur(imgs: torch.Tensor, gauss_size: int = 5) -> torch.Tensor:
-    """The ECC pre-blur of (B, H, W) images: kernel K1 up to 7 taps, the
-    plain Gaussian beyond (as the JAX package falls back to XLA)."""
+    """The ECC pre-blur of (B, H, W) float32 or bfloat16 images, same dtype
+    out: kernel K1 up to 7 taps, the plain Gaussian beyond (as the JAX
+    package falls back to XLA)."""
     if gauss_size <= MAX_TAPS:
         taps = tuple(float(t) for t in gaussian_kernel_1d(gauss_size))
         return blur(imgs.contiguous(), taps)
@@ -126,15 +130,20 @@ def ecc_affine(
     Returns (warps (B, 2, 3), rho (B,), drho (B,)): ``drho`` is the final
     |rho - rho_prev|, the convergence signal of the fixed-iteration form.
     ``tmpl_blurred`` passes a template already blurred by :func:`ecc_blur`
-    (the chunk processor blurs each camera's template once per chunk).
+    in the images' dtype (the chunk processor blurs each camera's template
+    once).
     """
     b = inp.shape[0]
     dev = inp.device
+    im_dtype = (
+        torch.bfloat16
+        if torch.bfloat16 in (ref.dtype, inp.dtype) else torch.float32
+    )
     tmpl = (
         tmpl_blurred if tmpl_blurred is not None
-        else ecc_blur(ref.to(torch.float32)[None], gauss_size)[0]
+        else ecc_blur(ref.to(im_dtype)[None], gauss_size)[0]
     ).contiguous()
-    img = ecc_blur(inp.to(torch.float32), gauss_size)
+    img = ecc_blur(inp.to(im_dtype), gauss_size)
     warp = (
         identity_warp(b, dev) if warp_init is None
         else warp_init.to(torch.float32).contiguous()

@@ -1,7 +1,7 @@
 """Phase 0: one-time setup — model, BVH, camera cals, projections, patches.
 
 Port of ``upsp_tpu/pipeline/phase0.py`` on the native-BVH path: visibility
-rays walk the BVH through ``upsp_tpu.native`` (built from ``cpp/``), the
+rays walk the BVH through ``upsp_tpu_torch.native`` (built from ``cpp/``), the
 camera model and projections are host torch/numpy, and the finished state
 holds its per-frame tensors on ``device``.
 """
@@ -18,10 +18,10 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from upsp_tpu.geometry.grids import SurfaceModel, load_model
-from upsp_tpu.io.camera_json import read_camera_json
-from upsp_tpu.io.tgts import Target, read_tgts, targets_as_arrays
-from upsp_tpu.pipeline.config import ProcessingConfig
+from upsp_tpu_torch.geometry.grids import SurfaceModel, load_model
+from upsp_tpu_torch.io.camera_json import read_camera_json
+from upsp_tpu_torch.io.tgts import Target, read_tgts, targets_as_arrays
+from upsp_tpu_torch.pipeline.config import ProcessingConfig
 from upsp_tpu_torch.camera.model import (
     CameraParams,
     cam_center,
@@ -56,7 +56,7 @@ class Phase0State:
     """Everything phase 1 needs; per-frame tensors live on ``device``."""
 
     model: SurfaceModel
-    bvh: Any  # upsp_tpu.geometry.bvh.FlatBVH (host arrays)
+    bvh: Any  # upsp_tpu_torch.geometry.bvh.FlatBVH (host arrays)
     cam_params: List[CameraParams]
     projections: List[NodeProjection]  # weight-adjusted
     skipped: torch.Tensor  # (N,) bool
@@ -97,10 +97,10 @@ class Phase0State:
 
 
 def native_library():
-    """``upsp_tpu.native`` with its library loaded: builds ``cpp/`` once
+    """``upsp_tpu_torch.native`` with its library loaded: builds ``cpp/`` once
     with make when the shared library is missing, and raises naming it if
     that fails."""
-    from upsp_tpu import native
+    from upsp_tpu_torch import native
 
     if native.available():
         return native
@@ -241,7 +241,7 @@ def run_phase0(
     if cfg.x_max is not None:
         model.mark_nondata_x_max(cfg.x_max)
     if cfg.active_comps:
-        from upsp_tpu.io.comps import apply_active_comps
+        from upsp_tpu_torch.io.comps import apply_active_comps
 
         n_masked = apply_active_comps(model, cfg.active_comps)
         if n_masked:

@@ -9,6 +9,12 @@ Gauss-Newton step), and the fused warp+filter tail (K4) with the patch
 overlays; then the combined best-view gather with NaN for skipped nodes
 and overlap supersession (K5), in model order.
 
+Images between stages are float32, or bfloat16 with
+``compute_dtype="bfloat16"`` (the JAX package's ``--compute-dtype``):
+hot-pixel repair, the phase correlation and the integer shift run on the
+f32 frame, which is then cast, and K1-K5 run their bf16 instantiations;
+warps, statistics, telemetry and intensities stay f32.
+
 Only the fft warm start with integer pre-shift is ported (the JAX
 package's production default); ``scan`` and identity starts, the dense
 ``jnp`` ECC path and the camera-vmapped variant are not (ROADMAP.md
@@ -86,6 +92,17 @@ def best_view_gather_plan(combined_index, combined_weight, skipped,
                              device=ref_frames.device)
 
 
+def _as_compute_dtype(compute_dtype) -> torch.dtype:
+    """A ``compute_dtype`` spec (str or dtype) as a torch dtype."""
+    if compute_dtype in (None, "float32", torch.float32):
+        return torch.float32
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(
+        f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}"
+    )
+
+
 def phase1_params(state) -> Phase1Params:
     """Derive (or return the handed-over) :class:`Phase1Params`."""
     if state.params is not None:
@@ -154,11 +171,12 @@ def process_frames_core(
     valid_shift: Optional[torch.Tensor] = None,  # (B, C, 2) pre-shift
     fix_hot: bool = True,
     ecc_templates: Optional[List[torch.Tensor]] = None,  # blurred, per cam
+    compute_dtype: torch.dtype = torch.float32,  # images between stages
 ):
     """A frame batch -> (intensity (B, N), warps (B, C, 2, 3), telemetry
-    (B, C, 5)).  Telemetry per camera is [rho, final |drho|, total tx,
-    total ty, displacement bound]; column 4 is written for format parity
-    (the port's K2 has no band limit)."""
+    (B, C, 5)), all f32.  Telemetry per camera is [rho, final |drho|, total
+    tx, total ty, displacement bound]; column 4 is written for format
+    parity (the port's K2 has no band limit)."""
     b, n_cams, h, w = frames.shape
     dev = frames.device
     tail_taps = filter_taps(filter_type, filter_size) if registration == "pixel" else None
@@ -168,6 +186,7 @@ def process_frames_core(
         img = frames[:, c].to(torch.float32).contiguous()
         if fix_hot:
             img = fix_hot_pixels_kernel(img)
+        img = img.to(compute_dtype).contiguous()
         tail_done = False
         if registration == "pixel":
             vs_c = None if valid_shift is None else valid_shift[:, c]
@@ -227,7 +246,8 @@ def process_frames_core(
 
 def make_chunk_processor(state, with_telemetry: bool = False,
                          frame_batch: int = 8, packed: bool = False,
-                         packed_bits: int = 12, lut=None):
+                         packed_bits: int = 12, lut=None,
+                         compute_dtype="float32"):
     """Build the chunk program: (F, C, H, W) frames (numpy or tensor, any
     numeric dtype) -> (F, N) intensities [and (F, C, 5) telemetry], on the
     state's device.
@@ -240,6 +260,9 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     start: the phase-correlation estimate, split into an integer pre-shift
     applied to the frame and a sub-pixel ECC start; the shift is composed
     into the ECC validity mask.  Frames run in batches of ``frame_batch``.
+
+    ``compute_dtype``: "float32" or "bfloat16", the images' dtype between
+    stages (raises ``ValueError`` on anything else).
     """
     cfg = state.config
     if cfg.pixel_interpolation == "nearest":
@@ -247,6 +270,7 @@ def make_chunk_processor(state, with_telemetry: bool = False,
             "pixel_interpolation 'nearest' is not ported yet "
             "(ROADMAP.md queue 1, M4: nearest-neighbour warp_affine)"
         )
+    cdtype = _as_compute_dtype(compute_dtype)
     p = phase1_params(state)
     n_cams = int(p.ref_frames.shape[0])
     static = dict(
@@ -254,14 +278,17 @@ def make_chunk_processor(state, with_telemetry: bool = False,
         patch=(cfg.target_patcher == "polynomial"),
         filter_type=cfg.filter,
         filter_size=cfg.filter_size,
+        compute_dtype=cdtype,
     )
     fft = cfg.registration == "pixel"
     if fft:
         dec = default_decimate(*state.image_hw)
         corr_tmpls = [prepare_template(p.ref_frames[c], dec) for c in range(n_cams)]
-        # the ECC template is blurred once, not once per frame
+        # the ECC template is blurred once, not once per frame, in the
+        # images' dtype (ecc_affine's rule)
         ecc_tmpls = [
-            ecc_blur(p.ref_frames[c][None].contiguous(), ECC_GAUSS_SIZE)[0]
+            ecc_blur(p.ref_frames[c][None].to(cdtype).contiguous(),
+                     ECC_GAUSS_SIZE)[0]
             for c in range(n_cams)
         ]
 
@@ -273,7 +300,8 @@ def make_chunk_processor(state, with_telemetry: bool = False,
             sol, _, tele = process_frames_core(frames, p, **static)
             return sol, tele
         # hot-pixel repair first, then split the translation estimate:
-        # integer part shifted off, sub-pixel residual solved by ECC
+        # integer part shifted off, sub-pixel residual solved by ECC; all
+        # on the f32 frame, cast to the compute dtype after
         fixed = fix_hot_pixels_kernel(frames)
         tvecs = torch.stack(
             [correlate(corr_tmpls[c], fixed[:, c]) for c in range(n_cams)], dim=1

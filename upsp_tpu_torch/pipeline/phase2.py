@@ -17,8 +17,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from upsp_tpu.io.paint import PaintCalibration
-from upsp_tpu.io.wtd import TunnelConditions, model_temperature
+from upsp_tpu_torch.io.paint import PaintCalibration
+from upsp_tpu_torch.io.wtd import TunnelConditions, model_temperature
 from upsp_tpu_torch.ops.polyfit import PolyDetrender, detrend, make_detrender
 
 
@@ -79,7 +79,7 @@ def compute_model_temperature(cfg, cond: TunnelConditions, n_nodes: int,
     """Per-node model temperature: a PLOT3D function file if configured,
     else the recovery-factor estimate (psp_process.cpp:2315-2345)."""
     if getattr(cfg, "model_temp_p3d", ""):
-        from upsp_tpu.io.plot3d import read_p3d_function
+        from upsp_tpu_torch.io.plot3d import read_p3d_function
 
         temps = read_p3d_function(cfg.model_temp_p3d)
         if temps.shape[0] == n_nodes:
@@ -98,7 +98,7 @@ def load_steady_cp(cfg, n_nodes: int, model=None) -> np.ndarray:
     """Steady-state Cp per node (zeros for wind-off runs)."""
     if cfg.wind_off or not cfg.steady_psp:
         return np.zeros(n_nodes, np.float32)
-    from upsp_tpu.io.plot3d import read_p3d_function
+    from upsp_tpu_torch.io.plot3d import read_p3d_function
 
     steady = read_p3d_function(cfg.steady_psp)
     if steady.shape[0] == n_nodes:
@@ -109,8 +109,8 @@ def load_steady_cp(cfg, n_nodes: int, model=None) -> np.ndarray:
 
 
 def _interpolate_from_steady_grid(cfg, values: np.ndarray, model) -> np.ndarray:
-    from upsp_tpu.geometry.grids import load_model
-    from upsp_tpu.pipeline.interpolate import idw_interpolate
+    from upsp_tpu_torch.geometry.grids import load_model
+    from upsp_tpu_torch.pipeline.interpolate import idw_interpolate
 
     steady_model = load_model(cfg.steady_grid, tolerance=cfg.grid_tol)
     return idw_interpolate(steady_model.vertices, values,

@@ -8,7 +8,7 @@ the 15 flat files, the registration telemetry and ``output.h5``.
 Frames reach phase 1 as packed video bytes, unpacked on the device by
 K7/K8, whenever every camera's video supports packed reads in one format
 (``device_unpack="auto"``, the default); otherwise the
-``upsp_tpu.io.video`` readers decode them on the host.
+``upsp_tpu_torch.io.video`` readers decode them on the host.
 
 Not ported here (ROADMAP.md): out-of-core streaming, device meshes and
 multi-process runs, and the band guard that re-runs out-of-band frames on
@@ -26,15 +26,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-# the jax-free formats of upsp_tpu, reused by import; FLAT_FILES, read_flat,
-# read_input_deck and the cine 10->12-bit LUT are re-exported for callers
-# of the port
-from upsp_tpu.io.flatfile import FLAT_FILES, FlatFileSet, read_flat  # noqa: F401
-from upsp_tpu.io.paint import PaintCalibration
-from upsp_tpu.io.video import FramePrefetcher, video_reader
-from upsp_tpu.io.video.cine import LUT_10_TO_12  # noqa: F401
-from upsp_tpu.io.wtd import read_wtd
-from upsp_tpu.pipeline.config import ProcessingConfig, read_input_deck  # noqa: F401
+from upsp_tpu_torch.io.flatfile import FlatFileSet
+from upsp_tpu_torch.io.paint import PaintCalibration
+from upsp_tpu_torch.io.video import FramePrefetcher, video_reader
+from upsp_tpu_torch.io.wtd import read_wtd
+from upsp_tpu_torch.pipeline.config import ProcessingConfig
 from upsp_tpu_torch.ops.projection import coverage as proj_coverage
 from upsp_tpu_torch.pipeline.phase0 import Phase0State, run_phase0
 from upsp_tpu_torch.pipeline.phase1 import make_chunk_processor
@@ -197,6 +193,7 @@ def run_datapoint(
     registration_telemetry: bool = False,
     stage_times: Optional[dict] = None,
     device_unpack="auto",
+    compute_dtype: str = "float32",
 ) -> DatapointOutputs:
     """Process one datapoint end to end on ``device`` (ECC from the fft
     warm start, 8-frame batches); outputs go to ``cfg.out_dir`` when set.
@@ -205,6 +202,8 @@ def run_datapoint(
     ``device_unpack``: "auto" (or True) ships the videos' packed bytes to
     the device and unpacks them there (K7/K8) when every camera supports
     packed reads in one format; False decodes frames on the host.
+    ``compute_dtype``: the images' dtype between phase-1 stages, "float32"
+    or "bfloat16" (:func:`~upsp_tpu_torch.pipeline.phase1.make_chunk_processor`).
     ``registration_telemetry`` writes the per-frame, per-camera ECC record
     [rho, final |drho|, tx, ty, disp_bound] to the ``registration`` flat
     file with its ``registration.json`` sidecar.  ``stage_times``, when a
@@ -261,7 +260,7 @@ def run_datapoint(
         return DatapointOutputs(state, None, None, None, None, None, n_frames)
 
     fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
-                              **packed_kw)
+                              compute_dtype=compute_dtype, **packed_kw)
     mark("phase1_setup", t0)  # part of phase 1: parameters, templates
     n_nodes = state.n_nodes
     intensity = np.empty((n_frames, n_nodes), np.float32)
@@ -387,7 +386,7 @@ def _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
     if importlib.util.find_spec("h5py") is None:
         log.warning("h5py unavailable; skipped HDF5 output")
         return
-    from upsp_tpu.io.hdf5io import PSPWriter
+    from upsp_tpu_torch.io.hdf5io import PSPWriter
 
     cond = read_wtd(cfg.sds)
     cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence

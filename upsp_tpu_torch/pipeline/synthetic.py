@@ -79,7 +79,7 @@ def _dots(image_hw, centers_px, radius_px) -> np.ndarray:
 
 
 def _plate_grid(grid_shape):
-    from upsp_tpu.io.plot3d import StructGrid
+    from upsp_tpu_torch.io.plot3d import StructGrid
 
     imax, jmax = grid_shape
     gy, gx = np.meshgrid(np.linspace(0, PLATE[1], jmax),
@@ -143,10 +143,10 @@ def _inverse_lut(lut: np.ndarray) -> np.ndarray:
 def _write_cine10(path: str, codes: np.ndarray, frame_rate: int = 10000,
                  shutter_ns: int = 50000) -> None:
     """A packed 10-bit Phantom ``.cine`` of (F, H, W) 10-bit codes, in the
-    header layout ``upsp_tpu.io.video.cine`` reads (CINEFILEHEADER,
+    header layout ``upsp_tpu_torch.io.video.cine`` reads (CINEFILEHEADER,
     BITMAPINFOHEADER with biCompression 1, SETUP with RealBPP 10, the image
     offset table, then per image an 8-byte annotation and the payload)."""
-    from upsp_tpu.io.video.util import pack_10bpp
+    from upsp_tpu_torch.io.video.util import pack_10bpp
 
     n_f, h, w = codes.shape
     if (h * w) % 4:
@@ -207,8 +207,8 @@ def write_datapoint(
     @options (defaults: polynomial patcher, gaussian 3, best_view, pixel
     registration).
     """
-    from upsp_tpu.io.plot3d import write_p3d_grid
-    from upsp_tpu.io.video.util import pack_12bpp
+    from upsp_tpu_torch.io.plot3d import write_p3d_grid
+    from upsp_tpu_torch.io.video.util import pack_12bpp
 
     if video_format not in ("mraw12", "cine10"):
         raise ValueError(f"video_format must be mraw12 or cine10, got {video_format!r}")
@@ -269,7 +269,7 @@ def write_datapoint(
     videos = []
     for c in range(n_cameras):
         if video_format == "cine10":
-            from upsp_tpu.io.video.cine import LUT_10_TO_12
+            from upsp_tpu_torch.io.video.cine import LUT_10_TO_12
 
             codes = _inverse_lut(LUT_10_TO_12)[stack[:, c]]
             stack[:, c] = LUT_10_TO_12[codes]
