@@ -11,7 +11,9 @@ From the root of a checkout, on a machine with a CUDA device:
 3. holds each kernel against its plain PyTorch twin on the card and times
    both with CUDA events, and the one PyTorch call that computes the same
    function where there is one (K1: conv2d over a reflect pad): K1-K4 on 8
-   frames of 1024x1024 and of 1200x1800, in float32 and in bfloat16; K9
+   frames of 1024x1024 and of 1200x1800, in float32 and in bfloat16, with
+   K3 called twice for bit-identical statistics and K4 also on a 1.6x
+   scale warp (its global-memory route); K9
    (the fused GN step) on 8 frames of 1200x1800 in both, also against K2
    then K3; K5-K8 at the full configuration's shapes (8 frames x 4
    cameras x 1200x1800, a 1,048,576-node gather plan; K5 with f32 and with
@@ -35,11 +37,14 @@ From the root of a checkout, on a machine with a CUDA device:
 
 Prints the seconds of each phase, then the kernel table as one JSON line
 (per kernel: ``launches`` over the paths and ``launches_by_path``;
-``ms``/``plain_ms``/``library_ms`` and ``bound_ms``/``bound_by`` at the
-full configuration's shape, every measured shape under ``shapes``; K9
-also ``split_ms``, the time of K2 then K3, and ``kernel_phase_only``: no
-datapoint path runs it), the card's name and power limit, then as the
-last line {"ok": true, "device": {...}}.
+``ms``/``device_ms``/``plain_ms``/``library_ms`` and
+``bound_ms``/``bound_by`` at the full configuration's shape, every
+measured shape under ``shapes``; the redesigned K3 and K4 also
+``redesigned``, with their time before the redesign printed on a line of
+its own; K9
+also ``split_ms``/``split_device_ms``, the time of K2 then K3, and
+``kernel_phase_only``: no datapoint path runs it), the card's name and
+power limit, then as the last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when CUDA is unavailable, the
 repository is missing, or any phase fails.
 """
@@ -124,6 +129,12 @@ FULL_PATHS = (
      "bfloat16", BF16_KERNELS + ("unpack12",)),
 )
 DEVICE = "cuda"
+# the redesigned kernels' ``ms`` before the redesign, on 8 frames of each
+# of ECC_SHAPES (PERF.md section 6: this script on an NVIDIA H100 80GB
+# HBM3 at 700.00 W), printed beside this run's ``ms`` and kept out of the
+# kernels line
+PREV_MS = {"moments": (0.1356, 0.2357), "moments_bf16": (0.1224, 0.2481),
+           "warp_filter": (0.1645, 0.3355), "warp_filter_bf16": (0.1642, 0.3349)}
 
 
 class SmokeFailure(Exception):
@@ -136,33 +147,59 @@ def check(cond, what):
     print(f"  ok: {what}", flush=True)
 
 
-def cuda_time(fn, iters=20, warmup=3):
+def cuda_time(fn, iters=20, warmup=3, graph=False):
+    """ms per call of ``fn``: CUDA events around ``iters`` calls after
+    ``warmup``.  With ``graph`` the calls are captured once into a CUDA
+    graph and the replay is timed, so the host's share of a call (Python,
+    ctypes, allocation), which the card would otherwise wait for when a
+    call is short, is left out: the device's time."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        g.replay()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(iters):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
 def add_row(rows, name, shape, err, ok, detail, fn, plain_fn, nbytes, flops,
-            library_fn=None, **extra):
+            library_fn=None, prev_ms=None, **extra):
     """Time a kernel, its twin and (where there is one) the one PyTorch
     call that computes the same function, in turns, at ``shape``, and
     record them in the kernel's row with the least time the card could
     take: ``nbytes`` (each input read once, each output written once) over
-    the HBM rate or ``flops`` over the f32 rate, whichever is larger.  A
-    kernel checked at several shapes keeps each under ``shapes``; its
-    top-level numbers are the last shape's (the full configuration's), its
-    ``max_abs_err`` the largest."""
+    the HBM rate or ``flops`` over the f32 rate, whichever is larger.
+    ``ms``, ``plain_ms`` and ``library_ms`` time calls made from Python,
+    host included, as this script always has; ``device_ms`` replays the kernel's
+    calls from a CUDA graph, the device's time alone, and the share of the
+    bound is taken of it.  ``prev_ms``, an earlier version's ``ms``, is printed
+    beside ``ms`` and not recorded.  A kernel checked at several shapes
+    keeps each under ``shapes``; its top-level numbers are the last
+    shape's (the full configuration's), its ``max_abs_err`` the largest."""
     ms = cuda_time(fn)
+    device_ms = cuda_time(fn, graph=True)
     plain_ms = cuda_time(plain_fn, iters=5, warmup=1)
     library_ms = cuda_time(library_fn) if library_fn is not None else None
     by_bytes, by_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
@@ -170,10 +207,14 @@ def add_row(rows, name, shape, err, ok, detail, fn, plain_fn, nbytes, flops,
     bound_by = "bytes" if by_bytes >= by_flops else "operations"
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"  {name} at {shape}: max_abs_err {err:.4g} ({detail}); kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}; bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP), {100 * bound_ms / ms:.0f}% of it; "
-          f"{nbytes / ms / 1e6:.0f} GB/s", flush=True)
+          f"{ms:.4f} ms (device {device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"library {lib}; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+          f"{100 * bound_ms / device_ms:.0f}% of it on the device; "
+          f"{nbytes / device_ms / 1e6:.0f} GB/s", flush=True)
+    if prev_ms is not None:
+        print(f"  {name} at {shape}, before its redesign: {prev_ms:.4f} ms "
+              f"(PERF.md section 6), {prev_ms / ms:.2f}x this run's ms", flush=True)
     check(ok, f"{name} kernel within bound of its twin at {shape}")
     row = next((r for r in rows if r["name"] == name), None)
     if row is None:
@@ -181,7 +222,7 @@ def add_row(rows, name, shape, err, ok, detail, fn, plain_fn, nbytes, flops,
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    launches=0, launches_by_path={}, max_abs_err=0.0, shapes=[])
         rows.append(row)
-    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    timing = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
                   bound_ms=bound_ms, bound_by=bound_by, **extra)
     row["shapes"].append(dict(shape=shape, max_abs_err=err, **timing))
     row.update(max_abs_err=max(row["max_abs_err"], err), **timing)
@@ -237,7 +278,9 @@ def stats_err(got, want):
 def kernel_phase_ecc(rows, H, W, dtype_name):
     """K1-K4 against their twins on B frames of H x W, float32 or bfloat16:
     f32 within 2e-3 counts, bf16 within 1 bf16 ulp of the twin (both
-    compute in f32 and round once), K3 within 2e-4 relative."""
+    compute in f32 and round once), K3 within 2e-4 relative and
+    bit-identical from call to call; K4 also on a 1.6x scale warp, whose
+    taps it reads from global memory instead of its staged window."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -267,7 +310,7 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     edge = edge_mask(w)
     edge_bound = 4 * float(np.spacing(np.float32(max(H, W)))) * 4096
 
-    def image_err(got, want, warped=True):
+    def image_err(got, want, warped=True, edge=edge):
         d = (got.float() - want.float()).abs()
         if dtype == torch.float32:
             bound = torch.full_like(d, 2e-3)
@@ -292,13 +335,20 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     add_row(rows, "warp" + sfx, shape, err, ok, det, lambda: K.warp_affine_banded(imgs, warps),
             lambda: K.warp_plain(imgs, warps), 2 * e * px, FLOPS["warp"] * px)
 
-    err, rel = stats_err(K.ecc_gn_moments(imgs, tmpl, warps, mask),
-                         K.moments_plain(imgs, tmpl, warps, mask))
+    def redesign(name):
+        return dict(prev_ms=PREV_MS[name][ECC_SHAPES.index((H, W))],
+                    redesigned=True)
+
+    got = K.ecc_gn_moments(imgs, tmpl, warps, mask)
+    check(torch.equal(got, K.ecc_gn_moments(imgs, tmpl, warps, mask)),
+          f"moments{sfx} bit-identical from call to call at {shape}")
+    err, rel = stats_err(got, K.moments_plain(imgs, tmpl, warps, mask))
     add_row(rows, "moments" + sfx, shape, err, rel <= 2e-4,
             f"max rel {rel:.3g} <= 2e-4 (f32 reduction order)",
             lambda: K.ecc_gn_moments(imgs, tmpl, warps, mask),
             lambda: K.moments_plain(imgs, tmpl, warps, mask),
-            e * (px + H * W) + B * 128 * 4, FLOPS["moments"] * px)
+            e * (px + H * W) + B * 128 * 4, FLOPS["moments"] * px,
+            **redesign("moments" + sfx))
 
     o1 = K.warp_filter(imgs, warps, taps3)
     o2, iw = K.warp_filter(imgs, warps, taps3, with_warped=True)
@@ -306,11 +356,22 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     e1, k1, d1 = image_err(o1, p_out)
     e2, k2, d2 = image_err(o2, p_out)
     e3, k3, d3 = image_err(iw, p_iw)
-    add_row(rows, "warp_filter" + sfx, shape, max(e1, e2, e3), k1 and k2 and k3,
-            f"filtered {d1}; with_warped {d2}; warped {d3}",
+    # a 1.6x scale: the source window outgrows K4's shared-memory budget
+    w_far = w.copy()
+    w_far[:, 0, 0] = w_far[:, 1, 1] = 1.6
+    w_far[:, :, 2] -= 0.3 * np.array([W, H], np.float32)
+    far = torch.tensor(w_far, device=DEVICE)
+    g_out, g_iw = K.warp_filter(imgs, far, taps3, with_warped=True)
+    f_out, f_iw = K.warp_filter_plain(imgs, far, taps3, True)
+    e4, k4, d4 = image_err(g_out, f_out, edge=edge_mask(w_far))
+    e5, k5, d5 = image_err(g_iw, f_iw, edge=edge_mask(w_far))
+    check(k4 and k5, f"warp_filter{sfx} global-memory route (1.6x scale) matches "
+          f"its twin at {shape}: filtered {d4}, warped {d5}")
+    add_row(rows, "warp_filter" + sfx, shape, max(e1, e2, e3, e4, e5),
+            k1 and k2 and k3, f"filtered {d1}; with_warped {d2}; warped {d3}",
             lambda: K.warp_filter(imgs, warps, taps3, with_warped=True),
             lambda: K.warp_filter_plain(imgs, warps, taps3, True), 3 * e * px,
-            FLOPS["warp_filter"] * px)
+            FLOPS["warp_filter"] * px, **redesign("warp_filter" + sfx))
     torch.cuda.synchronize()
 
 
@@ -347,7 +408,7 @@ def kernel_phase_gn_fused(rows, dtype_name):
     add_row(rows, "gn_fused" + sfx, f"{B}x{H}x{W} {dtype_name}", err, ok, detail,
             fused, lambda: K.gn_fused_plain(imgs, tmpl, warps, mask),
             e * (px + H * W) + B * 128 * 4, FLOPS["gn_fused"] * px,
-            split_ms=cuda_time(split))
+            split_ms=cuda_time(split), split_device_ms=cuda_time(split, graph=True))
     torch.cuda.synchronize()
 
 

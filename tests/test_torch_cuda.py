@@ -225,6 +225,99 @@ def test_gn_fused_matches_twin_and_split_pair_on_card(cuda, shape):
     assert K.launch_counts()["gn_fused"] == before + 1
 
 
+def clipped_mask_warps(b, h, w):
+    """Mask warps scaled by 1.06 about the image centre, so the valid
+    rectangle is clipped on all four sides."""
+    mw = np.zeros((b, 2, 3), np.float32)
+    mw[:, 0, 0] = mw[:, 1, 1] = 1.06
+    mw[:, 0, 2] = -0.03 * (w - 1) + np.arange(b)
+    mw[:, 1, 2] = -0.03 * (h - 1) - np.arange(b)
+    return mw
+
+
+UNALIGNED = [(2, 90, 131), (2, 97, 97), (3, 1200, 131)]
+# rows wider than K3's 2048-column chunk: two and three unequal chunks
+# (1301 + 1300, 1367 + 1367 + 1366 columns)
+WIDE = [(2, 97, 2601), (2, 90, 4100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", UNALIGNED + WIDE)
+def test_moments_unaligned_rows_clipped_mask_on_card(cuda, shape, dtype):
+    """K3 on rows that are not 16-byte aligned (W = 97, 131), heights its
+    37-row strips do not divide (90, 97, 1200) and rows split into column
+    chunks (W = 2601, 4100), under a mask warp clipped on all four sides
+    and under the path's integer pre-shift; two calls give bit-identical
+    statistics, and a frame's statistics do not depend on its batch."""
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(22, *shape)).to(dt)
+    tm = torch.tensor(images(23, 1, *shape[1:])[0]).to(dt)
+    w = torch.tensor(warps(22, shape[0]))
+    shifted = w.clone()
+    shifted[:, :, 2] += torch.tensor([1.0, -2.0])
+    for mw in (torch.tensor(clipped_mask_warps(*shape)), shifted):
+        c = [t.to(cuda) for t in (x, tm, w, mw)]
+        got = K.ecc_gn_moments(*c)
+        assert torch.equal(got, K.ecc_gn_moments(*c))
+        one = K.ecc_gn_moments(c[0][1:2], c[1], c[2][1:2], c[3][1:2])
+        assert torch.equal(got[1:2], one)
+        assert_stats_close(_np(got), _np(K.moments_plain(x, tm, w, mw)), _np(tm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", UNALIGNED)
+@pytest.mark.parametrize("taps", [(1.0,), GAUSS[3], GAUSS[5], GAUSS[7]])
+def test_warp_filter_unaligned_rows_on_card(cuda, shape, dtype, taps):
+    """K4 (both outputs) where rows are not 16-byte aligned and the 32x128
+    tile divides neither side, for every filter radius."""
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(24, *shape)).to(dt)
+    w = torch.tensor(warps(24, shape[0]))
+    o, iw = K.warp_filter(x.to(cuda), w.to(cuda), taps, with_warped=True)
+    assert torch.equal(o, K.warp_filter(x.to(cuda), w.to(cuda), taps))
+    po, piw = K.warp_filter_plain(x, w, taps, True)
+    halo = len(taps) // 2
+    if dt == torch.float32:
+        assert_images_close(_np(o), _np(po), w.numpy(), atol=2e-3, halo=halo)
+        assert_images_close(_np(iw), _np(piw), w.numpy(), atol=2e-3)
+    else:
+        assert_within_ulp(_np(o), _np(po), w.numpy(), halo=halo)
+        assert_within_ulp(_np(iw), _np(piw), w.numpy())
+
+
+def far_warps(b, kind):
+    """Warps K4 must handle off its staged-window route: a 1.6x scale (the
+    source window outgrows the block's budget, so the taps come from global
+    memory) and a 40 px translation (the window runs off the image)."""
+    w = warps(25, b)
+    if kind == "scale":
+        w[:, 0, 0] = w[:, 1, 1] = 1.6
+        w[:, :, 2] -= 20.0
+    else:
+        w[:, :, 2] += np.array([40.0, -40.0], np.float32)
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["scale", "translate"])
+def test_warp_filter_global_route_on_card(cuda, kind, dtype):
+    shape = (2, 97, 131)
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(25, *shape)).to(dt)
+    w = torch.tensor(far_warps(shape[0], kind))
+    o, iw = K.warp_filter(x.to(cuda), w.to(cuda), GAUSS[3], with_warped=True)
+    po, piw = K.warp_filter_plain(x, w, GAUSS[3], True)
+    if dt == torch.float32:
+        assert_images_close(_np(o), _np(po), w.numpy(), atol=2e-3, halo=1)
+        assert_images_close(_np(iw), _np(piw), w.numpy(), atol=2e-3)
+    else:
+        assert_within_ulp(_np(o), _np(po), w.numpy(), halo=1)
+        assert_within_ulp(_np(iw), _np(piw), w.numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_bytes", [15, 3 * 5 * 257 * 256 + 7])
 def test_unpack_kernels_match_twins_on_card(cuda, n_bytes):

@@ -69,7 +69,7 @@ KERNELS = register_kernels(TYPED + ("hot",) + tuple(f"{k}_bf16" for k in TYPED))
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     taps = [i] + [f] * MAX_TAPS
-    lib.upsp_ecc_moments_blocks.argtypes = [i]
+    lib.upsp_ecc_moments_blocks.argtypes = [i, i]
     lib.upsp_ecc_gn_fused_blocks.argtypes = [i, i]
     argtypes = {
         "blur": [p, p, i, i, i] + taps + [p],
@@ -350,7 +350,7 @@ def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
     if iw.device.type == "cpu":
         return moments_plain(iw, tmpl, warps, mask_warps)
     return _launch_stats("moments", iw, tmpl, warps, mask_warps,
-                         LIBRARY.lib().upsp_ecc_moments_blocks(iw.shape[1]))
+                         LIBRARY.lib().upsp_ecc_moments_blocks(*iw.shape[1:]))
 
 
 def ecc_gn_fused(imgs: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
