@@ -10,10 +10,11 @@ From the root of a checkout, on a machine with a CUDA device:
    nvcc each, all started together) and prints the time;
 3. holds each kernel against its plain PyTorch twin on the card and times
    both with CUDA events, and the one PyTorch call that computes the same
-   function where there is one (K1: conv2d over a reflect pad): K1-K4 on 8
-   frames of 1024x1024 and of 1200x1800, in float32 and in bfloat16, with
-   K3 called twice for bit-identical statistics and K4 also on a 1.6x
-   scale warp (its global-memory route); K9
+   function where there is one (K1: conv2d over a reflect pad, in full
+   f32): K1-K4 on 8 frames of 1024x1024 and of 1200x1800, in float32 and
+   in bfloat16, with K1-K3 called twice for bit-identical output and K2
+   and K4 also on a 1.6x scale warp (their global-memory route) and on a
+   shear that moves the frame's corners by 2.9 px; K9
    (the fused GN step) on 8 frames of 1200x1800 in both, also against K2
    then K3; K5-K8 at the full configuration's shapes (8 frames x 4
    cameras x 1200x1800, a 1,048,576-node gather plan; K5 with f32 and with
@@ -39,7 +40,7 @@ Prints the seconds of each phase, then the kernel table as one JSON line
 (per kernel: ``launches`` over the paths and ``launches_by_path``;
 ``ms``/``device_ms``/``plain_ms``/``library_ms`` and
 ``bound_ms``/``bound_by`` at the full configuration's shape, every
-measured shape under ``shapes``; the redesigned K3 and K4 also
+measured shape under ``shapes``; the redesigned K1-K4 also
 ``redesigned``, with their time before the redesign printed on a line of
 its own; K9
 also ``split_ms``/``split_device_ms``, the time of K2 then K3, and
@@ -129,12 +130,15 @@ FULL_PATHS = (
      "bfloat16", BF16_KERNELS + ("unpack12",)),
 )
 DEVICE = "cuda"
-# the redesigned kernels' ``ms`` before the redesign, on 8 frames of each
+# the redesigned kernels' ``ms`` before their redesign, on 8 frames of each
 # of ECC_SHAPES (PERF.md section 6: this script on an NVIDIA H100 80GB
-# HBM3 at 700.00 W), printed beside this run's ``ms`` and kept out of the
-# kernels line
+# HBM3 at 700.00 W; K3/K4 as first written, K1/K2 before their own
+# redesign), printed beside this run's ``ms`` and kept out of the kernels
+# line
 PREV_MS = {"moments": (0.1356, 0.2357), "moments_bf16": (0.1224, 0.2481),
-           "warp_filter": (0.1645, 0.3355), "warp_filter_bf16": (0.1642, 0.3349)}
+           "warp_filter": (0.1645, 0.3355), "warp_filter_bf16": (0.1642, 0.3349),
+           "blur": (0.0892, 0.1744), "blur_bf16": (0.0880, 0.1751),
+           "warp": (0.0783, 0.1498), "warp_bf16": (0.0771, 0.1525)}
 
 
 class SmokeFailure(Exception):
@@ -278,9 +282,11 @@ def stats_err(got, want):
 def kernel_phase_ecc(rows, H, W, dtype_name):
     """K1-K4 against their twins on B frames of H x W, float32 or bfloat16:
     f32 within 2e-3 counts, bf16 within 1 bf16 ulp of the twin (both
-    compute in f32 and round once), K3 within 2e-4 relative and
-    bit-identical from call to call; K4 also on a 1.6x scale warp, whose
-    taps it reads from global memory instead of its staged window."""
+    compute in f32 and round once), K3 within 2e-4 relative; K1-K3
+    bit-identical from call to call; K2 and K4 also on a 1.6x scale warp,
+    whose taps they read from global memory instead of their staged
+    window, and on a shear that moves the frame's corners by 2.9 px.  K1's yardstick, conv2d over a reflect pad, runs with cuDNN's
+    TF32 off (its default for f32 convolutions is TF32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -326,18 +332,53 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     def conv2d_blur():
         return F.conv2d(F.pad(imgs[:, None], (2, 2, 2, 2), mode="reflect"), k2d)
 
-    err, ok, det = image_err(K.blur(imgs, taps5), K.blur_plain(imgs, taps5), warped=False)
-    add_row(rows, "blur" + sfx, shape, err, ok, det,
-            lambda: K.blur(imgs, taps5), lambda: K.blur_plain(imgs, taps5),
-            2 * e * px, FLOPS["blur"] * px, library_fn=conv2d_blur)
-
-    err, ok, det = image_err(K.warp_affine_banded(imgs, warps), K.warp_plain(imgs, warps))
-    add_row(rows, "warp" + sfx, shape, err, ok, det, lambda: K.warp_affine_banded(imgs, warps),
-            lambda: K.warp_plain(imgs, warps), 2 * e * px, FLOPS["warp"] * px)
-
     def redesign(name):
         return dict(prev_ms=PREV_MS[name][ECC_SHAPES.index((H, W))],
                     redesigned=True)
+
+    got = K.blur(imgs, taps5)
+    check(torch.equal(got, K.blur(imgs, taps5)),
+          f"blur{sfx} bit-identical from call to call at {shape}")
+    err, ok, det = image_err(got, K.blur_plain(imgs, taps5), warped=False)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        add_row(rows, "blur" + sfx, shape, err, ok, det,
+                lambda: K.blur(imgs, taps5), lambda: K.blur_plain(imgs, taps5),
+                2 * e * px, FLOPS["blur"] * px, library_fn=conv2d_blur,
+                **redesign("blur" + sfx))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    # a 1.6x scale: the source window outgrows K2's and K4's shared-memory
+    # budget
+    w_far = w.copy()
+    w_far[:, 0, 0] = w_far[:, 1, 1] = 1.6
+    w_far[:, :, 2] -= 0.3 * np.array([W, H], np.float32)
+    far = torch.tensor(w_far, device=DEVICE)
+    # a shear that displaces the frame's corners by 2.9 px in x and in y,
+    # inside the TPU kernel's +-3 px band: there the Taylor terms reach
+    # thousands of counts and cancel, so their rounding order shows
+    w_shear = w.copy()
+    w_shear[:, 0, 1] = np.sign(w[:, 0, 1]) * 2.9 / ((H - 1) / 2)
+    w_shear[:, 1, 0] = np.sign(w[:, 1, 0]) * 2.9 / ((W - 1) / 2)
+    shear = torch.tensor(w_shear, device=DEVICE)
+
+    got = K.warp_affine_banded(imgs, warps)
+    check(torch.equal(got, K.warp_affine_banded(imgs, warps)),
+          f"warp{sfx} bit-identical from call to call at {shape}")
+    err, ok, det = image_err(got, K.warp_plain(imgs, warps))
+    e_far, k_far, d_far = image_err(K.warp_affine_banded(imgs, far),
+                                    K.warp_plain(imgs, far), edge=edge_mask(w_far))
+    check(k_far, f"warp{sfx} global-memory route (1.6x scale) matches its twin at "
+          f"{shape}: {d_far}")
+    e_sh, k_sh, d_sh = image_err(K.warp_affine_banded(imgs, shear),
+                                 K.warp_plain(imgs, shear), edge=edge_mask(w_shear))
+    check(k_sh, f"warp{sfx} on a 2.9 px shear matches its twin at {shape}: {d_sh}")
+    add_row(rows, "warp" + sfx, shape, max(err, e_far, e_sh), ok, det,
+            lambda: K.warp_affine_banded(imgs, warps),
+            lambda: K.warp_plain(imgs, warps), 2 * e * px, FLOPS["warp"] * px,
+            **redesign("warp" + sfx))
 
     got = K.ecc_gn_moments(imgs, tmpl, warps, mask)
     check(torch.equal(got, K.ecc_gn_moments(imgs, tmpl, warps, mask)),
@@ -356,18 +397,19 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     e1, k1, d1 = image_err(o1, p_out)
     e2, k2, d2 = image_err(o2, p_out)
     e3, k3, d3 = image_err(iw, p_iw)
-    # a 1.6x scale: the source window outgrows K4's shared-memory budget
-    w_far = w.copy()
-    w_far[:, 0, 0] = w_far[:, 1, 1] = 1.6
-    w_far[:, :, 2] -= 0.3 * np.array([W, H], np.float32)
-    far = torch.tensor(w_far, device=DEVICE)
     g_out, g_iw = K.warp_filter(imgs, far, taps3, with_warped=True)
     f_out, f_iw = K.warp_filter_plain(imgs, far, taps3, True)
     e4, k4, d4 = image_err(g_out, f_out, edge=edge_mask(w_far))
     e5, k5, d5 = image_err(g_iw, f_iw, edge=edge_mask(w_far))
     check(k4 and k5, f"warp_filter{sfx} global-memory route (1.6x scale) matches "
           f"its twin at {shape}: filtered {d4}, warped {d5}")
-    add_row(rows, "warp_filter" + sfx, shape, max(e1, e2, e3, e4, e5),
+    s_out, s_iw = K.warp_filter(imgs, shear, taps3, with_warped=True)
+    t_out, t_iw = K.warp_filter_plain(imgs, shear, taps3, True)
+    e6, k6, d6 = image_err(s_out, t_out, edge=edge_mask(w_shear))
+    e7, k7, d7 = image_err(s_iw, t_iw, edge=edge_mask(w_shear))
+    check(k6 and k7, f"warp_filter{sfx} on a 2.9 px shear matches its twin at "
+          f"{shape}: filtered {d6}, warped {d7}")
+    add_row(rows, "warp_filter" + sfx, shape, max(e1, e2, e3, e4, e5, e6, e7),
             k1 and k2 and k3, f"filtered {d1}; with_warped {d2}; warped {d3}",
             lambda: K.warp_filter(imgs, warps, taps3, with_warped=True),
             lambda: K.warp_filter_plain(imgs, warps, taps3, True), 3 * e * px,

@@ -61,6 +61,16 @@ def warps(seed, b):
     return w
 
 
+def shear_warps(seed, b, h, w, px=2.9):
+    """``warps`` with a shear that moves the frame's corners by ``px`` in x
+    and in y (inside the TPU kernel's +-3 px band): there the Taylor terms
+    reach thousands of counts and cancel, so their rounding order shows."""
+    out = warps(seed, b)
+    out[:, 0, 1] = np.sign(out[:, 0, 1]) * px / max((h - 1) / 2, 1)
+    out[:, 1, 0] = np.sign(out[:, 1, 0]) * px / max((w - 1) / 2, 1)
+    return out
+
+
 def border_straddle(warp, h, w, halo=0):
     """(H, W) bool: pixels whose separable sample (or a Taylor neighbour,
     or a filter tap within ``halo``) has a tent tap outside the image."""
@@ -82,7 +92,7 @@ def assert_images_close(got, want, warp_np, atol=1e-3, halo=0):
     for i in range(got.shape[0]):
         edge = border_straddle(warp_np[i], *got.shape[1:], halo=halo)
         d = np.abs(got[i] - want[i])
-        assert d[~edge].max() <= atol, d[~edge].max()
+        assert d[~edge].max(initial=0.0) <= atol, d[~edge].max(initial=0.0)
         bound = 4 * np.spacing(np.float32(max(got.shape[1:]))) * np.abs(want[i]).max()
         assert d[edge].max(initial=0.0) <= bound + atol
 
@@ -288,21 +298,26 @@ def test_warp_filter_unaligned_rows_on_card(cuda, shape, dtype, taps):
 
 
 def far_warps(b, kind):
-    """Warps K4 must handle off its staged-window route: a 1.6x scale (the
-    source window outgrows the block's budget, so the taps come from global
-    memory) and a 40 px translation (the window runs off the image)."""
+    """Warps K2 and K4 must handle off their staged-window route on a 97 x
+    131 image: a 1.6x scale (the source window outgrows the block's budget,
+    so the taps come from global memory), a 40 px translation (the window
+    runs off the image) and a mirror (negative scales: the window's span
+    comes from the tile's other ends)."""
     w = warps(25, b)
     if kind == "scale":
         w[:, 0, 0] = w[:, 1, 1] = 1.6
         w[:, :, 2] -= 20.0
-    else:
+    elif kind == "translate":
         w[:, :, 2] += np.array([40.0, -40.0], np.float32)
+    else:
+        w[:, 0, 0] = w[:, 1, 1] = -1.0
+        w[:, :, 2] += np.array([130.0, 96.0], np.float32)
     return w
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["scale", "translate"])
+@pytest.mark.parametrize("kind", ["scale", "translate", "flip"])
 def test_warp_filter_global_route_on_card(cuda, kind, dtype):
     shape = (2, 97, 131)
     dt = getattr(torch, dtype)
@@ -316,6 +331,101 @@ def test_warp_filter_global_route_on_card(cuda, kind, dtype):
     else:
         assert_within_ulp(_np(o), _np(po), w.numpy(), halo=1)
         assert_within_ulp(_np(iw), _np(piw), w.numpy())
+
+
+def assert_image_kernel_close(got, want, dt, warp_np=None):
+    """f32 within 2e-3 counts (warps: the border allowance on top), bf16
+    within 1 bf16 ulp of the twin (both compute in f32 and round once)."""
+    if dt == torch.float32:
+        if warp_np is None:
+            np.testing.assert_allclose(_np(got), _np(want), atol=2e-3, rtol=0)
+        else:
+            assert_images_close(_np(got), _np(want), warp_np, atol=2e-3)
+    else:
+        assert_within_ulp(_np(got), _np(want), warp_np)
+
+
+TAPS = [(1.0,), GAUSS[3], GAUSS[5], GAUSS[7]]
+# rows 1800 and 2601 wide: K1's last group of columns is partial
+BLUR_WIDE = [(2, 64, 1800), (2, 37, 2601)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", UNALIGNED + BLUR_WIDE)
+@pytest.mark.parametrize("taps", TAPS)
+def test_blur_unaligned_rows_every_radius_on_card(cuda, shape, dtype, taps):
+    """K1 where rows are not 16-byte aligned (W = 97, 131), heights its
+    strips do not divide, partial column groups, every tap count;
+    bit-identical from call to call."""
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(26, *shape)).to(dt)
+    before = K.launch_counts()
+    got = K.blur(x.to(cuda), taps)
+    assert torch.equal(got, K.blur(x.to(cuda), taps))
+    assert_image_kernel_close(got, K.blur_plain(x, taps), dt)
+    torch.cuda.synchronize()
+    name = "blur" if dt == torch.float32 else "blur_bf16"
+    assert K.launch_counts()[name] == before[name] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("taps", TAPS)
+def test_blur_smallest_images_on_card(cuda, dtype, taps):
+    """K1 at H or W = R + 1, the least the wrapper takes: the reflected
+    rows and columns reach across the whole image."""
+    dt = getattr(torch, dtype)
+    r = len(taps) // 2
+    for shape in [(3, r + 1, r + 1), (2, r + 1, 97), (2, 131, r + 1), (1, 2, 2)]:
+        if min(shape[1:]) <= r:
+            continue
+        x = torch.tensor(images(27, *shape)).to(dt)
+        assert_image_kernel_close(K.blur(x.to(cuda), taps), K.blur_plain(x, taps), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", UNALIGNED + [(2, 64, 1800), (1, 1, 1), (2, 2, 133)])
+def test_warp_unaligned_rows_on_card(cuda, shape, dtype):
+    """K2 where rows are not 16-byte aligned and its 32x128 tile divides
+    neither side; bit-identical from call to call."""
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(28, *shape)).to(dt)
+    w = torch.tensor(warps(28, shape[0]))
+    got = K.warp_affine_banded(x.to(cuda), w.to(cuda))
+    assert torch.equal(got, K.warp_affine_banded(x.to(cuda), w.to(cuda)))
+    assert_image_kernel_close(got, K.warp_plain(x, w), dt, w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 1200, 131), (2, 1200, 1800)])
+def test_warp_large_shear_on_card(cuda, shape, dtype):
+    """K2 and K4's warped output on 1200-row frames whose corners a shear
+    moves by 2.9 px, within 2e-3 counts in f32."""
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(30, *shape)).to(dt)
+    w = torch.tensor(shear_warps(30, *shape))
+    got = K.warp_affine_banded(x.to(cuda), w.to(cuda))
+    assert torch.equal(got, K.warp_affine_banded(x.to(cuda), w.to(cuda)))
+    assert_image_kernel_close(got, K.warp_plain(x, w), dt, w.numpy())
+    _, iw = K.warp_filter(x.to(cuda), w.to(cuda), GAUSS[3], with_warped=True)
+    _, piw = K.warp_filter_plain(x, w, GAUSS[3], True)
+    assert_image_kernel_close(iw, piw, dt, w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["scale", "translate", "flip"])
+def test_warp_global_route_on_card(cuda, kind, dtype):
+    shape = (2, 97, 131)
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(29, *shape)).to(dt)
+    w = torch.tensor(far_warps(shape[0], kind))
+    got = K.warp_affine_banded(x.to(cuda), w.to(cuda))
+    assert torch.equal(got, K.warp_affine_banded(x.to(cuda), w.to(cuda)))
+    assert_image_kernel_close(got, K.warp_plain(x, w), dt, w.numpy())
 
 
 @pytest.mark.cuda

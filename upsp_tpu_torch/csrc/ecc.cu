@@ -27,20 +27,25 @@
 // (K1), 36 (K2), 46 (K4), 61 (K3) and 97 (K9) flops a pixel once the
 // row- and column-constant work (sample positions, weights, the y factors
 // of the statistics) is taken out, against 67 TFLOP/s of f32; that holds
-// K9, and K3 in bf16.  K1, K2 and K9 as first written reach 10-28% of that
-// bound and run no faster in bf16 than in f32 (PERF.md): instruction work
-// per pixel, not HBM, holds them.  K3 and K4 are redesigned to take the
-// row- and column-constant work out of the pixel loops (their notes
-// below).  The design goal is one HBM pass per image and coalesced rows:
+// K9, and K3 in bf16.  As first written, K1-K4 and K9 reached 10-28% of
+// that bound and ran no faster in bf16 than in f32 (PERF.md): instruction
+// work per pixel, not HBM, held them.  K1-K4 are redesigned to take the
+// row- and column-constant work out of the pixel loops, stage each input
+// row once and store 16 bytes a lane (their notes below).  The design goal
+// is one HBM pass per image and coalesced rows:
 //
-//   - K1, K2 and K9 work on 32x32 (K9 32x128) output tiles with their halo
-//     staged in shared memory, so every input pixel is read from HBM once
-//     per tile and the separable passes run out of shared memory; K4 on
-//     32x128 tiles with per-row and per-column sampling tables.
+//   - K1 streams strips of rows through registers, 16 bytes of columns a
+//     thread; K3 stages strips of rows with cp.async; K2 and K4 work on
+//     32x128 output tiles with per-row and per-column sampling tables and
+//     their source window staged in shared memory (shared device
+//     functions); K9 on 32x128 tiles with its halo staged there.
 //   - K2, K4 and K9 sample their two tent taps per axis directly at the
 //     separable positions, so there is no band limit (the TPU kernel reads
-//     static row shifts within +-3 px; here any displacement is exact, and
-//     inside the band the result equals the TPU kernel's).
+//     static row shifts within +-3 px; here any displacement is sampled
+//     exactly, and inside the band the result equals the TPU kernel's).
+//     K2 and K4 round every operation of the resample and of the Taylor
+//     term as their plain twins do, so their warped values are the twins'
+//     to the bit at any shear.
 //   - K3 (and K9) write one f64 partial of the 42 statistics per block; a
 //     second small kernel sums the partials in a fixed order in f64: no
 //     float atomics, so the statistics (and with them the ECC telemetry
@@ -61,17 +66,13 @@
 
 namespace {
 
-constexpr int TILE_X = 32;
-constexpr int TILE_Y = 32;
+// K9 (and fill_sep): 32 x 8 threads
 constexpr int BLOCK_X = 32;
 constexpr int BLOCK_Y = 8;
 constexpr int NTHREADS = BLOCK_X * BLOCK_Y;
-constexpr int MAX_R = 3;  // taps <= 7
 
-// shared-memory pitches for the largest halo (+1 breaks bank conflicts)
-constexpr int SEP_P = TILE_X + 2 * MAX_R + 2 + 1;  // sep tile (+1 px ring)
-constexpr int WRP_P = TILE_X + 2 * MAX_R + 1;  // warped/blur input tile
-constexpr int WRP_ROWS = TILE_Y + 2 * MAX_R;
+// K1: threads a block, each owning 16 bytes of output columns (blur_kernel)
+constexpr int BLUR_THREADS = 128;
 
 // K3: a block owns a strip of MOM_ROWS rows and at most MOM_MAX_COLS
 // columns of one frame (mom_grid).  37 rows: the 8 frames x 33 strips of
@@ -89,10 +90,13 @@ constexpr int MOM_IMG_SLOTS = MOM_GROUPS + 1;
 constexpr int MOM_TMPL_SLOTS = MOM_GROUPS;
 constexpr int NSTAT = 42;
 
-// K4: output tile, one warp per row group
+// K2 and K4: output tile, one warp per row group
 constexpr int WF_TX = 128;
 constexpr int WF_TY = 32;
 constexpr int WF_WARPS = 8;
+// at most 48 registers a thread, so that five blocks fit an SM (their
+// shared memory is sized for five)
+constexpr int WF_BLOCKS_PER_SM = 5;
 
 struct Taps {
   float t[7];
@@ -132,6 +136,108 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return i;
 }
 
+// cp.async: 16-byte global -> shared copies that bypass the registers
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's latest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+// src's element offset within its 16-byte line
+template <typename T>
+__device__ __forceinline__ int line_offset(const T* src) {
+  return (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+}
+
+// Stage n elements from `src` (any element alignment) into the 16-byte
+// aligned slot `dst`, by a block of MOM_THREADS: element e lands at
+// dst[line_offset(src) + e], so the body goes as 16-byte cp.async copies
+// and the head and tail (under 16 bytes each) element by element.
+template <typename T>
+__device__ __forceinline__ void stage_row(T* dst, const T* src, int n,
+                                          int tid) {
+  constexpr int V = 16 / sizeof(T);
+  const int mis = line_offset(src);
+  const int head = min((V - mis) % V, n);
+  const int nvec = (n - head) / V;
+  const int tail = n - head - nvec * V;
+  T* d = dst + mis;
+  if (tid < head) {
+    d[tid] = src[tid];
+  } else if (tid < head + tail) {
+    const int e = head + nvec * V + (tid - head);
+    d[e] = src[e];
+  }
+  for (int v = tid; v < nvec; v += MOM_THREADS) {
+    cp_async16(d + head + v * V, src + head + v * V);
+  }
+}
+
+// the staged copy of `src` (stage_row's): p[e] is src[e]
+template <typename T>
+__device__ __forceinline__ const T* staged(const T* slot, const T* src) {
+  return slot + line_offset(src);
+}
+
+// Store n values of one image row: lane l of a warp writes values [V l,
+// V l + V) with one 16-byte store (V = 4 f32 or 8 bf16) where `dst` is
+// 16-byte aligned, reading them with vec(j, v); else one value a lane,
+// scalar(j).  Both compute in f32; a bf16 store rounds once.
+__device__ __forceinline__ void st_vec(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+__device__ __forceinline__ void st_vec(bf16* dst, const float* v) {
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
+                 bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
+}
+
+template <typename T, typename Scalar, typename Vec>
+__device__ __forceinline__ void write_row(T* dst, int n, int lane,
+                                          Scalar scalar, Vec vec) {
+  constexpr int V = 16 / sizeof(T);
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int nvec = n / V;
+    for (int k = lane; k < nvec; k += 32) {
+      float v[V];
+      vec(k * V, v);
+      st_vec(dst + k * V, v);
+    }
+    const int j = nvec * V + lane;
+    if (j < n) stf(dst + j, scalar(j));
+  } else {
+    for (int j = lane; j < n; j += 32) stf(dst + j, scalar(j));
+  }
+}
+
+// N consecutive f32 values from 16-byte aligned `p` into v
+template <int N>
+__device__ __forceinline__ void ld_run(const float* p, float* v) {
+#pragma unroll
+  for (int e = 0; e < N; e += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p + e);
+    v[e] = q.x;
+    v[e + 1] = q.y;
+    v[e + 2] = q.z;
+    v[e + 3] = q.w;
+  }
+}
+
 // Separable resample at source position (ys, xs): the tent taps
 // floor(p), floor(p)+1 per axis, rows first, zero outside the image
 // (BORDER_CONSTANT) -- R @ img @ C^T of ops/warp.py, one entry.
@@ -168,39 +274,49 @@ __device__ __forceinline__ float sep_value(const T* __restrict__ img, int H,
   return out;
 }
 
-// The order-2 shear Taylor correction at image pixel (r, c) from the 3x3
-// neighbourhood of the separable image centred at s[0] (row pitch p).
-// Derivatives are zero on the outer ring: gx/gxx at columns 0 and W-1,
-// gy/gyy at rows 0 and H-1, gxy on the whole ring (ops/warp.py:170-197).
-__device__ __forceinline__ float taylor(const float* s, int p, int r, int c,
-                                        const WarpP& w, int H, int W) {
-  const float cy = (H - 1) * 0.5f;
-  const float cx = (W - 1) * 0.5f;
-  const float inv_ax = 1.f / w.a00;
-  const float inv_ay = 1.f / w.a11;
-  const float v = s[0];
-  const bool ex = (c > 0) && (c < W - 1);
-  const bool ey = (r > 0) && (r < H - 1);
-  float gx = 0.f, gxx = 0.f, gy = 0.f, gyy = 0.f, gxy = 0.f;
-  if (ex) {
-    const float rt = s[1], lf = s[-1];
-    gx = 0.5f * (rt - lf) * inv_ax;
-    gxx = (rt - 2.f * v + lf) * inv_ax * inv_ax;
-  }
-  if (ey) {
-    const float dn = s[p], up = s[-p];
-    gy = 0.5f * (dn - up) * inv_ay;
-    gyy = (dn - 2.f * v + up) * inv_ay * inv_ay;
-  }
-  if (ex && ey) {
-    gxy = 0.25f * (s[p + 1] - s[p - 1] - s[-p + 1] + s[-p - 1]) * inv_ax *
-          inv_ay;
-  }
-  const float dx = w.a01 * ((float)r - cy);  // row-varying x displacement
-  const float dy = w.a10 * ((float)c - cx);  // column-varying y displacement
-  float out = v + dx * gx + dy * gy;
-  out = out + 0.5f * dx * dx * gxx + dx * dy * gxy + 0.5f * dy * dy * gyy;
-  return out;
+// The order-2 shear Taylor term of one warped pixel from the 3x3
+// neighbourhood of the separable image (rows u, m, d; columns l, c, r),
+// its row's x displacement dx = a01 (y - cy) and hdx2 = 0.5 dx dx, its
+// column's dy = a10 (x - cx) and hdy2, and 1/a00, 1/a11.  Derivatives are
+// zero on the outer ring: gx/gxx where !ex (columns 0 and W-1), gy/gyy
+// where !ey (rows 0 and H-1), gxy on the whole ring (ops/warp.py:170-197).
+// Every operation is rounded on its own, in the plain twin's order
+// (_warp_f32): at a few pixels of shear the terms reach thousands of counts
+// and cancel, so another order, a factored form or an FMA moves the sum by
+// several ulps of those terms (2e-3 counts and more on 1200-row frames).
+__device__ __forceinline__ float taylor_px(float ul, float uc, float ur,
+                                           float ml, float mc, float mr,
+                                           float dl, float dc, float dr,
+                                           float dx, float hdx2, bool ey,
+                                           float dy, float hdy2, bool ex,
+                                           float inv_ax, float inv_ay) {
+  const float gx =
+      ex ? __fmul_rn(__fmul_rn(0.5f, __fsub_rn(mr, ml)), inv_ax) : 0.f;
+  const float gxx = ex ? __fmul_rn(__fmul_rn(__fadd_rn(__fsub_rn(mr, 2.f * mc),
+                                                       ml),
+                                             inv_ax),
+                                   inv_ax)
+                       : 0.f;
+  const float gy =
+      ey ? __fmul_rn(__fmul_rn(0.5f, __fsub_rn(dc, uc)), inv_ay) : 0.f;
+  const float gyy = ey ? __fmul_rn(__fmul_rn(__fadd_rn(__fsub_rn(dc, 2.f * mc),
+                                                       uc),
+                                             inv_ay),
+                                   inv_ay)
+                       : 0.f;
+  const float hxy = __fadd_rn(__fsub_rn(__fsub_rn(dr, dl), ur), ul);
+  const float gxy =
+      (ex && ey) ? __fmul_rn(__fmul_rn(__fmul_rn(0.25f, hxy), inv_ax), inv_ay)
+                 : 0.f;
+  float out = __fadd_rn(__fadd_rn(mc, __fmul_rn(dx, gx)), __fmul_rn(dy, gy));
+  out = __fadd_rn(out, __fmul_rn(hdx2, gxx));
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(dx, dy), gxy));
+  return __fadd_rn(out, __fmul_rn(hdy2, gyy));
+}
+
+// 0.5 d d as the plain twin rounds it
+__device__ __forceinline__ float half_sq(float d) {
+  return __fmul_rn(__fmul_rn(0.5f, d), d);
 }
 
 // Fill a shared tile with the separable image over rows [r0, r0+ny) and
@@ -226,162 +342,186 @@ __device__ __forceinline__ void fill_sep(float* sep, int pitch, int r0,
   }
 }
 
-// Separable filter of a staged (TILE_Y+2r) x (TILE_X+2r) tile: vertical
-// pass into `vbuf`, then the horizontal pass straight to `out`.
-template <typename T>
-__device__ __forceinline__ void filter_tile(const float* src, float* vbuf,
-                                            const Taps& taps, int ty0,
-                                            int tx0, int H, int W,
-                                            T* __restrict__ out) {
-  const int r = taps.k / 2;
-  const int nx = TILE_X + 2 * r;
-  const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
-  for (int i = tid; i < TILE_Y * nx; i += NTHREADS) {
-    const int ly = i / nx;
-    const int lx = i - ly * nx;
-    float acc = 0.f;
-    for (int j = 0; j < taps.k; ++j) {
-      acc += taps.t[j] * src[(ly + j) * WRP_P + lx];
-    }
-    vbuf[ly * WRP_P + lx] = acc;
-  }
-  __syncthreads();
-  for (int ly = threadIdx.y; ly < TILE_Y; ly += BLOCK_Y) {
-    const int lx = threadIdx.x;
-    const int y = ty0 + ly;
-    const int x = tx0 + lx;
-    if (y < H && x < W) {
-      float acc = 0.f;
-      for (int j = 0; j < taps.k; ++j) {
-        acc += taps.t[j] * vbuf[ly * WRP_P + lx + j];
-      }
-      stf(out + (size_t)y * W + x, acc);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1: separable reflect-101 blur, <= 7 taps.
 // Replaces _blur_kernel (pallas_ecc.py:779, via _blur_batched :829).
-// Bound: 8 B/pixel of HBM traffic.  Design: a 32x32 tile plus its r-pixel
-// reflected halo is read once into shared memory; both passes run there.
+// Bound: 8 B/pixel of HBM traffic in f32, 4 in bf16, 18 flops.  Design: a
+// thread owns V adjacent output columns (4 f32 or 8 bf16: one 16-byte
+// store) of a strip of `strip` rows of one frame; a block is BLUR_THREADS
+// such threads side by side.  The thread streams the strip's input rows --
+// its rows and R rows above and below, reflected when the row index is
+// chosen -- top to bottom, two rows' loads in flight at a time: per row the
+// three aligned 16-byte vectors around its columns (its neighbours' loads
+// of the same lines hit L1), or, within R of the row's ends and on rows
+// that are not 16-byte aligned, element by element with reflect-101 at the
+// ends.  It filters each row horizontally into V values, keeps the last
+// 2R+1 filtered rows in registers and sums them vertically into its output
+// row: no shared memory and no barrier.  Horizontal, then vertical, each
+// summed from tap 0 upwards: the plain twin's order.  Templated on R, so
+// the tap loops unroll and the ring and the taps stay in registers.  The
+// strip height makes the grid one wave of resident blocks (launch_blur_r);
+// an output pixel's arithmetic does not depend on it.  Staging each row in
+// shared memory with cp.async and keeping the filtered ring there (one
+// barrier a row) measured slower at every shape and type (PERF.md).
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
+// 16 bytes at 16-byte aligned p, widened to f32
+__device__ __forceinline__ void ld_vec(const float* p, float* v) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void ld_vec(const bf16* p, float* v) {
+  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// reflect-101 of any column index into [0, n) (columns past a partial last
+// group are computed and never stored)
+__device__ __forceinline__ int reflect_any(int i, int n) {
+  return reflect101(min(max(i, -(n - 1)), 2 * (n - 1)), n);
+}
+
+// the M = V + 2R input values of row `row` that columns [c, c + V) read:
+// run[i] is column c - R + i
+template <typename T, int M>
+__device__ __forceinline__ void blur_run(const T* row, int c, int W,
+                                         bool fast, float* run) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int R = (M - V) / 2;
+  if (fast) {  // columns [c - V, c + 2V) lie in the row, 16-byte aligned
+    float q[3 * V];
+    ld_vec(row + c - V, q);
+    ld_vec(row + c, q + V);
+    ld_vec(row + c + V, q + 2 * V);
+#pragma unroll
+    for (int i = 0; i < M; ++i) run[i] = q[V - R + i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) run[i] = ldf(row + reflect_any(c - R + i, W));
+  }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(BLUR_THREADS)
 blur_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W,
-            Taps taps) {
-  __shared__ float tile[WRP_ROWS * WRP_P];
-  __shared__ float vbuf[TILE_Y * WRP_P];
+            int strip, Taps taps) {
+  constexpr int K = 2 * R + 1;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int M = V + 2 * R;
+  const int c = (blockIdx.x * BLUR_THREADS + threadIdx.x) * V;
+  if (c >= W) return;
+  const int y0 = blockIdx.y * strip;
+  const int nrows = min(strip, H - y0);
   const int b = blockIdx.z;
-  const int ty0 = blockIdx.y * TILE_Y;
-  const int tx0 = blockIdx.x * TILE_X;
   const T* img = in + (size_t)b * H * W;
-  const int r = taps.k / 2;
-  const int ny = TILE_Y + 2 * r;
-  const int nx = TILE_X + 2 * r;
-  const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
-  for (int i = tid; i < ny * nx; i += NTHREADS) {
-    const int ly = i / nx;
-    const int lx = i - ly * nx;
-    const int y = ty0 - r + ly;
-    const int x = tx0 - r + lx;
-    float v = 0.f;
-    // rows/columns past the last tile's ragged edge are never read by a
-    // written output; everything else mirrors reflect-101
-    if (y < H + r && x < W + r) {
-      v = ldf(img + (size_t)reflect101(y, H) * W + reflect101(x, W));
-    }
-    tile[ly * WRP_P + lx] = v;
-  }
-  __syncthreads();
-  filter_tile(tile, vbuf, taps, ty0, tx0, H, W, out + (size_t)b * H * W);
-}
-
-// ---------------------------------------------------------------------------
-// K2: out(y, x) = img(W @ [x, y, 1]), separable tent resample + order-2
-// shear Taylor correction, zero outside the image.
-// Replaces _warp_kernel (pallas_ecc.py:253, via _warp_banded_batched :285).
-// Bound: 8 B/pixel; the four tap reads per separable sample hit L1/L2
-// (neighbouring threads read neighbouring pixels).  Design: the separable
-// image of the tile and a 1-pixel ring is computed once into shared
-// memory, so the Taylor term's 3x3 differences cost no further samples.
-
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-warp_kernel(const T* __restrict__ in, const float* __restrict__ warps,
-            T* __restrict__ out, int H, int W) {
-  __shared__ float sep[(TILE_Y + 2) * SEP_P];
-  const int b = blockIdx.z;
-  const int ty0 = blockIdx.y * TILE_Y;
-  const int tx0 = blockIdx.x * TILE_X;
-  const T* img = in + (size_t)b * H * W;
-  const WarpP w = load_warp(warps, b);
-  fill_sep(sep, SEP_P, ty0 - 1, tx0 - 1, TILE_Y + 2, TILE_X + 2, img, H, W,
-           w);
-  __syncthreads();
   T* o = out + (size_t)b * H * W;
-  for (int ly = threadIdx.y; ly < TILE_Y; ly += BLOCK_Y) {
-    const int lx = threadIdx.x;
-    const int y = ty0 + ly;
-    const int x = tx0 + lx;
-    if (y < H && x < W) {
-      stf(o + (size_t)y * W + x,
-          taylor(sep + (ly + 1) * SEP_P + lx + 1, SEP_P, y, x, w, H, W));
+  float t[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) t[k] = taps.t[k];
+  const bool inner = c >= V && c + 2 * V <= W;
+  const bool full = c + V <= W;
+  float ring[K][V];  // the last K filtered rows, oldest first
+  const int nr = nrows + 2 * R;  // input row j is image row y0 - R + j
+  for (int j0 = 0; j0 < nr; j0 += 2) {
+    float run[2][M];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const T* row =
+          img + (size_t)reflect101(y0 - R + min(j0 + u, nr - 1), H) * W;
+      const bool fast =
+          inner && (reinterpret_cast<uintptr_t>(row + c) & 15) == 0;
+      blur_run<T, M>(row, c, W, fast, run[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + u;
+      if (j >= nr) break;
+#pragma unroll
+      for (int k = 0; k < K - 1; ++k) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) ring[k][e] = ring[k + 1][e];
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float acc = t[0] * run[u][e];
+#pragma unroll
+        for (int k = 1; k < K; ++k) acc += t[k] * run[u][e + k];
+        ring[K - 1][e] = acc;
+      }
+      if (j < 2 * R) continue;
+      float v[V];  // output row y0 + j - 2R
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        v[e] = t[0] * ring[0][e];
+#pragma unroll
+        for (int k = 1; k < K; ++k) v[e] += t[k] * ring[k][e];
+      }
+      T* dst = o + (size_t)(y0 + j - 2 * R) * W + c;
+      if (full && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        st_vec(dst, v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if (c + e < W) stf(dst + e, v[e]);
+        }
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K4: K2 then K1's reflect-101 filter of the WARPED image, one pass; the
-// optional second output is the pre-filter warped image.
-// Replaces _warp_filter_kernel (pallas_ecc.py:367, via _warp_filter_batched
-// :444).  Bound: 8 B/pixel (12 with the warped output), 46 flops/pixel.
-// Design: a block owns a WF_TY x WF_TX output tile (32 x 128), eight warps
-// each taking whole rows, in five shared-memory stages:
-//   1. tables: per separable row and column the two tent taps (index
-//      clamped into the image, weight 0 where the tap is outside, as the
-//      plain twin's _tent_pair), per warped row and column the reflected
-//      sample's separable offset, its Taylor factors (WarpedAt) and its
-//      edge flag -- each once per block, with K2's rounded affine_pos and
-//      floorf, so no position is computed per pixel;
-//   2. the source window the taps read, staged with coalesced loads (each
-//      thread issues all of its loads before it stores any) when it fits
-//      the block's budget (|a00|, |a11| up to ~1.02);
-//      otherwise stage 3 reads the taps from global memory, in this kernel;
-//   3. the separable image over the tile plus an R+1 ring, rows first, then
-//      columns (sep_value's order);
-//   4. the warped image over the tile plus an R ring (taylor's terms, from
-//      the tables' factors; the ring beyond the image reflects the warped
-//      image, pallas_ecc.py:406-437);
-//   5. the horizontal filter pass (the plain twin's order), then the
-//      vertical pass straight to the output, 16-byte stores where a row is
-//      16-byte aligned (4 f32 or 8 bf16 pixels a lane), else one pixel a
-//      lane; the warped output leaves stage 4 the same way.
-// The stages share two regions: A holds the source window, then the warped
-// tile; B the separable tile, then the horizontal pass.  Templated on the
-// filter radius R, so every tap loop unrolls.
+// The separable image of an output tile, shared by K2 and K4.
+//
+// A block owns a WF_TY x WF_TX output tile (32 x 128, eight warps) and
+// needs the separable image (R @ img @ C^T of ops/warp.py) over the tile
+// plus a ring of R+1 pixels (R: K4's filter radius; 0 for K2):
+//   - sep_window: the source rows and columns its tent taps read.  A
+//     sample position is affine in the row (column) index and rounded
+//     monotonically (affine_pos), and tent's taps are monotone in the
+//     position, so the span follows from the first and last separable row
+//     and column alone, before any table exists;
+//   - stage_window: if the span fits the budget (|a00|, |a11| up to
+//     ~1.02), its rows go to shared memory as 16-byte cp.async copies (the
+//     unaligned head and tail element by element), in flight while the
+//     block builds its tables; otherwise the taps read global memory, in
+//     the same kernel;
+//   - tent_table: per separable row and column the two tent taps (index
+//     clamped into the image, weight 0 where the tap is outside, as the
+//     plain twin's _tent_pair), as offsets into the staged window or the
+//     image, each once per block with K2's rounded affine_pos and floorf,
+//     so no position is computed per pixel;
+//   - sep_tile: the separable image, rows first, then columns, each
+//     product and sum rounded on its own (the plain twin's order);
+//   - taylor_px: the order-2 shear Taylor term of one warped pixel from its
+//     3x3 separable neighbourhood and its row's and column's displacements
+//     (WarpedAt), formed once per row and column.
+// The separable tile and the warped values are thus the twin's to the bit.
 
 struct __align__(16) Tent {  // one separable row's (column's) tent taps
   int i0, i1;
   float w0, w1;
 };
 
-// One warped row's (column's) Taylor factors.  For a row at image row r
-// (reflected) with dx = a01 (r - cy): d1 = dx / (2 a00), d2 = dx^2 /
-// (2 a00^2), so that dx gx = d1 (s[c+1] - s[c-1]) and dx^2 gxx / 2 = d2
-// (s[c+1] + s[c-1] - 2 s[c]); a column likewise with dy = a10 (c - cx)
-// and a11.  `edge` says the derivatives across this row (column) exist:
-// taylor's ey for a row, ex for a column.
+// One warped row's (column's) displacement for taylor_px: for a row at
+// image row r, d = dx = a01 (r - cy) and dd = 0.5 dx dx; a column likewise
+// with dy = a10 (c - cx).  `edge` says the derivatives across this row
+// (column) exist: taylor_px's ey for a row, ex for a column.  `off` is K4's
+// separable-tile offset of the row (column) its reflected ring reads.
 struct __align__(16) WarpedAt {
-  int off;  // separable-tile offset of the reflected row (column)
-  float d1, d2;
+  int off;
+  float d, dd;
   int edge;
 };
 
-__device__ __forceinline__ WarpedAt warped_at(int off, float d, float inv_a,
-                                              bool edge) {
-  const float h = 0.5f * d * inv_a;
-  return {off, h, h * d * inv_a, edge};
+__device__ __forceinline__ WarpedAt warped_at(int off, float d, bool edge) {
+  return {off, d, half_sq(d), edge};
 }
 
 // the tent taps of position p over [0, n), zero outside (sep_value's)
@@ -403,11 +543,325 @@ __device__ __forceinline__ Tent tent(float p, int n) {
   return t;
 }
 
-template <int R>
+// separable row r's and column c's taps (fill_sep's positions)
+__device__ __forceinline__ Tent row_tent(const WarpP& w, int r, int H,
+                                         int W) {
+  return tent(affine_pos(w.a11, (float)r, w.ty, w.a10, (W - 1) * 0.5f), H);
+}
+__device__ __forceinline__ Tent col_tent(const WarpP& w, int c, int H,
+                                         int W) {
+  return tent(affine_pos(w.a00, (float)c, w.tx, w.a01, (H - 1) * 0.5f), W);
+}
+
+// The separable tile's shapes for filter radius R and the staged window's
+// budget: the tile plus the slack of |a00|, |a11| up to ~1.02 (more slack
+// costs residency), each row in whole 16-byte lines with room for its
+// line offset.
+template <typename T, int R>
+struct SepLayout {
+  static constexpr int ROWS = WF_TY + 2 * R + 2;
+  static constexpr int COLS = WF_TX + 2 * R + 2;
+  static constexpr int SRC_ROWS = ROWS + 2;
+  static constexpr int SRC_COLS = COLS + 4;
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int SRC_P = (SRC_COLS + 2 * (V - 1)) / V * V;
+  static constexpr int SRC_BYTES = SRC_ROWS * SRC_P * (int)sizeof(T);
+};
+
+struct Window {
+  int y0, x0;  // the first source row and column
+  int nr, nc;  // rows and columns
+  bool smem;   // staged in shared memory
+};
+
+template <typename L>
+__device__ __forceinline__ Window sep_window(const WarpP& w, int H, int W,
+                                             int sr0, int nys, int sc0,
+                                             int nxs) {
+  const Tent r0 = row_tent(w, sr0, H, W);
+  const Tent r1 = row_tent(w, sr0 + nys - 1, H, W);
+  const Tent c0 = col_tent(w, sc0, H, W);
+  const Tent c1 = col_tent(w, sc0 + nxs - 1, H, W);
+  Window win;
+  win.y0 = min(r0.i0, r1.i0);
+  win.x0 = min(c0.i0, c1.i0);
+  win.nr = max(r0.i1, r1.i1) - win.y0 + 1;
+  win.nc = max(c0.i1, c1.i1) - win.x0 + 1;
+  win.smem = win.nr <= L::SRC_ROWS && win.nc <= L::SRC_COLS;
+  return win;
+}
+
+// The window's rows into `src` (pitch L::SRC_P), one warp a row, each as
+// stage_row lays it out: the 16-byte body as cp.async copies, one group per
+// thread; the unaligned head and tail element by element, every row's
+// loads issued before any of them is stored, so a warp waits for global
+// memory once and not once a row.
+template <typename L, typename T>
+__device__ __forceinline__ void stage_window(T* src, const T* img, int W,
+                                             const Window& win, int wid,
+                                             int lane) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int ROWS = (L::SRC_ROWS + WF_WARPS - 1) / WF_WARPS;  // a warp's
+  T edge[ROWS];  // this lane's head or tail element of each of its rows
+  int at[ROWS];  // its index in the row, -1 for none
+#pragma unroll
+  for (int m = 0; m < ROWS; ++m) {
+    const int i = wid + m * WF_WARPS;
+    at[m] = -1;
+    if (i >= win.nr) continue;
+    const T* s = img + (size_t)(win.y0 + i) * W + win.x0;
+    T* d = src + i * L::SRC_P + line_offset(s);
+    const int head = min((V - line_offset(s)) % V, win.nc);
+    const int nvec = (win.nc - head) / V;
+    const int tail = win.nc - head - nvec * V;
+    for (int v = lane; v < nvec; v += 32) {
+      cp_async16(d + head + v * V, s + head + v * V);
+    }
+    if (lane < head + tail) {
+      at[m] = lane < head ? lane : nvec * V + lane;
+      edge[m] = s[at[m]];
+    }
+  }
+  cp_async_commit();
+#pragma unroll
+  for (int m = 0; m < ROWS; ++m) {
+    if (at[m] < 0) continue;
+    const T* s = img + (size_t)(win.y0 + wid + m * WF_WARPS) * W + win.x0;
+    src[(wid + m * WF_WARPS) * L::SRC_P + line_offset(s) + at[m]] = edge[m];
+  }
+}
+
+// One warp: the tent taps of n separable rows (or columns) from s0 on, as
+// offsets into the staged window -- a row's includes its line offset --
+// or, off the window, into the image.  Clamping into the window changes
+// nothing for finite warps (the window spans every tap).
+template <typename L, typename T>
+__device__ __forceinline__ void tent_table(Tent* table, bool rows, int s0,
+                                           int n, const WarpP& w, int H,
+                                           int W, const T* img,
+                                           const Window& win, int lane) {
+  for (int i = lane; i < n; i += 32) {
+    Tent t = rows ? row_tent(w, s0 + i, H, W) : col_tent(w, s0 + i, H, W);
+    if (win.smem && rows) {
+      auto off = [&](int r) {
+        r = min(max(r, win.y0), win.y0 + win.nr - 1);
+        return (r - win.y0) * L::SRC_P +
+               line_offset(img + (size_t)r * W + win.x0);
+      };
+      t.i0 = off(t.i0);
+      t.i1 = off(t.i1);
+    } else if (win.smem) {
+      t.i0 = min(max(t.i0, win.x0), win.x0 + win.nc - 1) - win.x0;
+      t.i1 = min(max(t.i1, win.x0), win.x0 + win.nc - 1) - win.x0;
+    } else if (rows) {
+      t.i0 *= W;
+      t.i1 *= W;
+    }
+    table[i] = t;
+  }
+}
+
+// The separable image of rows [0, nys) and columns [0, nxs) of the tables
+// into S (row i, column j at S[i * SP + j]): lane l of every warp takes the
+// columns l, l + 32, ..., each column's taps read once, and the warps split
+// the rows (a row's taps are the same for the whole warp, one broadcast).
+template <typename Tap>
+__device__ __forceinline__ void sep_tile(float* S, int SP, const Tent* srow,
+                                         const Tent* scol, int nys, int nxs,
+                                         int lane, int wid, Tap tap) {
+  for (int j = lane; j < nxs; j += 32) {
+    const Tent rx = scol[j];
+    for (int i = wid; i < nys; i += WF_WARPS) {
+      const Tent ry = srow[i];
+      const float t0 = __fadd_rn(__fmul_rn(ry.w0, tap(ry.i0 + rx.i0)),
+                                 __fmul_rn(ry.w1, tap(ry.i1 + rx.i0)));
+      const float t1 = __fadd_rn(__fmul_rn(ry.w0, tap(ry.i0 + rx.i1)),
+                                 __fmul_rn(ry.w1, tap(ry.i1 + rx.i1)));
+      S[i * SP + j] = __fadd_rn(__fmul_rn(rx.w0, t0), __fmul_rn(rx.w1, t1));
+    }
+  }
+}
+
+// the separable tile from the staged window or, off it, from the image
+template <typename T>
+__device__ __forceinline__ void sep_tile_from(float* S, int SP,
+                                              const Tent* srow,
+                                              const Tent* scol, int nys,
+                                              int nxs, int lane, int wid,
+                                              const Window& win, const T* src,
+                                              const T* img) {
+  if (win.smem) {
+    sep_tile(S, SP, srow, scol, nys, nxs, lane, wid,
+             [&](int k) { return to_f(src[k]); });
+  } else {
+    sep_tile(S, SP, srow, scol, nys, nxs, lane, wid,
+             [&](int k) { return ldf(img + k); });
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2: out(y, x) = img(W @ [x, y, 1]), separable tent resample + order-2
+// shear Taylor correction, zero outside the image; derivatives are zero on
+// the image's outer ring (taylor_px's).
+// Replaces _warp_kernel (pallas_ecc.py:253, via _warp_banded_batched :285).
+// Bound: 8 B/pixel in f32, 4 in bf16, 36 flops.  Design: K4's stages 1-2
+// at R = 0 -- the window's span from the tile's ends, its cp.async copies
+// in flight while the tent tables are built, the separable tile plus a
+// 1-pixel ring in shared memory -- then the warped value of each output
+// pixel in registers and straight to HBM: lane l of a group of G lanes
+// owns the tile's columns [V l, V l + V) (4 f32 or 8 bf16 pixels, one
+// 16-byte store), reads three 16-byte runs of the separable tile and takes
+// the columns beside them from its neighbours by shuffle; the row's
+// displacement once per row, the column's from its index (no division, no
+// position).  Shared memory reads, not bytes or flops, set the pace of this
+// stage, hence the shuffles.  No warped tile, no third barrier; rows that
+// are not 16-byte aligned and a partial last tile go one pixel a lane.
+// Shared memory: 41.3 KB in f32, 31.5 KB in bf16.
+
+template <typename T>
+struct WarpLayout {
+  using S = SepLayout<T, 0>;
+  // separable column j at SEP_OFF + j: output pixel x's column (j = x + 1)
+  // is then 16-byte aligned where x is a multiple of 4
+  static constexpr int SEP_OFF = 3;
+  static constexpr int SEP_P = (SEP_OFF + S::COLS + 3) / 4 * 4;
+  static constexpr int SRC_FLOATS = (S::SRC_BYTES + 15) / 16 * 4;
+  static constexpr size_t BYTES =
+      sizeof(float) * (SRC_FLOATS + S::ROWS * SEP_P) +
+      sizeof(Tent) * (S::ROWS + S::COLS);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(32 * WF_WARPS, WF_BLOCKS_PER_SM)
+warp_kernel(const T* __restrict__ in, const float* __restrict__ warps,
+            T* __restrict__ out, int H, int W) {
+  using L = WarpLayout<T>;
+  using S = typename L::S;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int G = WF_TX / V;  // lanes per output row
+  constexpr int RPW = 32 / G;   // output rows per warp and pass
+  extern __shared__ __align__(16) float w_smem[];
+  T* src = reinterpret_cast<T*>(w_smem);
+  float* sep = w_smem + L::SRC_FLOATS;
+  Tent* srow = reinterpret_cast<Tent*>(sep + S::ROWS * L::SEP_P);
+  Tent* scol = srow + S::ROWS;
+
+  const int lane = threadIdx.x;
+  const int wid = threadIdx.y;
+  const int b = blockIdx.z;
+  const int ty0 = blockIdx.y * WF_TY;
+  const int tx0 = blockIdx.x * WF_TX;
+  const int ty_n = min(WF_TY, H - ty0);
+  const int tx_n = min(WF_TX, W - tx0);
+  const int nys = ty_n + 2;  // separable rows [ty0-1, ty0+ty_n+1)
+  const int nxs = tx_n + 2;
+  const T* img = in + (size_t)b * H * W;
+  const WarpP w = load_warp(warps, b);
+  const float cy = (H - 1) * 0.5f;
+  const float cx = (W - 1) * 0.5f;
+
+  // 1. the window's copies, then the tables while they fly
+  const Window win = sep_window<S>(w, H, W, ty0 - 1, nys, tx0 - 1, nxs);
+  if (win.smem) stage_window<S>(src, img, W, win, wid, lane);
+  if (wid < 2) {
+    tent_table<S>(wid == 0 ? srow : scol, wid == 0, wid == 0 ? ty0 - 1 : tx0 - 1,
+                  wid == 0 ? nys : nxs, w, H, W, img, win, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. the separable tile
+  float* s0 = sep + L::SEP_OFF;
+  sep_tile_from(s0, L::SEP_P, srow, scol, nys, nxs, lane, wid, win, src, img);
+  __syncthreads();
+
+  // 3. the warped rows, straight to the output
+  const float inv_ax = 1.f / w.a00;
+  const float inv_ay = 1.f / w.a11;
+  const int l = lane % G;
+  const unsigned group = (0xffffffffu >> (32 - G)) << (lane - l);
+  auto px = [&](int j, float ul, float uc, float ur, float ml, float mc,
+                float mr, float dl, float dc, float dr, const WarpedAt& rf) {
+    const int x = tx0 + j;
+    const float dy = w.a10 * ((float)x - cx);
+    return taylor_px(ul, uc, ur, ml, mc, mr, dl, dc, dr, rf.d, rf.dd, rf.edge,
+                     dy, half_sq(dy), (x > 0) && (x < W - 1), inv_ax, inv_ay);
+  };
+  T* o = out + (size_t)b * H * W;
+  for (int ly = wid * RPW + lane / G; ly < ty_n; ly += WF_WARPS * RPW) {
+    const int y = ty0 + ly;
+    const WarpedAt rf =
+        warped_at(0, w.a01 * ((float)y - cy), (y > 0) && (y < H - 1));
+    const float* m = s0 + (ly + 1) * L::SEP_P + 1;  // output column 0
+    const float* u = m - L::SEP_P;
+    const float* d = m + L::SEP_P;
+    T* dst = o + (size_t)y * W + tx0;
+    if (tx_n == WF_TX && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      // columns j - 1 .. j + V of the three rows; the two outer ones from
+      // the neighbouring lanes, or, at the group's ends, shared memory
+      const int j = l * V;
+      float U[V + 2], M[V + 2], D[V + 2];
+      ld_run<V>(u + j, U + 1);
+      ld_run<V>(m + j, M + 1);
+      ld_run<V>(d + j, D + 1);
+      U[0] = __shfl_up_sync(group, U[V], 1, G);
+      M[0] = __shfl_up_sync(group, M[V], 1, G);
+      D[0] = __shfl_up_sync(group, D[V], 1, G);
+      U[V + 1] = __shfl_down_sync(group, U[1], 1, G);
+      M[V + 1] = __shfl_down_sync(group, M[1], 1, G);
+      D[V + 1] = __shfl_down_sync(group, D[1], 1, G);
+      if (l == 0) {
+        U[0] = u[-1];
+        M[0] = m[-1];
+        D[0] = d[-1];
+      } else if (l == G - 1) {
+        U[V + 1] = u[WF_TX];
+        M[V + 1] = m[WF_TX];
+        D[V + 1] = d[WF_TX];
+      }
+      float v[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        v[e] = px(j + e, U[e], U[e + 1], U[e + 2], M[e], M[e + 1], M[e + 2],
+                  D[e], D[e + 1], D[e + 2], rf);
+      }
+      st_vec(dst + j, v);
+    } else {
+      for (int j = l; j < tx_n; j += G) {
+        stf(dst + j, px(j, u[j - 1], u[j], u[j + 1], m[j - 1], m[j], m[j + 1],
+                        d[j - 1], d[j], d[j + 1], rf));
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4: K2 then K1's reflect-101 filter of the WARPED image, one pass; the
+// optional second output is the pre-filter warped image.
+// Replaces _warp_filter_kernel (pallas_ecc.py:367, via _warp_filter_batched
+// :444).  Bound: 8 B/pixel (12 with the warped output), 46 flops/pixel.
+// Design: a block owns a WF_TY x WF_TX output tile (32 x 128), eight warps
+// each taking whole rows, in five shared-memory stages:
+//   1. the separable image's window (sep_window), its cp.async copies
+//      (stage_window) and, while they fly, the tables: the tent taps
+//      (tent_table) and per warped row and column the reflected sample's
+//      separable offset, its displacement (WarpedAt) and its edge flag;
+//   2. the separable image over the tile plus an R+1 ring (sep_tile);
+//   3. the warped image over the tile plus an R ring (taylor_px, from the
+//      tables' displacements; the ring beyond the image reflects the warped
+//      image, pallas_ecc.py:406-437);
+//   4. the horizontal filter pass (the plain twin's order), then the
+//      vertical pass straight to the output, 16-byte stores where a row is
+//      16-byte aligned (4 f32 or 8 bf16 pixels a lane), else one pixel a
+//      lane; the warped output leaves stage 3 the same way.
+// The stages share two regions: A holds the source window, then the warped
+// tile; B the separable tile, then the horizontal pass.  Templated on the
+// filter radius R, so every tap loop unrolls.
+
+template <typename T, int R>
 struct WfLayout {
-  static constexpr int SEP_ROWS = WF_TY + 2 * R + 2;
-  static constexpr int SEP_COLS = WF_TX + 2 * R + 2;
-  static constexpr int SEP_P = SEP_COLS;
+  using S = SepLayout<T, R>;
+  static constexpr int SEP_P = S::COLS;
   static constexpr int WRP_ROWS = WF_TY + 2 * R;
   static constexpr int WRP_COLS = WF_TX + 2 * R;
   // warped column j sits at WRP_OFF + j, so the tile's first column (j = R)
@@ -415,76 +869,36 @@ struct WfLayout {
   static constexpr int WRP_OFF = (4 - R % 4) % 4;
   static constexpr int WRP_P = (WRP_COLS + WRP_OFF + 3) / 4 * 4;
   static constexpr int HB_P = WF_TX + 4;
-  // the staged source window's budget: the separable tile plus the slack
-  // of |a00|, |a11| up to ~1.02 (the budget keeps five blocks on an SM at
-  // R = 1; more slack costs residency)
-  static constexpr int SRC_ROWS = SEP_ROWS + 2;
-  static constexpr int SRC_P = SEP_COLS + 4;
-  static constexpr int SRC_FLOATS = SRC_ROWS * SRC_P;
+  static constexpr int SRC_FLOATS = (S::SRC_BYTES + 3) / 4;
   static constexpr int A_FLOATS =
       ((SRC_FLOATS > WRP_ROWS * WRP_P ? SRC_FLOATS : WRP_ROWS * WRP_P) + 3) /
       4 * 4;  // B starts 16-byte aligned
-  static constexpr int B_RAW = (SEP_ROWS * SEP_P > WRP_ROWS * HB_P)
-                                   ? SEP_ROWS * SEP_P
+  static constexpr int B_RAW = (S::ROWS * SEP_P > WRP_ROWS * HB_P)
+                                   ? S::ROWS * SEP_P
                                    : WRP_ROWS * HB_P;
   static constexpr int B_FLOATS = (B_RAW + 3) / 4 * 4;
   static constexpr size_t BYTES =
       sizeof(float) * (A_FLOATS + B_FLOATS) +
-      sizeof(Tent) * (SEP_ROWS + SEP_COLS) +
+      sizeof(Tent) * (S::ROWS + S::COLS) +
       sizeof(WarpedAt) * (WRP_ROWS + WRP_COLS);
 };
 
-// Store n values of one image row: lane l of a warp writes values
-// [V l, V l + V) with one 16-byte store (V = 4 f32 or 8 bf16) where `dst` is
-// 16-byte aligned, reading them with vec(j, v); else one value a lane,
-// scalar(j).  Both compute in f32; a bf16 store rounds once.
-__device__ __forceinline__ void st_vec(float* dst, const float* v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-__device__ __forceinline__ void st_vec(bf16* dst, const float* v) {
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(bf16x2_bits(v[0], v[1]), bf16x2_bits(v[2], v[3]),
-                 bf16x2_bits(v[4], v[5]), bf16x2_bits(v[6], v[7]));
-}
-
-template <typename T, typename Scalar, typename Vec>
-__device__ __forceinline__ void write_row(T* dst, int n, int lane,
-                                          Scalar scalar, Vec vec) {
-  constexpr int V = 16 / sizeof(T);
-  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    const int nvec = n / V;
-    for (int k = lane; k < nvec; k += 32) {
-      float v[V];
-      vec(k * V, v);
-      st_vec(dst + k * V, v);
-    }
-    const int j = nvec * V + lane;
-    if (j < n) stf(dst + j, scalar(j));
-  } else {
-    for (int j = lane; j < n; j += 32) stf(dst + j, scalar(j));
-  }
-}
-
 template <typename T, int R>
-__global__ void __launch_bounds__(32 * WF_WARPS)
+__global__ void __launch_bounds__(32 * WF_WARPS, WF_BLOCKS_PER_SM)
 warp_filter_kernel(const T* __restrict__ in, const float* __restrict__ warps,
                    T* __restrict__ out, T* __restrict__ warped_out, int H,
                    int W, Taps taps) {
-  using L = WfLayout<R>;
+  using L = WfLayout<T, R>;
+  using S = typename L::S;
   constexpr int K = 2 * R + 1;
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(16) float wf_smem[];
   float* A = wf_smem;
   float* Bs = A + L::A_FLOATS;
   Tent* srow = reinterpret_cast<Tent*>(Bs + L::B_FLOATS);
-  Tent* scol = srow + L::SEP_ROWS;
-  WarpedAt* wrow = reinterpret_cast<WarpedAt*>(scol + L::SEP_COLS);
+  Tent* scol = srow + S::ROWS;
+  WarpedAt* wrow = reinterpret_cast<WarpedAt*>(scol + S::COLS);
   WarpedAt* wcol = wrow + L::WRP_ROWS;
-  __shared__ int win[4];  // source window: rows [0], [1]; columns [2], [3]
 
   const int lane = threadIdx.x;
   const int wid = threadIdx.y;
@@ -508,104 +922,36 @@ warp_filter_kernel(const T* __restrict__ in, const float* __restrict__ warps,
   const float cy = (H - 1) * 0.5f;
   const float cx = (W - 1) * 0.5f;
 
-  // 1. tables, one warp each; the window is the span of the clamped taps
+  // 1. the window's copies into A, then the tables while they fly
+  T* src = reinterpret_cast<T*>(A);
+  const Window win = sep_window<S>(w, H, W, sr0, nys, sc0, nxs);
+  if (win.smem) stage_window<S>(src, img, W, win, wid, lane);
   if (wid < 2) {
-    const bool rows = wid == 0;
-    const int n = rows ? nys : nxs;
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int i = lane; i < n; i += 32) {
-      const Tent t =
-          rows ? tent(affine_pos(w.a11, (float)(sr0 + i), w.ty, w.a10, cx), H)
-               : tent(affine_pos(w.a00, (float)(sc0 + i), w.tx, w.a01, cy), W);
-      (rows ? srow : scol)[i] = t;
-      lo = min(lo, t.i0);
-      hi = max(hi, t.i1);
-    }
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
-    if (lane == 0) {
-      win[2 * wid] = lo;
-      win[2 * wid + 1] = hi;
-    }
+    tent_table<S>(wid == 0 ? srow : scol, wid == 0, wid == 0 ? sr0 : sc0,
+                  wid == 0 ? nys : nxs, w, H, W, img, win, lane);
   } else if (wid == 2) {
     for (int i = lane; i < nyw; i += 32) {
       const int gy = reflect101(ty0 - R + i, H);
       wrow[i] = warped_at((gy - sr0) * L::SEP_P, w.a01 * ((float)gy - cy),
-                          1.f / w.a00, (gy > 0) && (gy < H - 1));
+                          (gy > 0) && (gy < H - 1));
     }
   } else if (wid == 3) {
     for (int j = lane; j < nxw; j += 32) {
       const int gx = reflect101(tx0 - R + j, W);
-      wcol[j] = warped_at(gx - sc0, w.a10 * ((float)gx - cx), 1.f / w.a11,
+      wcol[j] = warped_at(gx - sc0, w.a10 * ((float)gx - cx),
                           (gx > 0) && (gx < W - 1));
     }
   }
+  cp_async_wait<0>();
   __syncthreads();
 
-  // 2. the source window into A (pitch SRC_P), if it fits: every thread
-  // issues all its loads before it stores any, so the block waits for
-  // global memory once
-  const int wy0 = win[0];
-  const int wx0 = win[2];
-  const int nwr = win[1] - wy0 + 1;
-  const int nwc = win[3] - wx0 + 1;
-  const bool in_smem = nwr <= L::SRC_ROWS && nwc <= L::SRC_P;
-  if (in_smem) {
-    constexpr int N = (L::SRC_FLOATS + 32 * WF_WARPS - 1) / (32 * WF_WARPS);
-    float v[N];
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const int k = tid + n * 32 * WF_WARPS;
-      const int i = k / L::SRC_P;
-      const int j = k - i * L::SRC_P;
-      v[n] = (i < nwr && j < nwc) ? ldf(img + (size_t)(wy0 + i) * W + wx0 + j)
-                                  : 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      const int k = tid + n * 32 * WF_WARPS;
-      if (k < L::SRC_FLOATS) A[k] = v[n];
-    }
-  }
-  // the taps' indices become offsets into the window, or into the image
-  if (wid < 2) {
-    const bool rows = wid == 0;
-    Tent* t = rows ? srow : scol;
-    const int lo = in_smem ? (rows ? wy0 : wx0) : 0;
-    const int scale = rows ? (in_smem ? L::SRC_P : W) : 1;
-    for (int i = lane; i < (rows ? nys : nxs); i += 32) {
-      t[i].i0 = (t[i].i0 - lo) * scale;
-      t[i].i1 = (t[i].i1 - lo) * scale;
-    }
-  }
+  // 2. separable image into B
+  sep_tile_from(Bs, L::SEP_P, srow, scol, nys, nxs, lane, wid, win, src, img);
   __syncthreads();
 
-  // 3. separable image into B: rows first, then columns
-  auto fill = [&](auto tap) {
-    for (int k = tid; k < L::SEP_ROWS * L::SEP_COLS; k += 32 * WF_WARPS) {
-      const int i = k / L::SEP_COLS;
-      const int j = k - i * L::SEP_COLS;
-      if (i >= nys || j >= nxs) continue;
-      const Tent ry = srow[i];
-      const Tent rx = scol[j];
-      float t0 = ry.w0 * tap(ry.i0 + rx.i0);
-      t0 += ry.w1 * tap(ry.i1 + rx.i0);
-      float t1 = ry.w0 * tap(ry.i0 + rx.i1);
-      t1 += ry.w1 * tap(ry.i1 + rx.i1);
-      float v = rx.w0 * t0;
-      v += rx.w1 * t1;
-      Bs[i * L::SEP_P + j] = v;
-    }
-  };
-  if (in_smem) {
-    fill([&](int k) { return A[k]; });
-  } else {
-    fill([&](int k) { return ldf(img + k); });
-  }
-  __syncthreads();
-
-  // 4. warped image over the tile plus its R ring into A: taylor's terms,
-  // with the factors of the row and column tables
+  // 3. warped image over the tile plus its R ring into A
+  const float inv_ax = 1.f / w.a00;
+  const float inv_ay = 1.f / w.a11;
   for (int k = tid; k < L::WRP_ROWS * L::WRP_COLS; k += 32 * WF_WARPS) {
     const int i = k / L::WRP_COLS;
     const int j = k - i * L::WRP_COLS;
@@ -614,36 +960,21 @@ warp_filter_kernel(const T* __restrict__ in, const float* __restrict__ warps,
     const WarpedAt rx = wcol[j];
     const float* c = Bs + ry.off + rx.off;
     constexpr int P = L::SEP_P;
-    const float v = c[0];
-    const float hx = rx.edge ? c[1] - c[-1] : 0.f;
-    const float hxx = rx.edge ? c[1] + c[-1] - 2.f * v : 0.f;
-    const float hy = ry.edge ? c[P] - c[-P] : 0.f;
-    const float hyy = ry.edge ? c[P] + c[-P] - 2.f * v : 0.f;
-    const float hxy =
-        (rx.edge && ry.edge) ? c[P + 1] - c[P - 1] - c[-P + 1] + c[-P - 1] : 0.f;
-    float out = v + ry.d1 * hx + rx.d1 * hy;
-    out = out + ry.d2 * hxx + (ry.d1 * rx.d1) * hxy + rx.d2 * hyy;
-    A[i * L::WRP_P + L::WRP_OFF + j] = out;
+    A[i * L::WRP_P + L::WRP_OFF + j] =
+        taylor_px(c[-P - 1], c[-P], c[-P + 1], c[-1], c[0], c[1], c[P - 1],
+                  c[P], c[P + 1], ry.d, ry.dd, ry.edge, rx.d, rx.dd,
+                  rx.edge, inv_ax, inv_ay);
   }
   __syncthreads();
 
-  // 5a. the warped output; the horizontal pass into B
+  // 4a. the warped output; the horizontal pass into B
   if (warped_out) {
     T* wo = warped_out + (size_t)b * H * W;
     for (int ly = wid; ly < ty_n; ly += WF_WARPS) {
       const float* s = A + (ly + R) * L::WRP_P + L::WRP_OFF + R;
       write_row(wo + (size_t)(ty0 + ly) * W + tx0, tx_n, lane,
-                [&](int j) { return s[j]; },
-                [&](int j, float* v) {
-#pragma unroll
-                  for (int e = 0; e < V; e += 4) {
-                    const float4 q = *reinterpret_cast<const float4*>(s + j + e);
-                    v[e] = q.x;
-                    v[e + 1] = q.y;
-                    v[e + 2] = q.z;
-                    v[e + 3] = q.w;
-                  }
-                });
+                    [&](int j) { return s[j]; },
+                    [&](int j, float* v) { ld_run<V>(s + j, v); });
     }
   }
   for (int i = wid; i < nyw; i += WF_WARPS) {
@@ -658,33 +989,28 @@ warp_filter_kernel(const T* __restrict__ in, const float* __restrict__ warps,
   }
   __syncthreads();
 
-  // 5b. the vertical pass, straight to the output
+  // 4b. the vertical pass, straight to the output
   T* o = out + (size_t)b * H * W;
   for (int ly = wid; ly < ty_n; ly += WF_WARPS) {
     const float* s = Bs + ly * L::HB_P;
     write_row(o + (size_t)(ty0 + ly) * W + tx0, tx_n, lane,
-              [&](int j) {
-                float acc = 0.f;
+                  [&](int j) {
+                    float acc = 0.f;
 #pragma unroll
-                for (int k = 0; k < K; ++k) acc += taps.t[k] * s[k * L::HB_P + j];
-                return acc;
-              },
-              [&](int j, float* v) {
+                    for (int k = 0; k < K; ++k) acc += taps.t[k] * s[k * L::HB_P + j];
+                    return acc;
+                  },
+                  [&](int j, float* v) {
 #pragma unroll
-                for (int e = 0; e < V; ++e) v[e] = 0.f;
+                    for (int e = 0; e < V; ++e) v[e] = 0.f;
 #pragma unroll
-                for (int k = 0; k < K; ++k) {
+                    for (int k = 0; k < K; ++k) {
+                      float q[V];
+                      ld_run<V>(s + k * L::HB_P + j, q);
 #pragma unroll
-                  for (int e = 0; e < V; e += 4) {
-                    const float4 q =
-                        *reinterpret_cast<const float4*>(s + k * L::HB_P + j + e);
-                    v[e] += taps.t[k] * q.x;
-                    v[e + 1] += taps.t[k] * q.y;
-                    v[e + 2] += taps.t[k] * q.z;
-                    v[e + 3] += taps.t[k] * q.w;
-                  }
-                }
-              });
+                      for (int e = 0; e < V; ++e) v[e] += taps.t[k] * q[e];
+                    }
+                  });
   }
 }
 
@@ -799,54 +1125,6 @@ __device__ __forceinline__ void block_partial(const float* acc, int tid,
     for (int i = 0; i < THREADS / 32; ++i) s += red[i][tid];
     out[tid] = s;
   }
-}
-
-// cp.async: 16-byte global -> shared copies that bypass the registers
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N of this thread's latest groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// Stage n elements from `src` (any element alignment) into the 16-byte
-// aligned slot `dst`: element e lands at dst[mis + e], mis being src's
-// offset within its 16-byte line, so the body goes as 16-byte cp.async
-// copies and the head and tail (under 16 bytes each) element by element.
-template <typename T>
-__device__ __forceinline__ void stage_row(T* dst, const T* src, int n,
-                                          int tid) {
-  constexpr int V = 16 / sizeof(T);
-  const int mis = (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
-  const int head = min((V - mis) % V, n);
-  const int nvec = (n - head) / V;
-  const int tail = n - head - nvec * V;
-  T* d = dst + mis;
-  if (tid < head) {
-    d[tid] = src[tid];
-  } else if (tid < head + tail) {
-    const int e = head + nvec * V + (tid - head);
-    d[e] = src[e];
-  }
-  for (int v = tid; v < nvec; v += MOM_THREADS) {
-    cp_async16(d + head + v * V, src + head + v * V);
-  }
-}
-
-// the staged copy of `src` (stage_row's): p[e] is src[e]
-template <typename T>
-__device__ __forceinline__ const T* staged(const T* slot, const T* src) {
-  return slot + (reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T);
 }
 
 // elements per staged row: a strip's columns, their two neighbours and the
@@ -1058,7 +1336,7 @@ __global__ void moments_reduce_kernel(const double* __restrict__ partials,
 // Design: each block owns a GN_TY x GN_TX tile.  It computes K2's
 // separable image over the tile plus a 2-pixel ring into shared memory
 // (fill_sep, the same sampling as K2), then the warped image over the tile
-// plus a 1-pixel ring (taylor, as K2; zero outside the image), so the
+// plus a 1-pixel ring (taylor_px, as K2; zero outside the image), so the
 // central differences at the tile's seams read the neighbouring tiles'
 // rows and columns from shared memory.  The statistics then follow K3
 // pixel by pixel (accumulate_pixel), one f64 partial per block, summed by
@@ -1096,6 +1374,10 @@ gn_fused_kernel(const T* __restrict__ imgs, const T* __restrict__ tmpl,
   // ring has no central difference)
   constexpr int NY = GN_TY + 2;
   constexpr int NX = GN_TX + 2;
+  const float cy = (H - 1) * 0.5f;
+  const float cx = (W - 1) * 0.5f;
+  const float inv_ax = 1.f / w.a00;
+  const float inv_ay = 1.f / w.a11;
   for (int i = tid; i < NY * NX; i += NTHREADS) {
     const int ly = i / NX;
     const int lx = i - ly * NX;
@@ -1103,7 +1385,13 @@ gn_fused_kernel(const T* __restrict__ imgs, const T* __restrict__ tmpl,
     const int c = x0 - 1 + lx;
     float v = 0.f;
     if (r >= 0 && r < H && c >= 0 && c < W) {
-      v = taylor(sep + (ly + 1) * GN_SP + lx + 1, GN_SP, r, c, w, H, W);
+      constexpr int P = GN_SP;
+      const float* s = sep + (ly + 1) * P + lx + 1;
+      const float dx = w.a01 * ((float)r - cy);
+      const float dy = w.a10 * ((float)c - cx);
+      v = taylor_px(s[-P - 1], s[-P], s[-P + 1], s[-1], s[0], s[1], s[P - 1],
+                    s[P], s[P + 1], dx, half_sq(dx), (r > 0) && (r < H - 1),
+                    dy, half_sq(dy), (c > 0) && (c < W - 1), inv_ax, inv_ay);
     }
     wrp[ly * GN_WP + lx] = v;
   }
@@ -1111,8 +1399,6 @@ gn_fused_kernel(const T* __restrict__ imgs, const T* __restrict__ tmpl,
 
   const float kshift = *kshift_p;
   const float inv_det = 1.f / (w.a00 * w.a11 - w.a01 * w.a10);
-  const float cy = (H - 1) * 0.5f;
-  const float cx = (W - 1) * 0.5f;
   float acc[NSTAT];
 #pragma unroll
   for (int k = 0; k < NSTAT; ++k) acc[k] = 0.f;
@@ -1232,30 +1518,8 @@ Taps make_taps(int k, float t0, float t1, float t2, float t3, float t4,
   return t;
 }
 
-dim3 tile_grid(int B, int H, int W) {
-  return dim3((W + TILE_X - 1) / TILE_X, (H + TILE_Y - 1) / TILE_Y, B);
-}
-
 dim3 gn_grid(int B, int H, int W) {
   return dim3((W + GN_TX - 1) / GN_TX, (H + GN_TY - 1) / GN_TY, B);
-}
-
-// launchers of the image-type templates (T = float or bf16)
-
-template <typename T>
-int launch_blur(const T* in, T* out, int B, int H, int W, Taps taps,
-                void* stream) {
-  blur_kernel<T><<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
-                   (cudaStream_t)stream>>>(in, out, H, W, taps);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_warp(const T* in, const float* warps, T* out, int B, int H, int W,
-                void* stream) {
-  warp_kernel<T><<<tile_grid(B, H, W), dim3(BLOCK_X, BLOCK_Y), 0,
-                   (cudaStream_t)stream>>>(in, warps, out, H, W);
-  return (int)cudaGetLastError();
 }
 
 // a kernel's shared memory above the default 48 KB, static and dynamic
@@ -1269,15 +1533,81 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
+// launchers of the image-type templates (T = float or bf16)
+
+// K1's grid: (column groups of BLUR_THREADS x V columns, strips of `strip`
+// rows, frames).  The strip height makes the grid one wave of the resident
+// blocks of every SM (an output pixel does not depend on it).
+template <typename T, int R>
+int launch_blur_r(const T* in, T* out, int B, int H, int W, Taps taps,
+                  void* stream) {
+  static int occ = 0;  // resident blocks an SM
+  static int sms = 0;
+  constexpr int V = 16 / sizeof(T);
+  if (sms == 0) {
+    int dev, n;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, blur_kernel<T, R>, BLUR_THREADS, 0);
+    }
+    if (err != cudaSuccess) return (int)err;
+    sms = n;
+  }
+  const int ncol = (W + BLUR_THREADS * V - 1) / (BLUR_THREADS * V);
+  const long long per_frame = (long long)max(occ, 1) * sms / ((long long)B * ncol);
+  const int strips = (int)max(1LL, min(per_frame, (long long)H));
+  const int strip = (H + strips - 1) / strips;
+  const dim3 grid(ncol, (H + strip - 1) / strip, B);
+  blur_kernel<T, R><<<grid, BLUR_THREADS, 0, (cudaStream_t)stream>>>(
+      in, out, H, W, strip, taps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_blur(const T* in, T* out, int B, int H, int W, Taps taps,
+                void* stream) {
+  switch (taps.k) {
+    case 1:
+      return launch_blur_r<T, 0>(in, out, B, H, W, taps, stream);
+    case 3:
+      return launch_blur_r<T, 1>(in, out, B, H, W, taps, stream);
+    case 5:
+      return launch_blur_r<T, 2>(in, out, B, H, W, taps, stream);
+    case 7:
+      return launch_blur_r<T, 3>(in, out, B, H, W, taps, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+dim3 wf_grid(int B, int H, int W) {
+  return dim3((W + WF_TX - 1) / WF_TX, (H + WF_TY - 1) / WF_TY, B);
+}
+
+template <typename T>
+int launch_warp(const T* in, const float* warps, T* out, int B, int H, int W,
+                void* stream) {
+  static size_t allowed = 0;
+  const size_t smem = WarpLayout<T>::BYTES;
+  const cudaError_t err = allow_smem(warp_kernel<T>, smem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  warp_kernel<T><<<wf_grid(B, H, W), dim3(32, WF_WARPS), smem,
+                   (cudaStream_t)stream>>>(in, warps, out, H, W);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int R>
 int launch_wf(const T* in, const float* warps, T* out, T* warped, int B,
               int H, int W, Taps taps, void* stream) {
   static size_t allowed = 0;
-  const size_t smem = WfLayout<R>::BYTES;
+  const size_t smem = WfLayout<T, R>::BYTES;
   const cudaError_t err = allow_smem(warp_filter_kernel<T, R>, smem, &allowed);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + WF_TX - 1) / WF_TX, (H + WF_TY - 1) / WF_TY, B);
-  warp_filter_kernel<T, R><<<grid, dim3(32, WF_WARPS), smem,
+  warp_filter_kernel<T, R><<<wf_grid(B, H, W), dim3(32, WF_WARPS), smem,
                              (cudaStream_t)stream>>>(in, warps, out, warped,
                                                      H, W, taps);
   return (int)cudaGetLastError();

@@ -13,7 +13,7 @@ wrapper here that
 
 | wrapper | kernel | replaces |
 | --- | --- | --- |
-| :func:`blur` | K1 ``blur_kernel`` | ``_blur_batched`` (pallas_ecc.py:829) |
+| :func:`blur` | K1 ``blur_kernel<T, R>`` | ``_blur_batched`` (pallas_ecc.py:829) |
 | :func:`warp_affine_banded` | K2 ``warp_kernel`` | ``_warp_banded_batched`` (:285) |
 | :func:`ecc_gn_moments` | K3 ``moments_kernel`` | ``_moments_batched`` (:587) |
 | :func:`warp_filter` | K4 ``warp_filter_kernel`` | ``_warp_filter_batched`` (:444) |
