@@ -12,13 +12,16 @@ From the root of a checkout, on a machine with a CUDA device:
    both with CUDA events, and the one PyTorch call that computes the same
    function where there is one (K1: conv2d over a reflect pad, in full
    f32): K1-K4 on 8 frames of 1024x1024 and of 1200x1800, in float32 and
-   in bfloat16, with K1-K3 called twice for bit-identical output and K2
-   and K4 also on a 1.6x scale warp (their global-memory route) and on a
-   shear that moves the frame's corners by 2.9 px; K9
+   in bfloat16, K1 bit for bit, with K1-K3 called twice for bit-identical
+   output and K2 and K4 also on a 1.6x scale warp (their global-memory
+   route) and on a shear that moves the frame's corners by 2.9 px; K9
    (the fused GN step) on 8 frames of 1200x1800 in both, also against K2
    then K3; K5-K8 at the full configuration's shapes (8 frames x 4
    cameras x 1200x1800, a 1,048,576-node gather plan; K5 with f32 and with
-   bf16 frames);
+   bf16 frames, from the camera images and from a stack, also on a plan
+   with a partial last tile and an all-NaN tile and in plain model order,
+   with its sector floor; K6 also on an all-saturated frame and adjacent
+   hot pixels; both bit-identical from call to call);
 4. drives four synthetic datapoints through scripts/upsp-process-torch,
    each with the kernel launch counts reset just before and read just
    after, packed ingest on and hot pixels injected, in this order:
@@ -40,9 +43,10 @@ Prints the seconds of each phase, then the kernel table as one JSON line
 (per kernel: ``launches`` over the paths and ``launches_by_path``;
 ``ms``/``device_ms``/``plain_ms``/``library_ms`` and
 ``bound_ms``/``bound_by`` at the full configuration's shape, every
-measured shape under ``shapes``; the redesigned K1-K4 also
+measured shape under ``shapes``; the redesigned K1-K6 also
 ``redesigned``, with their time before the redesign printed on a line of
-its own; K9
+its own; K5 also ``sector_floor_ms``, ``stacked_device_ms`` and
+``model_order_device_ms``; K9
 also ``split_ms``/``split_device_ms``, the time of K2 then K3, and
 ``kernel_phase_only``: no datapoint path runs it), the card's name and
 power limit, then as the last line {"ok": true, "device": {...}}.
@@ -130,15 +134,16 @@ FULL_PATHS = (
      "bfloat16", BF16_KERNELS + ("unpack12",)),
 )
 DEVICE = "cuda"
-# the redesigned kernels' ``ms`` before their redesign, on 8 frames of each
-# of ECC_SHAPES (PERF.md section 6: this script on an NVIDIA H100 80GB
-# HBM3 at 700.00 W; K3/K4 as first written, K1/K2 before their own
-# redesign), printed beside this run's ``ms`` and kept out of the kernels
-# line
+# the redesigned kernels' ``ms`` before their redesign (PERF.md section 6:
+# this script on an NVIDIA H100 80GB HBM3 at 700.00 W; K3/K4 as first
+# written, K1/K2 before their own redesign, on 8 frames of each of
+# ECC_SHAPES; K5/K6 before their redesign, at the full configuration's shapes),
+# printed beside this run's ``ms`` and kept out of the kernels line
 PREV_MS = {"moments": (0.1356, 0.2357), "moments_bf16": (0.1224, 0.2481),
            "warp_filter": (0.1645, 0.3355), "warp_filter_bf16": (0.1642, 0.3349),
            "blur": (0.0892, 0.1744), "blur_bf16": (0.0880, 0.1751),
-           "warp": (0.0783, 0.1498), "warp_bf16": (0.0771, 0.1525)}
+           "warp": (0.0783, 0.1498), "warp_bf16": (0.0771, 0.1525),
+           "hot": 0.3831, "gather": 0.2273, "gather_bf16": 0.1971}
 
 
 class SmokeFailure(Exception):
@@ -316,14 +321,13 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     edge = edge_mask(w)
     edge_bound = 4 * float(np.spacing(np.float32(max(H, W)))) * 4096
 
-    def image_err(got, want, warped=True, edge=edge):
+    def image_err(got, want, edge=edge):
         d = (got.float() - want.float()).abs()
         if dtype == torch.float32:
             bound = torch.full_like(d, 2e-3)
         else:
             bound = bf16_ulp(want)
-        if warped:  # the blur has no sample positions to round
-            bound = torch.where(edge, bound + edge_bound, bound)
+        bound = torch.where(edge, bound + edge_bound, bound)
         worst = float((d / bound).max())
         return float(d.max()), worst <= 1.0, f"max |d| / bound {worst:.3g} <= 1"
 
@@ -339,7 +343,9 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     got = K.blur(imgs, taps5)
     check(torch.equal(got, K.blur(imgs, taps5)),
           f"blur{sfx} bit-identical from call to call at {shape}")
-    err, ok, det = image_err(got, K.blur_plain(imgs, taps5), warped=False)
+    # K1 rounds each product and sum as its twin does: bit for bit
+    err = float((got.float() - K.blur_plain(imgs, taps5).float()).abs().max())
+    ok, det = err == 0.0, "exact"
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -454,21 +460,23 @@ def kernel_phase_gn_fused(rows, dtype_name):
     torch.cuda.synchronize()
 
 
-def synthetic_plan(rng):
+def synthetic_plan(rng, n=None, skip_tile=None):
     """A full-config gather plan: a 1024x1024 grid seen by 4 cameras in
     strips (row-major image positions, as a plate grid projects), ~10%
     invisible (weight 0), 1% skipped, every 97th node a superseded copy of
-    its neighbour."""
+    its neighbour, and two copies across tiles.  ``n`` keeps the first n
+    nodes (a partial last tile); ``skip_tile`` skips every primary of
+    that tile, so the whole tile is NaN."""
     import numpy as np
 
-    from upsp_tpu_torch.ops.gather_kernels import build_gather_plan
+    from upsp_tpu_torch.ops.gather_kernels import GATHER_TILE, build_gather_plan
 
     gi = gj = 1024
     i, j = np.meshgrid(np.arange(gi), np.arange(gj), indexing="ij")
     cam = (i * FULL_C) // gi
     row = 40 + (j * (FULL_H - 80)) // gj
     col = 60 + ((i % (gi // FULL_C)) * (FULL_W - 120)) // (gi // FULL_C)
-    idx = (cam * FULL_H * FULL_W + row * FULL_W + col).ravel()
+    idx = (cam * FULL_H * FULL_W + row * FULL_W + col).ravel()[:n]
     n = idx.size
     w = rng.uniform(0.5, 1.0, n).astype(np.float32)
     invisible = rng.random(n) < 0.1
@@ -477,8 +485,120 @@ def synthetic_plan(rng):
     skipped = invisible & (rng.random(n) < 0.1)
     sup = np.arange(n)
     sup[::97] = np.minimum(sup[::97] + 1, n - 1)
+    t = GATHER_TILE
+    sup[t - 1], sup[7 * t] = 5 * t + 7, 2  # copies of nodes in other tiles
+    if skip_tile is not None:
+        skipped[sup[skip_tile * t:(skip_tile + 1) * t]] = True
     return build_gather_plan(idx, w, skipped, sup, (), FULL_C * FULL_H * FULL_W,
                              device=DEVICE)
+
+
+def read_sectors(plan, e):
+    """32-byte sectors of one frame that the plan's non-skipped nodes read
+    (``e`` bytes a pixel); every frame starts on a sector boundary."""
+    import torch
+
+    s = plan.src[plan.src >= 0].long() * e // 32
+    return int(torch.unique(s).numel())
+
+
+def gather_phase(rows, rng):
+    """K5 from the C camera images in place (the path's call) and from one
+    (B, C*H*W) stack, exactly equal to its twin with NaN at the same
+    entries: on a plan with a partial last tile and an all-NaN tile, then
+    timed on the full 1,048,576-node plan; beside it the same plan in plain
+    model order (no sort inside a tile) and the sector floor."""
+    import dataclasses
+
+    import torch
+
+    from upsp_tpu_torch.ops import gather_kernels as G
+
+    frames = f"{B}x{FULL_C}x{FULL_H}x{FULL_W}"
+    plan = synthetic_plan(rng)
+    edge_plan = synthetic_plan(rng, n=plan.n_nodes - 333, skip_tile=3)
+    # the same entries in model order: tile k's nodes in order, unsorted
+    order = torch.argsort(plan.node.long())
+    model_plan = dataclasses.replace(plan, src=plan.src[order], weight=plan.weight[order],
+                                     node=plan.node[order])
+    nodes = plan.n_nodes
+    n_read = int((plan.src >= 0).sum())
+    stacked32 = (2000 + 300 * torch.randn((B, plan.n_pixels), device=DEVICE,
+                                          generator=torch.Generator(DEVICE).manual_seed(5)))
+
+    def same(got, want):
+        nan = torch.isnan(want)
+        err = float((got[~nan] - want[~nan]).abs().max())
+        return bool(torch.equal(torch.isnan(got), nan)) and err == 0.0, err, int(nan.sum())
+
+    for name, stacked, e in (("gather", stacked32, 4),
+                             ("gather_bf16", stacked32.to(torch.bfloat16), 2)):
+        cams = list(stacked.reshape(B, FULL_C, FULL_H, FULL_W).unbind(1))
+        cams = [c.contiguous() for c in cams]
+        errs = []
+        for label, p in (("partial last tile, an all-NaN tile", edge_plan),
+                         ("model order", model_plan), ("full plan", plan)):
+            want = G.gather_plain(stacked, p)
+            for how, x in (("per-camera images", cams), ("stack", stacked)):
+                ok, err, n_nan = same(G.project_gather(x, p), want)
+                errs.append(err)
+                check(ok, f"{name} from the {how} equals its twin ({label}; NaN at "
+                      f"the same {n_nan} entries)")
+        check(torch.equal(G.project_gather(cams, plan).view(torch.int32),
+                          G.project_gather(cams, plan).view(torch.int32)),
+              f"{name} bit-identical from call to call")
+        sectors = read_sectors(plan, e)
+        floor_ms = (B * sectors * 32 + B * nodes * 4 + nodes * 12) / HBM_BYTES_PER_S * 1e3
+        model_ms = cuda_time(lambda: G.project_gather(cams, model_plan), graph=True)
+        stack_ms = cuda_time(lambda: G.project_gather(stacked, plan), graph=True)
+        print(f"  {name}: device ms from the stack {stack_ms:.4f}, in plain model "
+              f"order {model_ms:.4f}; sector floor {floor_ms:.4f} ms ({sectors} "
+              f"sectors a frame for {n_read} reads)", flush=True)
+        add_row(rows, name, f"{frames} {stacked.dtype} -> {nodes} nodes", max(errs),
+                True, "exact; NaN at the same entries",
+                lambda: G.project_gather(cams, plan),
+                lambda: G.gather_plain(cams, plan),
+                B * (n_read * e + nodes * 4) + nodes * 12, FLOPS["gather"] * B * n_read,
+                prev_ms=PREV_MS[name], redesigned=True, sector_floor_ms=floor_ms,
+                stacked_device_ms=stack_ms, model_order_device_ms=model_ms)
+
+
+def hot_phase(rows, rng):
+    """K6 on 32 images of 1200x1800 with 0, 3, 5 and 6 hot pixels (6 > 5:
+    left as it is), corners and edges included, exactly equal to its twin
+    and bit-identical from call to call; also with an all-saturated frame
+    and adjacent hot pixels on a 16-byte vector boundary."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.ops import ecc_kernels as K
+
+    n_img, px = B * FULL_C, FULL_H * FULL_W
+    imgs = torch.tensor(rng.normal(2000, 150, (n_img, FULL_H, FULL_W)).astype(np.float32),
+                        device=DEVICE)
+    spots = [(0, 0), (0, FULL_W - 1), (FULL_H - 1, 0), (FULL_H - 1, FULL_W - 1),
+             (0, FULL_W // 2), (FULL_H // 2, 0), (FULL_H // 2, FULL_W // 2)]
+    for k in range(n_img):
+        for y, x in spots[: (0, 3, 5, 6)[k % 4]]:
+            imgs[k, y, x] = 4095.0
+    odd = imgs.clone()
+    odd[1] = 4095.0  # every pixel a candidate: left as it is
+    odd[0, 100, 3:5] = 4095.0  # adjacent, either side of a 16-byte boundary
+    odd[0, 101, 4] = 4095.0  # and below one of them
+    for x, what in ((imgs, "0, 3, 5 and 6 hot pixels"),
+                    (odd, "an all-saturated frame, adjacent hot pixels")):
+        got, want = K.fix_hot_pixels_kernel(x), K.fix_hot_pixels(x)
+        check(torch.equal(got, want), f"hot equals its twin ({what}; the twin "
+              f"repaired {int((want != x).sum())} pixels)")
+        check(torch.equal(got, K.fix_hot_pixels_kernel(x)),
+              f"hot bit-identical from call to call ({what})")
+    got, want = K.fix_hot_pixels_kernel(imgs), K.fix_hot_pixels(imgs)
+    err = float((got - want).abs().max())
+    add_row(rows, "hot", f"{n_img}x{FULL_H}x{FULL_W}", err,
+            bool(torch.equal(got, want)), "exact",
+            lambda: K.fix_hot_pixels_kernel(imgs), lambda: K.fix_hot_pixels(imgs),
+            8 * n_img * px, FLOPS["hot"] * n_img * px, prev_ms=PREV_MS["hot"],
+            redesigned=True)
 
 
 def kernel_phase_ingest(rows):
@@ -489,51 +609,13 @@ def kernel_phase_ingest(rows):
     import torch
 
     from upsp_tpu_torch.io.video.cine import LUT_10_TO_12
-    from upsp_tpu_torch.ops import ecc_kernels as K
-    from upsp_tpu_torch.ops import gather_kernels as G
     from upsp_tpu_torch.ops import unpack_kernels as U
 
     rng = np.random.default_rng(2)
     n_img, px = B * FULL_C, FULL_H * FULL_W
     frames = f"{B}x{FULL_C}x{FULL_H}x{FULL_W}"
-
-    # K5: (8, 4*1200*1800) frames through a 1,048,576-node plan; each
-    # non-skipped node reads one pixel, every node is written
-    plan = synthetic_plan(rng)
-    nodes = plan.n_nodes
-    n_read = int((plan.src >= 0).sum())
-    stacked32 = (2000 + 300 * torch.randn((B, plan.n_pixels), device=DEVICE,
-                                          generator=torch.Generator(DEVICE).manual_seed(5)))
-    for name, stacked, e in (("gather", stacked32, 4),
-                             ("gather_bf16", stacked32.to(torch.bfloat16), 2)):
-        got, want = G.project_gather(stacked, plan), G.gather_plain(stacked, plan)
-        same_nan = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
-        fin = ~torch.isnan(want)
-        err = float((got[fin] - want[fin]).abs().max())
-        add_row(rows, name, f"{frames} {stacked.dtype} -> {nodes} nodes", err,
-                same_nan and err == 0.0,
-                f"exact; NaN at the same {int((~fin).sum())} entries",
-                lambda: G.project_gather(stacked, plan),
-                lambda: G.gather_plain(stacked, plan),
-                B * (n_read * e + nodes * 4) + nodes * 12, FLOPS["gather"] * B * n_read)
-
-    # K6: 32 images of 1200x1800 with 0, 3, 5 and 6 hot pixels (6 > 5:
-    # left as it is); corners and edges included
-    imgs = torch.tensor(rng.normal(2000, 150, (n_img, FULL_H, FULL_W)).astype(np.float32),
-                        device=DEVICE)
-    spots = [(0, 0), (0, FULL_W - 1), (FULL_H - 1, 0), (FULL_H - 1, FULL_W - 1),
-             (0, FULL_W // 2), (FULL_H // 2, 0), (FULL_H // 2, FULL_W // 2)]
-    for k in range(n_img):
-        for y, x in spots[: (0, 3, 5, 6)[k % 4]]:
-            imgs[k, y, x] = 4095.0
-    got, want = K.fix_hot_pixels_kernel(imgs), K.fix_hot_pixels(imgs)
-    err = float((got - want).abs().max())
-    changed = int((want != imgs).sum())
-    add_row(rows, "hot", f"{n_img}x{FULL_H}x{FULL_W}", err,
-            bool(torch.equal(got, want)) and changed > 0,
-            f"exact; the twin repaired {changed} pixels",
-            lambda: K.fix_hot_pixels_kernel(imgs), lambda: K.fix_hot_pixels(imgs),
-            8 * n_img * px, FLOPS["hot"] * n_img * px)
+    gather_phase(rows, rng)
+    hot_phase(rows, rng)
 
     # K7/K8: random packed bytes of 8 frames x 4 cameras x 1200x1800
     gen = torch.Generator(DEVICE).manual_seed(7)

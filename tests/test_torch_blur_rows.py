@@ -14,8 +14,9 @@ reflections at strip boundaries and image edges.
 
 Tolerances and why:
 - against the twin: exact.  Both multiply and add in f32 in the same
-  order, one operation at a time (the kernel on the card contracts the
-  products into FMAs, which the card tests bound at 2e-3 counts);
+  order, one operation at a time (the kernel on the card rounds each
+  product and sum on its own too, and the card tests hold it to the twin
+  bit for bit);
 - against the JAX kernel (interpret mode off-TPU): atol 1e-3 counts in f32,
   as tests/test_torch_ecc_kernels.py (XLA sums the taps its own way); in
   bf16 1 bf16 ulp (both compute in f32 and round once);

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain twins, on the card.
 
 K1-K4, K6 and K9 compare within the stated bounds (K6, like K5, K7 and K8,
-exactly: they only select, shift bits and multiply once).  The bfloat16
+exactly: they only select, shift bits and multiply once; K1 also exactly:
+it rounds each product and sum as its twin does).  The bfloat16
 instantiations of K1, K2 and K4 hold their twins to 1 bf16 ulp of the
 output (both compute in f32 and round once; the f32 sums may straddle one
 rounding boundary), K3 and K9 to 2e-4 relative, K5 exactly.
@@ -364,6 +365,7 @@ def test_blur_unaligned_rows_every_radius_on_card(cuda, shape, dtype, taps):
     got = K.blur(x.to(cuda), taps)
     assert torch.equal(got, K.blur(x.to(cuda), taps))
     assert_image_kernel_close(got, K.blur_plain(x, taps), dt)
+    assert torch.equal(got.cpu(), K.blur_plain(x, taps))  # bit for bit
     torch.cuda.synchronize()
     name = "blur" if dt == torch.float32 else "blur_bf16"
     assert K.launch_counts()[name] == before[name] + 2
@@ -381,7 +383,9 @@ def test_blur_smallest_images_on_card(cuda, dtype, taps):
         if min(shape[1:]) <= r:
             continue
         x = torch.tensor(images(27, *shape)).to(dt)
-        assert_image_kernel_close(K.blur(x.to(cuda), taps), K.blur_plain(x, taps), dt)
+        got = K.blur(x.to(cuda), taps)
+        assert_image_kernel_close(got, K.blur_plain(x, taps), dt)
+        assert torch.equal(got.cpu(), K.blur_plain(x, taps))  # bit for bit
 
 
 @pytest.mark.cuda
@@ -473,3 +477,82 @@ def test_gather_kernel_matches_twin_on_card(cuda, n_nodes, frames):
     after = K.launch_counts()
     assert after["gather"] == before["gather"] + 1
     assert after["gather_bf16"] == before["gather_bf16"] + 1
+
+
+def hot_frames(h, w):
+    """Frames of ``images`` with hot pixels (4095): 0, max_hot and max_hot
+    + 1 of them, on corners, edges and either side of 16-byte vector and
+    4096-pixel tile boundaries; adjacent pairs; a NaN neighbour; and an
+    all-saturated frame."""
+    x = torch.tensor(images(40, 8, h, w))
+    hw = h * w
+    flat = [0, w - 1, hw - w, hw - 1, 3, 4, 4095, 4096, hw // 2 - 1, hw // 2]
+    for k, n in enumerate([0, 5, 6]):
+        x[k].view(-1)[torch.tensor(flat[:n], dtype=torch.long)] = 4095.0
+    x[3].view(-1)[torch.tensor([w + 3, w + 4, 2 * w + 4])] = 4095.0  # adjacent
+    x[4, 5, 7] = 4095.0
+    x[4, 5, 8] = float("nan")  # its right neighbour
+    x[5] = 4095.0  # every pixel a candidate: left as it is
+    x[6].view(-1)[torch.tensor(flat[4:8])] = 4095.0  # vector, tile boundaries
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 130), (97, 131), (1200, 1800), (1, 7)])
+def test_hot_one_pass_on_card(cuda, shape):
+    """K6's streaming pass and per-frame repair: hot pixels at 0, max_hot
+    and max_hot + 1 per frame, adjacent ones, a NaN neighbour, an
+    all-saturated frame; frames whose pixel count is and is not a multiple
+    of 4 (the vector and the scalar route), several tiles a block, and a
+    frame the size of one row; exact and bit-identical call to call."""
+    if shape == (1, 7):
+        x = 2000.0 + torch.arange(21, dtype=torch.float32).reshape(3, 1, 7)
+        x[0, 0, 3] = x[1, 0, 0] = x[1, 0, 6] = 4095.0
+        x[2] = 4095.0
+    else:
+        x = hot_frames(*shape)
+    before = K.launch_counts()["hot"]
+    got = K.fix_hot_pixels_kernel(x.to(cuda))
+    again = K.fix_hot_pixels_kernel(x.to(cuda))
+    want = K.fix_hot_pixels(x)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert ((want != x) & ~torch.isnan(x)).any()  # something was repaired
+    torch.cuda.synchronize()
+    assert K.launch_counts()["hot"] == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cams", [1, 4])
+def test_gather_tiles_per_camera_on_card(cuda, n_cams):
+    """K5 from C (B, H, W) camera images in place and from one stack: a
+    partial last tile, an all-NaN tile, copies across tiles, f32 and bf16
+    frames; exact, NaN at the same entries, and the stack's result equal
+    to the cameras'."""
+    from upsp_tpu_torch.ops import gather_kernels as G
+
+    t = G.GATHER_TILE
+    h, w = 37, 131
+    n = 4 * t + 77
+    rng = np.random.default_rng(50 + n_cams)
+    idx = rng.integers(0, n_cams * h * w, n)
+    wt = rng.random(n).astype(np.float32)
+    wt[rng.random(n) < 0.2] = 0.0
+    sup = np.arange(n)
+    sup[t - 1], sup[3 * t + 5], sup[::11] = 2 * t + 9, 7, sup[::11] + 1
+    sup = np.minimum(sup, n - 1)
+    skipped = rng.random(n) < 0.03
+    skipped[sup[t:2 * t]] = True  # tile 1 all NaN
+    on_card = G.build_gather_plan(idx, wt, skipped, sup, (), n_cams * h * w,
+                                  device=cuda)
+    plan = G.build_gather_plan(idx, wt, skipped, sup, (), n_cams * h * w)
+    x = torch.from_numpy(rng.normal(2000, 300, (3, n_cams, h, w)).astype(np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        cams = [x[:, c].to(dt).contiguous() for c in range(n_cams)]
+        want = G.gather_plain(cams, plan).numpy()
+        assert np.isnan(want[:, t:2 * t]).all()
+        got = G.project_gather([c.to(cuda) for c in cams], on_card).cpu().numpy()
+        stacked = G.project_gather(x.to(dt).reshape(3, -1).to(cuda), on_card)
+        for g in (got, stacked.cpu().numpy()):
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(want))
+            np.testing.assert_array_equal(g[~np.isnan(want)], want[~np.isnan(want)])

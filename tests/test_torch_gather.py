@@ -29,6 +29,7 @@ from upsp_tpu.ops.pallas_gather import (
     slab_gather_apply,
 )
 from upsp_tpu_torch.ops.gather_kernels import (
+    GATHER_TILE,
     apply_overlays,
     build_gather_plan,
     gather_plain,
@@ -122,15 +123,19 @@ def test_all_invisible_plan():
 
 
 def test_plan_layout():
-    """Kernel order: sources ascending (skipped first, as -1), every node
-    written once; the plain twin ignores the order."""
+    """Kernel order: tiles of GATHER_TILE model-order nodes, in order, each
+    with its sources ascending (skipped first, as -1); every node written
+    once; the plain twin ignores the order."""
     rng = np.random.default_rng(20)
-    idx, w, sup, skipped, hw, C = _case(rng, N=800, skip=0.1)
+    n = 2 * GATHER_TILE + 500
+    idx, w, sup, skipped, hw, C = _case(rng, N=n, skip=0.1)
     plan = build_gather_plan(idx, w, skipped, sup, (), C * hw[0] * hw[1])
     src = plan.src.numpy()
-    assert (np.diff(src) >= 0).all()
-    assert sorted(plan.node.tolist()) == list(range(800))
     node = plan.node.numpy()
+    for t0 in range(0, n, GATHER_TILE):
+        tile = slice(t0, t0 + GATHER_TILE)
+        assert (np.diff(src[tile]) >= 0).all()
+        assert sorted(node[tile].tolist()) == list(range(t0, min(n, t0 + GATHER_TILE)))
     np.testing.assert_array_equal(src, np.where(skipped[sup], -1, idx[sup])[node])
     np.testing.assert_array_equal(plan.weight.numpy(), w[sup][node])
     imgs = torch.from_numpy(rng.normal(0, 1, (1, C * hw[0] * hw[1])).astype(np.float32))

@@ -49,7 +49,7 @@ def _mask_axes(h, w, mw):
 
 def moments_rows(iw, tmpl, warps_t, mask_warps):
     """(B, 128) statistics from 27 per-row x-only sums folded with y, y^2."""
-    kshift = K._kshift(tmpl)
+    kshift = K.template_shift(tmpl)
     iw = iw.float()
     b, h, w = iw.shape
     a00, a01, _, a10, a11, _ = (v[:, None, None] for v in warps_t.reshape(-1, 6).unbind(1))

@@ -10,7 +10,7 @@
 //   K4 warp+filter  <- _warp_filter_kernel via _warp_filter_batched /
 //                      make_warp_filter
 //   K6 hot pixels   <- _hot_kernel via _hot_batched / fix_hot_pixels_pallas
-//                      (count pass + repair pass, below)
+//                      (one streaming pass + a per-frame repair, below)
 //   K9 fused GN     <- _gn_fused_kernel via _gn_fused_batched / ecc_gn_fused
 //                      (K2 then K3 without the warped image in HBM)
 //
@@ -357,7 +357,9 @@ __device__ __forceinline__ void fill_sep(float* sep, int pitch, int r0,
 // ends.  It filters each row horizontally into V values, keeps the last
 // 2R+1 filtered rows in registers and sums them vertically into its output
 // row: no shared memory and no barrier.  Horizontal, then vertical, each
-// summed from tap 0 upwards: the plain twin's order.  Templated on R, so
+// summed from tap 0 upwards, each product and sum rounded on its own
+// (__fmul_rn, __fadd_rn: no FMA contraction): the plain twin's order and
+// rounding, so the output is the twin's to the bit.  Templated on R, so
 // the tap loops unroll and the ring and the taps stay in registers.  The
 // strip height makes the grid one wave of resident blocks (launch_blur_r);
 // an output pixel's arithmetic does not depend on it.  Staging each row in
@@ -450,18 +452,22 @@ blur_kernel(const T* __restrict__ in, T* __restrict__ out, int H, int W,
       }
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        float acc = t[0] * run[u][e];
+        float acc = __fmul_rn(t[0], run[u][e]);
 #pragma unroll
-        for (int k = 1; k < K; ++k) acc += t[k] * run[u][e + k];
+        for (int k = 1; k < K; ++k) {
+          acc = __fadd_rn(acc, __fmul_rn(t[k], run[u][e + k]));
+        }
         ring[K - 1][e] = acc;
       }
       if (j < 2 * R) continue;
       float v[V];  // output row y0 + j - 2R
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        v[e] = t[0] * ring[0][e];
+        v[e] = __fmul_rn(t[0], ring[0][e]);
 #pragma unroll
-        for (int k = 1; k < K; ++k) v[e] += t[k] * ring[k][e];
+        for (int k = 1; k < K; ++k) {
+          v[e] = __fadd_rn(v[e], __fmul_rn(t[k], ring[k][e]));
+        }
       }
       T* dst = o + (size_t)(y0 + j - 2 * R) * W + c;
       if (full && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
@@ -1430,37 +1436,125 @@ gn_fused_kernel(const T* __restrict__ imgs, const T* __restrict__ tmpl,
 // and corners) by more than min_change takes that median; a frame with
 // more than max_hot pixels >= thresh is left as it is.
 // Replaces _hot_kernel (pallas_ecc.py:659, via _hot_batched :739).
-// Bound: 8 B/pixel for the repair plus 4 B/pixel for the count, no
-// arithmetic to speak of.  The TPU kernel holds a whole frame in VMEM and
-// counts it before it repairs it; here a frame spans hundreds of blocks,
-// so the count is its own pass: hot_count_kernel reduces each block in
-// registers and adds one integer per block to the frame's counter with an
-// atomic (integer sums do not depend on order, so the result is exact and
-// repeatable), and hot_fix_kernel then repairs the frame.  The neighbour
-// reads of hot_fix_kernel happen only at pixels >= thresh, a handful per
-// frame.
+// Bound: 8 B/pixel (one read, one write), no arithmetic to speak of.  The
+// TPU kernel holds a whole frame in VMEM and counts it before it repairs
+// it; here a frame spans many blocks, so the count is known only once every
+// block has seen its part.  The work is split so that each frame is read
+// and written once:
+//   - hot_scan_kernel streams the frame with 16-byte loads and stores
+//     (HOT_UNROLL vectors a thread in flight), copying it to `out`
+//     unchanged, and counts the pixels >= thresh.  Each block keeps the
+//     first max_hot candidates it meets in a shared list (one shared
+//     atomic a warp, only in a warp that met one); at its end it adds its
+//     count to the frame's with ONE global atomic, which returns the
+//     block's base slot, and copies its list into the frame's max_hot
+//     slots from there.  Integer sums do not depend on order, so the count
+//     is exact; an all-saturated frame costs one global atomic a block, as
+//     a clean one does.  When the frame's count is <= max_hot, every block
+//     had all its candidates in its list and every one got a slot.
+//   - hot_repair_kernel, one warp a frame: if the count is <= max_hot, each
+//     listed candidate takes the median of its neighbours read from `in`
+//     (never a repaired `out`, so adjacent hot pixels and the list's order
+//     do not matter: the twin repairs against the original frame too).
+// Blocks stride over the frame's tiles, sized so the grid is one wave.
 
 constexpr int HOT_THREADS = 256;
-constexpr int HOT_PER_THREAD = 16;  // count pass: pixels per thread
+constexpr int HOT_UNROLL = 4;  // 16-byte vectors a thread per tile
+constexpr int HOT_TILE = HOT_THREADS * HOT_UNROLL * 4;  // pixels a tile
+constexpr int HOT_MAX_LIST = 32;  // the most max_hot the lists hold
 
+template <bool VEC>
 __global__ void __launch_bounds__(HOT_THREADS)
-hot_count_kernel(const float* __restrict__ in, int* __restrict__ counts,
-                 long long hw, float thresh) {
-  __shared__ int red[HOT_THREADS / 32];
+hot_scan_kernel(const float* __restrict__ in, float* __restrict__ out,
+                int* __restrict__ counts, int* __restrict__ cands,
+                long long hw, float thresh, int max_hot) {
+  __shared__ int s_n;
+  __shared__ int s_list[HOT_MAX_LIST];
   const int b = blockIdx.y;
   const float* img = in + (size_t)b * hw;
-  int n = 0;
-  for (long long i = (long long)blockIdx.x * HOT_THREADS + threadIdx.x;
-       i < hw; i += (long long)gridDim.x * HOT_THREADS) {
-    n += (__ldg(img + i) >= thresh) ? 1 : 0;
+  float* o = out + (size_t)b * hw;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) s_n = 0;
+  __syncthreads();
+  for (long long t0 = (long long)blockIdx.x * HOT_TILE; t0 < hw;
+       t0 += (long long)gridDim.x * HOT_TILE) {
+    // pixel u * 4 + e of this thread's tile part: VEC, vector u of the
+    // thread (16 bytes at t0 + (u * HOT_THREADS + tid) * 4); else element
+    // t0 + (u * 4 + e) * HOT_THREADS + tid
+    float v[HOT_UNROLL * 4];
+    long long base[HOT_UNROLL];
+#pragma unroll
+    for (int u = 0; u < HOT_UNROLL; ++u) {
+      base[u] = t0 + ((long long)u * HOT_THREADS + threadIdx.x) * 4;
+      if (VEC) {
+        if (base[u] < hw) {  // hw % 4 == 0: the vector is whole
+          const float4 q = __ldg(reinterpret_cast<const float4*>(img + base[u]));
+          v[4 * u] = q.x;
+          v[4 * u + 1] = q.y;
+          v[4 * u + 2] = q.z;
+          v[4 * u + 3] = q.w;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long i = t0 + (long long)(u * 4 + e) * HOT_THREADS + threadIdx.x;
+          if (i < hw) v[4 * u + e] = __ldg(img + i);
+        }
+      }
+    }
+    unsigned mask = 0;
+#pragma unroll
+    for (int u = 0; u < HOT_UNROLL; ++u) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long i =
+            VEC ? base[u] + e
+                : t0 + (long long)(u * 4 + e) * HOT_THREADS + threadIdx.x;
+        if (i < hw && v[4 * u + e] >= thresh) mask |= 1u << (4 * u + e);
+      }
+      if (VEC) {
+        if (base[u] < hw) {
+          *reinterpret_cast<float4*>(o + base[u]) =
+              make_float4(v[4 * u], v[4 * u + 1], v[4 * u + 2], v[4 * u + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long i = t0 + (long long)(u * 4 + e) * HOT_THREADS + threadIdx.x;
+          if (i < hw) o[i] = v[4 * u + e];
+        }
+      }
+    }
+    if (__any_sync(0xffffffffu, mask)) {  // rare: a warp met a candidate
+      const int n = __popc(mask);
+      int incl = n;  // inclusive prefix over the warp's lanes
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += y;
+      }
+      int wbase = 0;
+      if (lane == 31) wbase = atomicAdd(&s_n, incl);
+      int slot = __shfl_sync(0xffffffffu, wbase, 31) + incl - n;
+      while (mask) {
+        const int k = __ffs(mask) - 1;
+        mask &= mask - 1;
+        if (slot < max_hot) {
+          const int u = k >> 2, e = k & 3;
+          s_list[slot] = (int)(VEC ? base[u] + e
+                                   : t0 + (long long)k * HOT_THREADS + threadIdx.x);
+        }
+        ++slot;
+      }
+    }
   }
-  n = __reduce_add_sync(0xffffffffu, n);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = n;
   __syncthreads();
   if (threadIdx.x == 0) {
-    int s = 0;
-    for (int i = 0; i < HOT_THREADS / 32; ++i) s += red[i];
-    if (s) atomicAdd(counts + b, s);
+    const int n = s_n;
+    const int first = atomicAdd(counts + b, n);
+    for (int j = 0; j < n && first + j < max_hot; ++j) {
+      cands[(size_t)b * max_hot + first + j] = s_list[j];
+    }
   }
 }
 
@@ -1472,36 +1566,35 @@ __device__ __forceinline__ float tmax(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-__global__ void __launch_bounds__(HOT_THREADS)
-hot_fix_kernel(const float* __restrict__ in, const int* __restrict__ counts,
-               float* __restrict__ out, int H, int W, float thresh,
-               float min_change, int max_hot) {
-  const int b = blockIdx.y;
+// one warp a frame (blockIdx.x); lane j repairs the frame's j-th candidate
+__global__ void hot_repair_kernel(const float* __restrict__ in,
+                                  const int* __restrict__ counts,
+                                  const int* __restrict__ cands,
+                                  float* __restrict__ out, int H, int W,
+                                  float min_change, int max_hot) {
+  const int b = blockIdx.x;
+  const int n = counts[b];
+  if (n > max_hot || (int)threadIdx.x >= n) return;
   const long long hw = (long long)H * W;
-  const long long i = (long long)blockIdx.x * HOT_THREADS + threadIdx.x;
-  if (i >= hw) return;
   const float* img = in + (size_t)b * hw;
+  const long long i = cands[(size_t)b * max_hot + threadIdx.x];
   const float x = img[i];
-  float v = x;
-  if (x >= thresh && counts[b] <= max_hot) {
-    const float big = 3.0e38f;  // missing neighbour (ops/image.py)
-    const int y = (int)(i / W);
-    const int c = (int)(i - (long long)y * W);
-    const float up = y > 0 ? img[i - W] : big;
-    const float down = y < H - 1 ? img[i + W] : big;
-    const float left = c > 0 ? img[i - 1] : big;
-    const float right = c < W - 1 ? img[i + 1] : big;
-    const int n_valid = 4 - (up >= big) - (down >= big) - (left >= big) -
-                        (right >= big);
-    // 4-element sorting network: 2nd and 3rd smallest
-    const float mid_lo = tmax(tmin(up, down), tmin(left, right));
-    const float mid_hi = tmin(tmax(up, down), tmax(left, right));
-    const float s2 = tmin(mid_lo, mid_hi);
-    const float s3 = tmax(mid_lo, mid_hi);
-    const float median = n_valid == 4 ? s3 : s2;
-    if (x - median > min_change) v = median;
-  }
-  out[(size_t)b * hw + i] = v;
+  const float big = 3.0e38f;  // missing neighbour (ops/image.py)
+  const int y = (int)(i / W);
+  const int c = (int)(i - (long long)y * W);
+  const float up = y > 0 ? img[i - W] : big;
+  const float down = y < H - 1 ? img[i + W] : big;
+  const float left = c > 0 ? img[i - 1] : big;
+  const float right = c < W - 1 ? img[i + 1] : big;
+  const int n_valid = 4 - (up >= big) - (down >= big) - (left >= big) -
+                      (right >= big);
+  // 4-element sorting network: 2nd and 3rd smallest
+  const float mid_lo = tmax(tmin(up, down), tmin(left, right));
+  const float mid_hi = tmin(tmax(up, down), tmax(left, right));
+  const float s2 = tmin(mid_lo, mid_hi);
+  const float s3 = tmax(mid_lo, mid_hi);
+  const float median = n_valid == 4 ? s3 : s2;
+  if (x - median > min_change) out[(size_t)b * hw + i] = median;
 }
 
 Taps make_taps(int k, float t0, float t1, float t2, float t3, float t4,
@@ -1675,6 +1768,49 @@ int launch_gn_fused(const T* imgs, const T* tmpl, const float* warps,
   return (int)cudaGetLastError();
 }
 
+// K6's grid: (blocks a frame, frames), one wave of resident blocks in all;
+// the vector route when every frame starts 16-byte aligned
+int launch_hot(const float* in, int* lists, float* out, int B, int H, int W,
+               float thresh, float min_change, int max_hot, void* stream) {
+  static int occ = 0;  // resident blocks an SM (the same for both routes)
+  static int sms = 0;
+  if (max_hot < 0 || max_hot > HOT_MAX_LIST) return (int)cudaErrorInvalidValue;
+  if (sms == 0) {
+    int dev, n;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, hot_scan_kernel<true>, HOT_THREADS, 0);
+    }
+    if (err != cudaSuccess) return (int)err;
+    sms = n;
+  }
+  const long long hw = (long long)H * W;
+  const long long tiles = (hw + HOT_TILE - 1) / HOT_TILE;
+  const long long per_frame = (long long)max(occ, 1) * sms / B;
+  const dim3 grid((unsigned)max(1LL, min(per_frame, tiles)), B);
+  int* counts = lists;
+  int* cands = lists + B;
+  const bool vec = hw % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(in) |
+                     reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  if (vec) {
+    hot_scan_kernel<true><<<grid, HOT_THREADS, 0, (cudaStream_t)stream>>>(
+        in, out, counts, cands, hw, thresh, max_hot);
+  } else {
+    hot_scan_kernel<false><<<grid, HOT_THREADS, 0, (cudaStream_t)stream>>>(
+        in, out, counts, cands, hw, thresh, max_hot);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  hot_repair_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
+      in, counts, cands, out, H, W, min_change, max_hot);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -1762,21 +1898,13 @@ int upsp_ecc_gn_fused_bf16(const bf16* imgs, const bf16* tmpl,
                          out, B, H, W, stream);
 }
 
-// `counts` is (B,) int32 and must hold zeros on entry
-int upsp_ecc_hot(const float* in, int* counts, float* out, int B, int H,
+// `lists` is (B * (1 + max_hot),) int32: the B counts, which must hold
+// zeros on entry, then B lists of max_hot candidate slots
+int upsp_ecc_hot(const float* in, int* lists, float* out, int B, int H,
                  int W, float thresh, float min_change, int max_hot,
                  void* stream) {
-  const long long hw = (long long)H * W;
-  const int per_block = HOT_THREADS * HOT_PER_THREAD;
-  const int nblk = (int)((hw + per_block - 1) / per_block);
-  hot_count_kernel<<<dim3(nblk, B), HOT_THREADS, 0, (cudaStream_t)stream>>>(
-      in, counts, hw, thresh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int fblk = (int)((hw + HOT_THREADS - 1) / HOT_THREADS);
-  hot_fix_kernel<<<dim3(fblk, B), HOT_THREADS, 0, (cudaStream_t)stream>>>(
-      in, counts, out, H, W, thresh, min_change, max_hot);
-  return (int)cudaGetLastError();
+  return launch_hot(in, lists, out, B, H, W, thresh, min_change, max_hot,
+                    stream);
 }
 
 }  // extern "C"

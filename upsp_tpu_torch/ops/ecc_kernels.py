@@ -17,7 +17,7 @@ wrapper here that
 | :func:`warp_affine_banded` | K2 ``warp_kernel`` | ``_warp_banded_batched`` (:285) |
 | :func:`ecc_gn_moments` | K3 ``moments_kernel`` | ``_moments_batched`` (:587) |
 | :func:`warp_filter` | K4 ``warp_filter_kernel`` | ``_warp_filter_batched`` (:444) |
-| :func:`fix_hot_pixels_kernel` | K6 ``hot_count_kernel`` + ``hot_fix_kernel`` | ``_hot_batched`` (:739) |
+| :func:`fix_hot_pixels_kernel` | K6 ``hot_scan_kernel`` + ``hot_repair_kernel`` | ``_hot_batched`` (:739) |
 | :func:`ecc_gn_fused` | K9 ``gn_fused_kernel`` | ``_gn_fused_batched`` (:1044) |
 
 K1-K4 and K9 take float32 or bfloat16 images, as the JAX kernels do under
@@ -37,6 +37,7 @@ at first use, into ``build/torch_kernels/`` at the repository root
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -239,18 +240,22 @@ def _warp_f32(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
     return out + 0.5 * dx * dx * gxx + dx * dy * gxy + 0.5 * dy * dy * gyy
 
 
-def _kshift(tmpl: torch.Tensor) -> torch.Tensor:
-    """The brightness shift mean(tmpl), in the template's dtype as
-    ``jnp.mean`` gives it (bf16 rounded), as f32."""
-    return tmpl.float().mean().to(tmpl.dtype).float()
+def template_shift(tmpl: torch.Tensor) -> torch.Tensor:
+    """(1,) f32: the brightness shift mean(tmpl), in the template's dtype as
+    ``jnp.mean`` gives it (bf16 rounded).  K3 takes it as ``kshift``; a
+    caller with a fixed template computes it once."""
+    return tmpl.float().mean().to(tmpl.dtype).float().reshape(1)
 
 
 def moments_plain(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
-                  mask_warps: torch.Tensor) -> torch.Tensor:
+                  mask_warps: torch.Tensor,
+                  kshift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, 128) raw GN statistics (layout of ``ecc_gn_moments``) from the
-    ``_ecc_core`` jnp step's fields, brightness-shifted by mean(tmpl);
-    f32 fields (bf16 widened), summed in f64."""
-    kshift = _kshift(tmpl)
+    ``_ecc_core`` jnp step's fields, brightness-shifted by mean(tmpl)
+    (``kshift``, :func:`template_shift` when None); f32 fields (bf16
+    widened), summed in f64."""
+    if kshift is None:
+        kshift = template_shift(tmpl)
     iw = iw.float()
     tmpl = tmpl.float()
     b, h, w = iw.shape
@@ -340,16 +345,20 @@ def warp_affine_banded(imgs: torch.Tensor, warps: torch.Tensor) -> torch.Tensor:
 
 
 def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
-                   mask_warps: torch.Tensor) -> torch.Tensor:
+                   mask_warps: torch.Tensor,
+                   kshift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: (B, 128) float32 raw GN statistics of warped images against one
     template of their dtype.  Layout as ``pallas_ecc.ecc_gn_moments``:
     [0:18] Hessian moments, [18:36] template/image/mask projections,
     [36:42] the masked sums [area, S_t, S_i, S_tt, S_ii, S_ti]; validity
-    from ``mask_warps``."""
+    from ``mask_warps``.  ``kshift``: the template's
+    :func:`template_shift`, computed here when None."""
     _check_stats_args(iw, tmpl, warps, mask_warps, "moments")
+    if kshift is None:
+        kshift = template_shift(tmpl)
     if iw.device.type == "cpu":
-        return moments_plain(iw, tmpl, warps, mask_warps)
-    return _launch_stats("moments", iw, tmpl, warps, mask_warps,
+        return moments_plain(iw, tmpl, warps, mask_warps, kshift)
+    return _launch_stats("moments", iw, tmpl, warps, mask_warps, kshift,
                          LIBRARY.lib().upsp_ecc_moments_blocks(*iw.shape[1:]))
 
 
@@ -363,6 +372,7 @@ def ecc_gn_fused(imgs: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
         return gn_fused_plain(imgs, tmpl, warps, mask_warps)
     b, h, w = imgs.shape
     return _launch_stats("gn_fused", imgs, tmpl, warps, mask_warps,
+                         template_shift(tmpl),
                          LIBRARY.lib().upsp_ecc_gn_fused_blocks(h, w))
 
 
@@ -379,10 +389,12 @@ def _check_stats_args(imgs, tmpl, warps, mask_warps, name: str) -> None:
         raise ValueError(f"{name}: template must be contiguous, same device")
 
 
-def _launch_stats(name, imgs, tmpl, warps, mask_warps, nblk: int):
+def _launch_stats(name, imgs, tmpl, warps, mask_warps, kshift, nblk: int):
     """K3 or K9: per-block f64 partials, then their fixed-order sum."""
     b, h, w = imgs.shape
-    kshift = _kshift(tmpl).reshape(1)
+    if (kshift.shape != (1,) or kshift.dtype != torch.float32
+            or kshift.device != imgs.device):
+        raise ValueError(f"{name}: kshift must be (1,) float32 on the images' device")
     partials = torch.empty((b, nblk, NSTAT), dtype=torch.float64,
                            device=imgs.device)
     out = torch.empty((b, 128), dtype=torch.float32, device=imgs.device)
@@ -418,7 +430,10 @@ def fix_hot_pixels_kernel(imgs: torch.Tensor) -> torch.Tensor:
     """K6: hot-pixel repair of a (..., H, W) float32 stack, each frame on
     its own, with the ``fix_hot_pixels`` defaults: a pixel >= 4064 that is
     more than 512 above its 4-neighbour median takes the median, and a
-    frame with more than 5 such candidates is left unchanged."""
+    frame with more than 5 such candidates is left unchanged.  On the card
+    one pass copies each frame and lists its candidates, then a second
+    kernel repairs the listed ones (``tests/test_torch_hot_candidates.py``
+    emulates both)."""
     if not isinstance(imgs, torch.Tensor) or imgs.dim() < 2:
         raise ValueError("hot: images must be a (..., H, W) tensor")
     if imgs.dtype != torch.float32:
@@ -434,9 +449,10 @@ def fix_hot_pixels_kernel(imgs: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(imgs)
     if b == 0 or h * w == 0:
         return out
-    counts = torch.zeros(b, dtype=torch.int32, device=imgs.device)
+    # the B per-frame counts (zero on entry), then B lists of HOT_MAX slots
+    lists = torch.zeros(b * (1 + HOT_MAX), dtype=torch.int32, device=imgs.device)
     rc = LIBRARY.lib().upsp_ecc_hot(
-        imgs.data_ptr(), counts.data_ptr(), out.data_ptr(), b, h, w,
+        imgs.data_ptr(), lists.data_ptr(), out.data_ptr(), b, h, w,
         float(HOT_THRESH), float(HOT_MIN_CHANGE), HOT_MAX, stream_of(imgs),
     )
     check_rc(rc, "hot")
@@ -463,14 +479,20 @@ def filter_taps(filter_type: str, ksize: int) -> Optional[Tuple[float, ...]]:
     return None
 
 
+@functools.lru_cache(maxsize=None)
+def _corners(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """(4, 2) [x, y] corners of an (h, w) image, made once per device."""
+    return torch.tensor(
+        [[0.0, 0.0], [w - 1.0, 0.0], [0.0, h - 1.0], [w - 1.0, h - 1.0]],
+        dtype=torch.float32, device=device,
+    )
+
+
 def warp_displacement_bound(warps: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B,) worst-case |sample displacement| (px, L-inf) of affine warps
     over an (h, w) image: the displacement field is affine, so its extrema
     sit at the four corners (pallas_ecc.py:312)."""
-    corners = torch.tensor(
-        [[0.0, 0.0], [w - 1.0, 0.0], [0.0, h - 1.0], [w - 1.0, h - 1.0]],
-        dtype=torch.float32, device=warps.device,
-    )
+    corners = _corners(h, w, warps.device)
     wf = warps.to(torch.float32)
     pos = torch.einsum("kj,bij->bki", corners, wf[:, :, :2]) + wf[:, None, :, 2]
     return (pos - corners).abs().amax(dim=(1, 2))

@@ -9,7 +9,7 @@ and a 3-point parabolic sub-pixel fit per axis.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,16 +31,27 @@ def _pool_matrix(n: int, k: int, device) -> torch.Tensor:
     return torch.where(cols // k == rows, one, torch.zeros_like(one))
 
 
-def decimate_image(img: torch.Tensor, k: int) -> torch.Tensor:
+def pool_matrices(h: int, w: int, k: int, device):
+    """(P_h, P_w^T) of :func:`decimate_image` for (h, w) images; None when
+    k == 1."""
+    if k == 1:
+        return None
+    return (_pool_matrix((h // k) * k, k, device),
+            _pool_matrix((w // k) * k, k, device).T)
+
+
+def decimate_image(img: torch.Tensor, k: int, pools=None) -> torch.Tensor:
     """k x k average pool of (..., H, W), cropped to a multiple of k first
-    (P_h @ img @ P_w^T, as the JAX package computes it)."""
+    (P_h @ img @ P_w^T, as the JAX package computes it).  ``pools``: the
+    :func:`pool_matrices` of this size and device, made here when None."""
     img = img.to(torch.float32)
     if k == 1:
         return img
     h, w = img.shape[-2:]
-    hh, ww = (h // k) * k, (w // k) * k
-    x = img[..., :hh, :ww]
-    return _pool_matrix(hh, k, img.device) @ x @ _pool_matrix(ww, k, img.device).T
+    if pools is None:
+        pools = pool_matrices(h, w, k, img.device)
+    p_h, p_wt = pools
+    return p_h @ img[..., : p_h.shape[1], : p_wt.shape[0]] @ p_wt
 
 
 def _pow2_floor(n: int) -> int:
@@ -76,6 +87,10 @@ class CorrelationTemplate(NamedTuple):
     decimate: int
     hw: tuple  # pooled, cropped (h, w)
     prior: torch.Tensor  # (h, w) float32 peak prior
+    # decimate_image's (P_h, P_w^T) for the template's size (None if
+    # decimate == 1), made once so that correlate copies nothing to the
+    # device
+    pools: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def _displacement_prior(h: int, w: int, sigma: float, device) -> torch.Tensor:
@@ -93,21 +108,23 @@ def prepare_template(ref: torch.Tensor, decimate: int = 1,
                      prior_sigma_px: float = 12.0) -> CorrelationTemplate:
     """Template spectrum for :func:`correlate` (Hann window on; prior width
     in full-resolution pixels)."""
-    small = pow2_center_crop(decimate_image(ref, decimate))
+    pools = pool_matrices(*ref.shape[-2:], decimate, ref.device)
+    small = pow2_center_crop(decimate_image(ref, decimate, pools))
     h, w = small.shape
     win = _hann(h, ref.device)[:, None] * _hann(w, ref.device)[None, :]
     prior = _displacement_prior(h, w, prior_sigma_px / decimate, ref.device)
     return CorrelationTemplate(
         spectrum=torch.fft.rfft2(small * win), window=win, decimate=decimate,
-        hw=(h, w), prior=prior,
+        hw=(h, w), prior=prior, pools=pools,
     )
 
 
 def correlate(tmpl: CorrelationTemplate, imgs: torch.Tensor) -> torch.Tensor:
     """(B, 2) float32 [tx, ty] in full-resolution pixels for (B, H, W)
-    frames: sampling a frame at (x + tx, y + ty) reproduces the template."""
+    frames of the template's size: sampling a frame at (x + tx, y + ty)
+    reproduces the template."""
     h, w = tmpl.hw
-    small = pow2_center_crop(decimate_image(imgs, tmpl.decimate))
+    small = pow2_center_crop(decimate_image(imgs, tmpl.decimate, tmpl.pools))
     img_f = torch.fft.rfft2(small * tmpl.window)
     cross = tmpl.spectrum * torch.conj(img_f)
     cross = cross / (cross.abs() + 1e-8)

@@ -3,11 +3,13 @@ twin.
 
 Counterpart of ``upsp_tpu/ops/pallas_gather.py``.  On the best-view path
 every node sees at most one camera, so a frame batch projects with ONE
-gather from the stacked (B, C*H*W) processed frames.  The port keeps that
-module's contract — supersession composed into the sources, the skip mask
-applied, patch overlays on every node whose primary is overlaid — and not
-its slot order: the kernel writes model order directly, so there is no
-host un-permute (``finalize_host``) and no node-count gate.
+gather from the C cameras' processed frames, indexed as if stacked into
+(B, C*H*W).  The port keeps that module's contract — supersession composed
+into the sources, the skip mask applied, patch overlays on every node whose
+primary is overlaid — and not its slot order: the kernel writes model
+order directly, so there is no host un-permute (``finalize_host``) and no
+node-count gate.  It reads the C (B, H, W) camera images where they are
+(no stacked copy), or one (B, C*H*W) stack.
 
 | wrapper | kernel | replaces |
 | --- | --- | --- |
@@ -19,15 +21,20 @@ output is float32 either way, each pixel widened before its one multiply
 and ``gather_bf16``.
 
 :func:`build_gather_plan` runs once, when the phase-1 parameters are
-derived; :func:`gather_plain` is the port's plain tail (gather, NaN for
-skipped nodes, overlap supersession) and the kernel's oracle.
+derived.  It cuts the nodes into tiles of :data:`GATHER_TILE` consecutive
+model-order nodes, one block of the kernel each, and sorts each tile's
+entries by source pixel (``tests/test_torch_gather_tiles.py`` streams the
+plan tile by tile in torch).  :func:`gather_plain` is the port's plain
+tail (gather, NaN for skipped nodes, overlap supersession) and the
+kernel's oracle.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Sequence, Tuple
+import math
+from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,12 +48,14 @@ from upsp_tpu_torch.ops.cuda_lib import (
 )
 
 KERNELS = register_kernels(("gather", "gather_bf16"))
+GATHER_TILE = 4096  # model-order nodes a tile: a block of csrc/gather.cu
+GATHER_MAX_CAMS = 8  # camera images one launch takes (csrc/gather.cu)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.upsp_gather, lib.upsp_gather_bf16):
-        fn.argtypes = [p, p, p, p, p, i, ctypes.c_longlong, i, p]
+        fn.argtypes = [ctypes.POINTER(p), i, i, p, p, p, p, i, i, i, p]
         fn.restype = i
 
 
@@ -59,7 +68,8 @@ class GatherPlan:
     order.  ``skipped`` and ``superseded_by`` are the tensors it was built
     from (the phase-1 parameters'), not copies."""
 
-    # kernel order: nodes sorted by source pixel
+    # kernel order: tiles of ``tile`` model-order nodes, each tile's
+    # entries sorted by source pixel
     src: torch.Tensor  # (N,) int32 into (C*H*W,) frames; -1 = skipped (NaN)
     weight: torch.Tensor  # (N,) float32
     node: torch.Tensor  # (N,) int32 model node written
@@ -72,6 +82,7 @@ class GatherPlan:
     # of every node whose primary is an overlaid, non-skipped node
     overlays: Tuple = ()
     n_pixels: int = 0  # C*H*W
+    tile: int = GATHER_TILE
 
     @property
     def n_nodes(self) -> int:
@@ -99,7 +110,8 @@ def build_gather_plan(combined_index, combined_weight, skipped, superseded_by,
     n = ci.shape[0]
     skipped_primary = sk[sup]
     src = np.where(skipped_primary, -1, ci[sup])
-    order = np.argsort(src, kind="stable")
+    # tile by tile in model order; by source within a tile (stable)
+    order = np.lexsort((src, np.arange(n) // GATHER_TILE))
     overlays = []
     for cn in corr_nodes:
         if cn is None:
@@ -131,49 +143,85 @@ def build_gather_plan(combined_index, combined_weight, skipped, superseded_by,
         superseded_by=t(superseded_by, torch.int64),
         overlays=tuple(overlays),
         n_pixels=int(n_pixels),
+        tile=GATHER_TILE,
     )
 
 
-def gather_plain(stacked: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
-    """(B, C*H*W) stacked frames (float32 or bfloat16) -> (B, N) float32:
-    the combined gather, NaN for skipped nodes, then overlap supersession
-    (model order throughout)."""
+Frames = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def _stack(frames: Frames) -> torch.Tensor:
+    if isinstance(frames, torch.Tensor):
+        return frames
+    return torch.stack(list(frames), dim=1).reshape(frames[0].shape[0], -1)
+
+
+def gather_plain(frames: Frames, plan: GatherPlan) -> torch.Tensor:
+    """(B, C*H*W) stacked frames, or the C (B, H, W) camera images (float32
+    or bfloat16) -> (B, N) float32: the combined gather, NaN for skipped
+    nodes, then overlap supersession (model order throughout)."""
+    stacked = _stack(frames)
     sol = stacked[:, plan.combined_index].float() * plan.combined_weight
     sol = torch.where(plan.skipped, torch.full_like(sol, float("nan")), sol)
     return sol[:, plan.superseded_by]
 
 
-def project_gather(stacked: torch.Tensor, plan: GatherPlan) -> torch.Tensor:
-    """K5: :func:`gather_plain` of a (B, C*H*W) float32 or bfloat16 frame
-    stack in one pass, on the stack's device; float32 out."""
-    if not isinstance(stacked, torch.Tensor) or stacked.dim() != 2:
-        raise ValueError("gather: stacked frames must be a (B, C*H*W) tensor")
-    if (stacked.dtype not in (torch.float32, torch.bfloat16)
-            or not stacked.is_contiguous()):
-        raise TypeError(
-            "gather: stacked frames must be contiguous float32 or bfloat16"
-        )
-    if stacked.shape[1] != plan.n_pixels:
+def _camera_images(frames: Frames, plan: GatherPlan):
+    """Check ``frames``; returns (images, pixels a frame of each): the
+    camera images as the kernel reads them (one stack is one "camera" of
+    C*H*W pixels)."""
+    if isinstance(frames, torch.Tensor):
+        if frames.dim() != 2:
+            raise ValueError("gather: stacked frames must be a (B, C*H*W) tensor")
+        cams = [frames]
+    else:
+        cams = list(frames)
+        if not cams or len(cams) > GATHER_MAX_CAMS:
+            raise ValueError(
+                f"gather: 1 to {GATHER_MAX_CAMS} camera images, got {len(cams)}"
+            )
+        if any(not isinstance(c, torch.Tensor) or c.dim() != 3 for c in cams):
+            raise ValueError("gather: camera images must be (B, H, W) tensors")
+        if any(c.shape != cams[0].shape for c in cams):
+            raise ValueError("gather: camera images of different shapes")
+    first = cams[0]
+    if any(c.dtype != first.dtype or c.device != first.device for c in cams):
+        raise TypeError("gather: camera images of different dtypes or devices")
+    if (first.dtype not in (torch.float32, torch.bfloat16)
+            or not all(c.is_contiguous() for c in cams)):
+        raise TypeError("gather: frames must be contiguous float32 or bfloat16")
+    per_cam = math.prod(first.shape[1:])
+    if per_cam * len(cams) != plan.n_pixels:
         raise ValueError(
-            f"gather: {stacked.shape[1]} pixels per frame, the plan has "
+            f"gather: {per_cam * len(cams)} pixels per frame, the plan has "
             f"{plan.n_pixels}"
         )
-    if plan.src.device != stacked.device:
+    if plan.src.device != first.device:
         raise ValueError("gather: plan and frames on different devices")
-    if stacked.device.type == "cpu":
-        return gather_plain(stacked, plan)
-    if stacked.device.type != "cuda":
-        raise ValueError(f"gather: unsupported device {stacked.device}")
-    b = stacked.shape[0]
+    return cams, per_cam
+
+
+def project_gather(frames: Frames, plan: GatherPlan) -> torch.Tensor:
+    """K5: :func:`gather_plain` in one pass, on the frames' device, float32
+    out.  ``frames``: the C (B, H, W) camera images, read in place, or one
+    (B, C*H*W) stack; float32 or bfloat16."""
+    cams, per_cam = _camera_images(frames, plan)
+    first = cams[0]
+    if first.device.type == "cpu":
+        return gather_plain(frames, plan)
+    if first.device.type != "cuda":
+        raise ValueError(f"gather: unsupported device {first.device}")
+    b = first.shape[0]
     n = plan.n_nodes
-    out = torch.empty((b, n), dtype=torch.float32, device=stacked.device)
+    out = torch.empty((b, n), dtype=torch.float32, device=first.device)
     if b and n:
-        bf16 = stacked.dtype == torch.bfloat16
+        bf16 = first.dtype == torch.bfloat16
         lib = LIBRARY.lib()
+        ptrs = (ctypes.c_void_p * len(cams))(*(c.data_ptr() for c in cams))
         rc = (lib.upsp_gather_bf16 if bf16 else lib.upsp_gather)(
-            stacked.data_ptr(), plan.src.data_ptr(), plan.weight.data_ptr(),
-            plan.node.data_ptr(), out.data_ptr(), n, plan.n_pixels, b,
-            stream_of(stacked),
+            ptrs, len(cams), per_cam, plan.src.data_ptr(),
+            plan.weight.data_ptr(), plan.node.data_ptr(), out.data_ptr(), n, b,
+            plan.tile, stream_of(first),
         )
         check_rc(rc, "gather")
         count_launch("gather_bf16" if bf16 else "gather")

@@ -26,6 +26,7 @@ from upsp_tpu_torch.ops.ecc_kernels import (
     blur,
     ecc_gn_moments,
     ecc_statistics_from_moments,
+    template_shift,
     warp_affine_banded,
 )
 from upsp_tpu_torch.ops.image import gaussian_blur, gaussian_kernel_1d
@@ -80,9 +81,10 @@ def ecc_blur(imgs: torch.Tensor, gauss_size: int = 5) -> torch.Tensor:
     return gaussian_blur(imgs, gauss_size).contiguous()
 
 
-def _gn_step(img, tmpl, warp, rho_prev, valid_shift):
-    """One Gauss-Newton step (``body_pallas``): K2 warp, K3 statistics,
-    closed-form ECC update."""
+def _gn_step(img, tmpl, kshift, warp, rho_prev, valid_shift):
+    """One Gauss-Newton step (``body_pallas``): K2 warp, K3 statistics
+    (``kshift``: the template's brightness shift), closed-form ECC
+    update."""
     iw = warp_affine_banded(img, warp)
     if valid_shift is None:
         mask_warp = warp
@@ -90,7 +92,7 @@ def _gn_step(img, tmpl, warp, rho_prev, valid_shift):
         mask_warp = torch.cat(
             [warp[:, :, :2], (warp[:, :, 2] + valid_shift)[:, :, None]], dim=2
         ).contiguous()
-    mom = ecc_gn_moments(iw, tmpl, warp, mask_warp)
+    mom = ecc_gn_moments(iw, tmpl, warp, mask_warp, kshift)
     hmat, i_proj, t_proj, iw_norm2, corr, tmpl_norm, _ = (
         ecc_statistics_from_moments(mom)
     )
@@ -123,6 +125,7 @@ def ecc_affine(
     gauss_size: int = 5,
     valid_shift: Optional[torch.Tensor] = None,
     tmpl_blurred: Optional[torch.Tensor] = None,
+    tmpl_shift: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Align (B, H, W) ``inp`` to the (H, W) template ``ref`` by a fixed
     number of ECC Gauss-Newton steps.
@@ -131,7 +134,8 @@ def ecc_affine(
     |rho - rho_prev|, the convergence signal of the fixed-iteration form.
     ``tmpl_blurred`` passes a template already blurred by :func:`ecc_blur`
     in the images' dtype (the chunk processor blurs each camera's template
-    once).
+    once), and ``tmpl_shift`` its :func:`template_shift` (computed here
+    when None).
     """
     b = inp.shape[0]
     dev = inp.device
@@ -143,6 +147,7 @@ def ecc_affine(
         tmpl_blurred if tmpl_blurred is not None
         else ecc_blur(ref.to(im_dtype)[None], gauss_size)[0]
     ).contiguous()
+    kshift = template_shift(tmpl) if tmpl_shift is None else tmpl_shift
     img = ecc_blur(inp.to(im_dtype), gauss_size)
     warp = (
         identity_warp(b, dev) if warp_init is None
@@ -153,5 +158,5 @@ def ecc_affine(
     rho = torch.full((b,), -1.0, device=dev)
     drho = torch.full((b,), float("inf"), device=dev)
     for _ in range(max_iters):
-        warp, rho, drho = _gn_step(img, tmpl, warp, rho, valid_shift)
+        warp, rho, drho = _gn_step(img, tmpl, kshift, warp, rho, valid_shift)
     return warp, rho, drho

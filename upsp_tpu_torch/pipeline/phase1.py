@@ -32,6 +32,7 @@ import torch
 from upsp_tpu_torch.ops.ecc_kernels import (
     filter_taps,
     fix_hot_pixels_kernel,
+    template_shift,
     warp_affine_banded,
     warp_displacement_bound,
     warp_filter,
@@ -77,7 +78,8 @@ class Phase1Params:
     # the (filter_type, filter_size) the corrections were precomposed for
     corr_filter: Optional[Tuple[str, int]] = None
     # best-view fast path (every node has at most one positive camera
-    # weight): the K5 plan of ONE gather from the stacked (C*H*W,) frames,
+    # weight): the K5 plan of ONE gather from the C cameras' frames,
+    # indexed as if stacked into (C*H*W,),
     # with the per-camera patch overlays (ops/gather_kernels.py)
     gather: Optional[GatherPlan] = None
 
@@ -171,6 +173,7 @@ def process_frames_core(
     valid_shift: Optional[torch.Tensor] = None,  # (B, C, 2) pre-shift
     fix_hot: bool = True,
     ecc_templates: Optional[List[torch.Tensor]] = None,  # blurred, per cam
+    ecc_shifts: Optional[List[torch.Tensor]] = None,  # their template_shift
     compute_dtype: torch.dtype = torch.float32,  # images between stages
 ):
     """A frame batch -> (intensity (B, N), warps (B, C, 2, 3), telemetry
@@ -196,6 +199,7 @@ def process_frames_core(
                 max_iters=ECC_ITERS, gauss_size=ECC_GAUSS_SIZE,
                 valid_shift=vs_c,
                 tmpl_blurred=None if ecc_templates is None else ecc_templates[c],
+                tmpl_shift=None if ecc_shifts is None else ecc_shifts[c],
             )
             t_tot = warp[:, :, 2] if vs_c is None else warp[:, :, 2] + vs_c
             cert = warp_displacement_bound(warp, h, w)
@@ -228,15 +232,15 @@ def process_frames_core(
                 img = apply_patches(img, params.patch_ops[c])
             img = apply_filter(img, filter_type, filter_size)
         if params.gather is not None:
-            processed.append(img)
+            processed.append(img.contiguous())
         else:
             c_sol = project_frame(img, params.projections[c])
             sol = c_sol if sol is None else sol + c_sol
     if params.gather is not None:
-        # K5: gather + skip mask + supersession in model order, then the
-        # patch overlays on every node that displays an overlaid node
-        stacked = torch.stack(processed, dim=1).reshape(b, -1)
-        sol = apply_overlays(project_gather(stacked, params.gather),
+        # K5: gather + skip mask + supersession in model order from the
+        # camera images as they are, then the patch overlays on every node
+        # that displays an overlaid node
+        sol = apply_overlays(project_gather(processed, params.gather),
                              params.gather, overlays)
     else:
         sol = torch.where(params.skipped, torch.full_like(sol, float("nan")), sol)
@@ -291,6 +295,8 @@ def make_chunk_processor(state, with_telemetry: bool = False,
                      ECC_GAUSS_SIZE)[0]
             for c in range(n_cams)
         ]
+        # and K3's brightness shift of each, once
+        ecc_shifts = [template_shift(t) for t in ecc_tmpls]
 
     unpack = (make_unpacker(packed_bits, lut, state.image_hw, state.device)
               if packed else None)
@@ -317,7 +323,7 @@ def make_chunk_processor(state, with_telemetry: bool = False,
         )
         sol, _, tele = process_frames_core(
             shifted, p, warp_init=init, valid_shift=t_int, fix_hot=False,
-            ecc_templates=ecc_tmpls, **static,
+            ecc_templates=ecc_tmpls, ecc_shifts=ecc_shifts, **static,
         )
         return sol, tele
 
