@@ -23,8 +23,8 @@ From the root of a checkout, on a machine with a CUDA device:
    with its sector floor; K6 also on an all-saturated frame and adjacent
    hot pixels; both bit-identical from call to call);
 4. drives four synthetic datapoints through scripts/upsp-process-torch,
-   each with the kernel launch counts reset just before and read just
-   after, packed ingest on and hot pixels injected, in this order:
+   each run (and (e), (f) below) with the kernel launch counts reset just
+   before and read just after, packed ingest on and hot pixels injected, in this order:
    (a) 2 cameras x 1024x1024 12-bit .mraw, 64 frames, 81,920 nodes;
    (c) 2 cameras x 1024x1024 10-bit packed .cine, 32 frames;
    (b) the full configuration: 4 cameras x 1200x1800 12-bit .mraw, 64
@@ -33,11 +33,22 @@ From the root of a checkout, on a machine with a CUDA device:
    then (b)'s files once more in f32 and in bf16, for a bf16-against-f32
    frames/s that (b)'s first run at 1200x1800 does not bias; every path
    uses polynomial patches, gaussian 3, best view and the fft warm start;
+   between (b) and (d), two out-of-core runs (``run_datapoint_streaming``):
+   (e) (b)'s files through ``upsp-process-torch --streaming`` in f32,
+       with its disk transpose (numpy, fewer rows than a native block)
+       timed against the native one on the same file;
+   (f) 256 frames at 1,048,576 nodes in this process, from a callable
+       source that tiles (b)'s 64 frames from one tensor on the card,
+       with its peak device memory and phase 2's memory per node block,
+       after a sweep of phase 2's memory against the frame count; then
+       the native and the numpy transpose of a 4096 x 32768 file;
 5. checks each path's outputs (all flat files, the registration sidecar,
    output.h5 where h5py is installed, finite values on visible nodes, the
    kernels the path must launch, and for (d) that no f32 ECC kernel ran)
    and one batch of its frames — packed bytes unpacked on the card —
-   against the port's CPU twin path; (d)'s batch also against (b)'s.
+   against the port's CPU twin path; (d)'s batch also against (b)'s; (e)'s
+   outputs against (b)'s, (f)'s first 64 intensity rows and frame
+   statistics against (b)'s.
 
 Prints the seconds of each phase, then the kernel table as one JSON line
 (per kernel: ``launches`` over the paths and ``launches_by_path``;
@@ -127,6 +138,13 @@ PATHS = [
 FULL = dict(n_cameras=FULL_C, image_hw=(FULL_H, FULL_W), n_frames=64,
             grid_shape=(1024, 1024))
 FULL_BATCH = slice(1, 3)
+# path (f): (b)'s 64 frames tiled to this many, streamed at 1,048,576 nodes
+LONG_FRAMES = 256
+# frame counts of the phase-2 memory sweep, at 65,536 nodes a block
+P2_SWEEP_FRAMES = (256, 1024, 4096, 8192)
+P2_NODE_BLOCK = 65536
+# the flat-file transpose timed with more frames than a native block
+TALL = (4096, 32768)
 FULL_PATHS = (
     ("b: full config, 4 x 1200x1800 mraw12, 64 frames, 1,048,576 nodes",
      "float32", FRAME_KERNELS + ("unpack12",)),
@@ -684,26 +702,35 @@ def write_path_datapoint(p, spec):
     return dp
 
 
-def cli_run(dp, dtype):
-    """The datapoint once through the CLI; prints and returns its stage
-    seconds (``--timings``)."""
+def print_stages(what, wall, t):
+    """Print a run's stage seconds (``stage_times``) and add its frames/s
+    over phase 1 less its set-up."""
+    t["frames_per_s"] = t["n_frames"] / (t["phase1"] - t["phase1_setup"])
+    transpose = (f"disk transpose {t['disk_transpose']:.3f} s; "
+                 if "disk_transpose" in t else "")
+    print(f"  {what} {wall:.2f} s: phase 0 {t['phase0']:.3f} s; phase 1 "
+          f"{t['phase1']:.3f} s = {t['n_frames'] / t['phase1']:.1f} frames/s, of "
+          f"which set-up {t['phase1_setup']:.3f} s and frames "
+          f"{t['phase1'] - t['phase1_setup']:.3f} s = {t['frames_per_s']:.1f} "
+          f"frames/s, ingest included; {transpose}phase 2 {t['phase2']:.3f} s; "
+          f"outputs {t['outputs']:.3f} s", flush=True)
+
+
+def cli_run(dp, dtype, streaming=False):
+    """The datapoint once through the CLI (out of core with ``streaming``);
+    prints and returns its stage seconds (``--timings``)."""
     import torch
 
     timings = os.path.join(os.path.dirname(dp["deck"]), "timings.json")
     t0 = time.perf_counter()
     run_cli([SCRIPT, "-input_deck", dp["deck"], "--registration-telemetry",
-             "--timings", timings, "--device", DEVICE, "--compute-dtype", dtype])
+             "--timings", timings, "--device", DEVICE, "--compute-dtype", dtype]
+            + (["--streaming"] if streaming else []))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with open(timings) as fh:
         t = json.load(fh)
-    t["frames_per_s"] = t["n_frames"] / (t["phase1"] - t["phase1_setup"])
-    print(f"  {dtype} CLI run {wall:.2f} s: phase 0 {t['phase0']:.3f} s; phase 1 "
-          f"{t['phase1']:.3f} s = {t['n_frames'] / t['phase1']:.1f} frames/s, of "
-          f"which set-up {t['phase1_setup']:.3f} s and frames "
-          f"{t['phase1'] - t['phase1_setup']:.3f} s = {t['frames_per_s']:.1f} "
-          f"frames/s, packed ingest included; phase 2 {t['phase2']:.3f} s; "
-          f"outputs {t['outputs']:.3f} s", flush=True)
+    print_stages(f"{dtype}{' streaming' if streaming else ''} CLI run", wall, t)
     return t
 
 
@@ -820,17 +847,281 @@ def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None):
     return counts, dict(gpu=gpu, tele=gtele, label=label.split(":")[0], stages=stages)
 
 
-def full_config_paths(by_path):
+def same_values(got, want, what, rtol=0.0, atol=0.0):
+    """NaN at the same places and the finite values within rtol/atol (both
+    0: equal); prints the largest difference."""
+    import numpy as np
+
+    v = np.isfinite(want)
+    d = np.abs(got[v].astype(np.float64) - want[v])
+    print(f"  {what}: max abs diff {d.max() if d.size else 0.0:.4g}", flush=True)
+    check(got.shape == want.shape and np.array_equal(np.isnan(got), np.isnan(want))
+          and bool((d <= atol + rtol * np.abs(want[v])).all()),
+          f"{what} within rtol {rtol:g}, atol {atol:g}")
+
+
+def timed_transpose(route, src, rows, cols, want):
+    """Time the ``route`` ("native" or "numpy") flat-file transpose of
+    ``src`` and require the bytes of ``want``, the transpose that the run
+    wrote by the other route; returns seconds."""
+    from upsp_tpu_torch import native
+
+    dst = f"{src}.{route}_transpose"
+    t0 = time.perf_counter()
+    getattr(native, f"transpose_f32_{route}")(src, dst, rows, cols)
+    sec = time.perf_counter() - t0
+    with open(dst, "rb") as a, open(want, "rb") as b:
+        same = True
+        while same:
+            x, y = a.read(1 << 26), b.read(1 << 26)
+            same = x == y
+            if not x:
+                break
+    os.remove(dst)
+    check(same, f"{route} transpose of {rows} x {cols} equals the run's "
+          f"({sec:.3f} s)")
+    return sec
+
+
+def tall_transpose(rows=TALL[0], cols=TALL[1]):
+    """The flat-file transpose of a (rows, cols) file with more frames
+    than a native block, as a production datapoint's node block has:
+    native (the route ``transpose_f32`` takes there) against numpy;
+    returns (native s, numpy s)."""
+    import torch
+
+    from upsp_tpu_torch import native
+
+    root = os.path.join(WORK, "b", "tall")
+    os.makedirs(root, exist_ok=True)
+    src, dst = os.path.join(root, "src"), os.path.join(root, "dst")
+    gen = torch.Generator(DEVICE).manual_seed(12)
+    with open(src, "wb") as fh:
+        for r0 in range(0, rows, 1024):
+            torch.rand(min(1024, rows - r0), cols, generator=gen,
+                       device=DEVICE).cpu().numpy().tofile(fh)
+    t0 = time.perf_counter()
+    native.transpose_f32(src, dst, rows, cols)
+    t_native = time.perf_counter() - t0
+    t_numpy = timed_transpose("numpy", src, rows, cols, dst)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"  disk transpose of {rows} x {cols} f32 ({rows * cols * 4 / 2**30:.2f} "
+          f"GiB): native {t_native:.3f} s, numpy {t_numpy:.3f} s", flush=True)
+    return t_native, t_numpy
+
+
+def streaming_cli_path(dp, n_nodes):
+    """Path (e): (b)'s files through ``upsp-process-torch --streaming`` in
+    f32, into an output directory of its own, with the launch counts reset
+    just before.  Its outputs are held against (b)'s, which are still on
+    disk: what phase 1 writes exactly (the frame statistics, summed in f64
+    in another order, within rtol 1e-5, carried to ratio_0 as atol 1e-5
+    since avg / I0 is near 1), phase 2 within tests/test_outputs.py's
+    bounds (rtol 1e-4, atol 1e-6).  Returns the launch counts, the stage
+    seconds and (b)'s first 64 intensity rows and frame statistics."""
+    import numpy as np
+
+    from upsp_tpu_torch.io.flatfile import FLAT_FILES, read_flat
+    from upsp_tpu_torch.ops import cuda_lib
+
+    print("  -- path e: (b)'s files through upsp-process-torch --streaming, f32",
+          flush=True)
+    root = os.path.join(WORK, "b", "e")
+    os.makedirs(root)
+    out = os.path.join(root, "out")
+    with open(dp["deck"]) as fh:
+        deck = fh.read()
+    check(deck.count(dp["out_dir"]) == 1, "path (e)'s deck names (b)'s output dir once")
+    e_dp = dict(deck=os.path.join(root, "deck.inp"))
+    with open(e_dp["deck"], "w") as fh:
+        fh.write(deck.replace(dp["out_dir"], out))
+    cuda_lib.reset_launch_counts()
+    stages = cli_run(e_dp, "float32", streaming=True)
+    counts = cuda_lib.launch_counts()
+    print(f"  launches on this path: {counts}", flush=True)
+    for name in FRAME_KERNELS + ("unpack12",):
+        check(counts[name] > 0, f"kernel {name} launched on this path")
+    for name in FLAT_FILES:
+        check(os.path.exists(os.path.join(out, name)), f"output {name}")
+    tol = {"intensity_avg": dict(rtol=1e-5), "intensity_rms": dict(rtol=1e-5),
+           "intensity_ratio_0": dict(atol=1e-5), "pressure_transpose": dict(
+               rtol=1e-4, atol=1e-6), "avg": dict(rtol=1e-4, atol=1e-6),
+           "rms": dict(rtol=1e-4, atol=1e-6)}
+    b_out = {}
+    for name in ("intensity", "intensity_avg", "intensity_rms", "intensity_ratio_0",
+                 "coverage", "gain", "steady_state", "model_temp",
+                 "pressure_transpose", "avg", "rms"):
+        want = read_flat(os.path.join(dp["out_dir"], name))
+        same_values(read_flat(os.path.join(out, name)), want,
+                    f"(e) {name} against (b)", **tol.get(name, {}))
+        if name in ("intensity", "intensity_avg", "intensity_rms"):
+            b_out[name] = want
+    b_out["intensity"] = b_out["intensity"].reshape(-1, n_nodes)
+    # the run transposed (b)'s 64 rows with numpy (fewer than a native block)
+    stages["native_transpose"] = timed_transpose(
+        "native", os.path.join(out, "intensity"), b_out["intensity"].shape[0],
+        n_nodes, os.path.join(out, "intensity_transpose"))
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, stages, b_out
+
+
+def phase2_memory_sweep():
+    """Phase 2's device memory against the frame count: ``phase2_convert``
+    on a block of P2_NODE_BLOCK nodes at each of P2_SWEEP_FRAMES frames,
+    the peak of what it allocates (its input block included) over the
+    memory allocated before; returns the least-squares bytes per node and
+    frame."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.ops.polyfit import make_detrender
+    from upsp_tpu_torch.pipeline.phase2 import Phase2Constants, phase2_convert
+
+    const = Phase2Constants(
+        paint=torch.tensor([1.0, 0.01, 1e-4, 1e-4, 1e-6, 1e-8], device=DEVICE),
+        qbar=torch.tensor(500.0, device=DEVICE), ps=torch.tensor(2000.0, device=DEVICE))
+    n = P2_NODE_BLOCK
+    gen = torch.Generator(DEVICE).manual_seed(11)
+    per_node = [torch.rand(n, generator=gen, device=DEVICE) + 1.0 for _ in range(4)]
+    peaks = []
+    for f in P2_SWEEP_FRAMES:
+        det = make_detrender(f, 6, DEVICE)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        block = torch.rand(n, f, generator=gen, device=DEVICE) + 1000.0
+        out = phase2_convert(block, *per_node, const, det)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        check(bool(torch.isfinite(out.pressure_transpose).all()),
+              f"phase 2 at {n} nodes x {f} frames: finite")
+        del block, out
+    slope, icpt = np.polyfit(np.asarray(P2_SWEEP_FRAMES, np.float64) * n,
+                             np.asarray(peaks, np.float64), 1)
+    print(f"  phase-2 peak device memory at {n} nodes a block: " + ", ".join(
+        f"{f} frames {p / 2**20:.1f} MiB" for f, p in zip(P2_SWEEP_FRAMES, peaks))
+        + f"; slope {slope:.3f} bytes per node and frame, intercept "
+        f"{icpt / 2**20:.2f} MiB", flush=True)
+    return slope
+
+
+def streaming_long_path(dp, b_out, slope):
+    """Path (f): ``run_datapoint_streaming`` in this process on LONG_FRAMES
+    frames at 1,048,576 nodes from a callable source that tiles (b)'s 64
+    frames (hot pixels included, so the frame statistics repeat) from one
+    int16 tensor on the card.  Checks that it launches the frame kernels,
+    that its first 64 intensity rows equal (b)'s and its frame statistics
+    equal (b)'s within rtol 1e-5; prints its stage seconds, its peak device
+    memory, phase 2's memory at its first node block, the bytes it wrote
+    and the largest frame count that blocks of 65,536 nodes hold on this
+    card, reckoned from ``slope``; then deletes its output."""
+    import numpy as np
+    import torch
+
+    import upsp_tpu_torch.pipeline.run as run_mod
+    from upsp_tpu_torch.io.flatfile import read_flat
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.pipeline.config import read_input_deck
+
+    print(f"  -- path f: {LONG_FRAMES} frames, (b)'s 64 tiled from the card, "
+          "run_datapoint_streaming in this process", flush=True)
+    period = dp["frames"].shape[0]
+    stack = torch.from_numpy(dp["frames"].astype(np.int16)).to(DEVICE)
+
+    def source(start, count):
+        return stack[torch.arange(start, start + count, device=DEVICE) % period]
+
+    cfg = read_input_deck(dp["deck"])
+    cfg.out_dir = os.path.join(WORK, "b", "f")
+    cfg.frames = LONG_FRAMES
+    n_nodes = b_out["intensity"].shape[1]
+    blocks = []  # (rows, frames, allocated at entry, peak in the call)
+    phase1_peak = []  # the peak before phase 2's first block
+    convert = run_mod.phase2_convert
+
+    def measured(block, *args):
+        if not blocks:
+            phase1_peak.append(torch.cuda.max_memory_allocated())
+        torch.cuda.synchronize()
+        entry = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = convert(block, *args)
+        torch.cuda.synchronize()
+        blocks.append((*block.shape, entry, torch.cuda.max_memory_allocated()))
+        return out
+
+    stages = {}
+    run_mod.phase2_convert = measured
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_mod.run_datapoint_streaming(cfg, device=DEVICE, frames_array=source,
+                                              stage_times=stages)
+        wall = time.perf_counter() - t0
+        counts = cuda_lib.launch_counts()
+    finally:
+        run_mod.phase2_convert = convert
+    stages.update(n_frames=res.n_frames, n_nodes=n_nodes)
+    print_stages("in-process streaming run", wall, stages)
+    print(f"  launches on this path: {counts}", flush=True)
+    for name in FRAME_KERNELS:
+        check(counts[name] > 0, f"kernel {name} launched on this path")
+    check(res.n_frames == LONG_FRAMES, f"{LONG_FRAMES} frames processed")
+    (phase1_peak,), (rows, frames, entry, p2_peak) = phase1_peak, blocks[0]
+    peak = max([phase1_peak] + [b[3] for b in blocks])
+    # held across phase 2, less the input block and this script's source
+    fixed = entry - 4 * rows * frames - stack.numel() * 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    f_max = (total - fixed) / (slope * P2_NODE_BLOCK)
+    written = sum(os.path.getsize(os.path.join(cfg.out_dir, n))
+                  for n in os.listdir(cfg.out_dir))
+    print(f"  peak device memory {peak / 2**30:.3f} GiB (phases 0-1 "
+          f"{phase1_peak / 2**30:.3f} GiB, the {period}-frame source "
+          f"{stack.numel() * 2 / 2**30:.3f} GiB of it); phase 2, block of {rows} "
+          f"nodes x {frames} frames: {entry / 2**30:.3f} GiB allocated at entry, "
+          f"peak {p2_peak / 2**30:.3f} GiB; {len(blocks)} blocks; "
+          f"{written / 2**30:.3f} GiB written", flush=True)
+    print(f"  reckoned from the slope: blocks of {P2_NODE_BLOCK} nodes fit "
+          f"{total / 2**30:.1f} GiB up to {f_max:.0f} frames (fixed "
+          f"{fixed / 2**30:.3f} GiB)", flush=True)
+    head = read_flat(os.path.join(cfg.out_dir, "intensity"), count=period * n_nodes)
+    same_values(head.reshape(period, n_nodes), b_out["intensity"],
+                f"(f) intensity rows 0-{period - 1} against (b)")
+    same_values(res.intensity_avg, b_out["intensity_avg"],
+                "(f) intensity_avg against (b)", rtol=1e-5)
+    same_values(res.intensity_rms, b_out["intensity_rms"],
+                "(f) intensity_rms against (b)", rtol=1e-5)
+    del stack
+    shutil.rmtree(cfg.out_dir, ignore_errors=True)
+    return counts, dict(stages, peak_bytes=peak, phase2_peak_bytes=p2_peak,
+                        written_bytes=written, frames_max=f_max)
+
+
+def full_config_paths(by_path, phase_s):
     """Paths (b) and (d) on one full-config datapoint, written once: (b) in
     f32, (d) in bf16 with its batch also held against (b)'s.  (b) is the
     process's first run at 1200x1800 (it creates the cuFFT plans and the
     allocator's blocks), so the CLI then runs once more in f32 (b') and in
     bf16 (d'), and bf16 is compared with f32 as the mean of (d) and (d')
-    against (b'): d, b', d' is balanced around b' in time."""
+    against (b'): d, b', d' is balanced around b' in time.  The streaming
+    paths (e) and (f) run between (b) and (d), while (b)'s outputs are on
+    disk."""
     dp = write_path_datapoint("b", FULL)
+    n_nodes = FULL["grid_shape"][0] * FULL["grid_shape"][1]
     try:
         (lb, dtype_b, exp_b), (ld, dtype_d, exp_d) = FULL_PATHS
         by_path["b"], ref = datapoint_path(lb, dp, FULL, FULL_BATCH, exp_b, dtype_b)
+        t0 = time.perf_counter()
+        by_path["e"], e_stages, b_out = streaming_cli_path(dp, n_nodes)
+        phase_s["path e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slope = phase2_memory_sweep()
+        by_path["f"], f_stages = streaming_long_path(dp, b_out, slope)
+        del b_out
+        tall = tall_transpose()
+        phase_s["path f"] = time.perf_counter() - t0
         by_path["d"], res = datapoint_path(ld, dp, FULL, FULL_BATCH, exp_d, dtype_d,
                                            ref=ref)
         print("  -- (b') and (d'): the same files through the CLI again, f32 then "
@@ -842,6 +1133,17 @@ def full_config_paths(by_path):
     print(f"  phase-1 frames/s (ingest included): b {b:.2f} (first at this size), "
           f"d {d:.2f}, b' {b2:.2f}, d' {d2:.2f}; bf16 / f32 = mean(d, d') / b' = "
           f"{(d + d2) / 2 / b2:.3f}", flush=True)
+    print(f"  streaming: (e) {e_stages['frames_per_s']:.2f} frames/s against b "
+          f"{b:.2f} and b' {b2:.2f} (e / b' = {e_stages['frames_per_s'] / b2:.3f}); "
+          f"(e) disk transpose {e_stages['disk_transpose']:.3f} s, phase 2 by "
+          f"blocks {e_stages['phase2']:.3f} s, outputs {e_stages['outputs']:.3f} s "
+          f"against b' {runs[2]['phase2']:.3f} s and {runs[2]['outputs']:.3f} s; "
+          f"(f) {f_stages['frames_per_s']:.2f} frames/s over {LONG_FRAMES} frames, "
+          f"peak device memory {f_stages['peak_bytes'] / 2**30:.3f} GiB, disk "
+          f"transpose {f_stages['disk_transpose']:.3f} s; (e)'s transpose numpy "
+          f"{e_stages['disk_transpose']:.3f} s (the run's) / native "
+          f"{e_stages['native_transpose']:.3f} s; {TALL[0]} x {TALL[1]} native / numpy "
+          f"{tall[0]:.3f} / {tall[1]:.3f} s", flush=True)
 
 
 def main() -> int:
@@ -891,7 +1193,7 @@ def main() -> int:
         kernel_phase_ingest(rows)
         phase_s["K5-K8"] = time.perf_counter() - t0
         print("[3/3] datapoints through scripts/upsp-process-torch", flush=True)
-        by_path = {}  # "a".."d" -> the launch counts of its CLI run
+        by_path = {}  # "a".."f" -> the launch counts of its run
         for label, spec, batch, expect in PATHS:
             t0 = time.perf_counter()
             p = label.split(":")[0]
@@ -900,8 +1202,8 @@ def main() -> int:
             shutil.rmtree(os.path.join(WORK, p), ignore_errors=True)
             phase_s[f"path {p}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        full_config_paths(by_path)
-        phase_s["paths b, d, b', d'"] = time.perf_counter() - t0
+        full_config_paths(by_path, phase_s)
+        phase_s["paths b, e, f, d, b', d'"] = time.perf_counter() - t0
         for r in rows:
             if r["name"] in KERNEL_PHASE_ONLY:
                 r.update(launches_by_path={}, launches=0, kernel_phase_only=True)

@@ -158,16 +158,18 @@ def test_cli_on_cpu(deck):
         assert os.path.exists(os.path.join(deck["out_dir"], name)), name
 
 
-@pytest.mark.parametrize("mode", ["deck", "tree"])
+@pytest.mark.parametrize("mode", ["deck", "tree", "streaming"])
 def test_cli_loads_no_jax_package(deck, tmp_path, mode):
-    """The CLI in deck mode and in tree mode (``--datapoint``/``--root``,
-    through the port's ``processing.context``) leaves no jax and no
-    ``upsp_tpu`` module loaded."""
+    """The CLI in deck mode, in tree mode (``--datapoint``/``--root``,
+    through the port's ``processing.context``) and out of core
+    (``--streaming``) leaves no jax and no ``upsp_tpu`` module loaded."""
     import json
     import shutil
 
-    if mode == "deck":
+    if mode != "tree":
         args = ["-input_deck", deck["deck"]]
+        if mode == "streaming":
+            args.append("--streaming")
     else:
         root = tmp_path / "tree"
         dp_dir = root / "04_processing" / "psp_process" / "301"
@@ -183,7 +185,6 @@ def test_cli_loads_no_jax_package(deck, tmp_path, mode):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--streaming"], "M9"),
     (["--mesh", "auto"], "M10"),
     (["--no-warm-start"], "M4/M6"),
     (["--ecc-init", "scan"], "M4/M6"),

@@ -9,6 +9,7 @@ bytes on disk.
 """
 
 import dataclasses
+import importlib
 import json
 import os
 
@@ -204,8 +205,6 @@ def _native_bvh(dp, _tmp):
     from upsp_tpu_torch.pipeline.phase0 import native_library
 
     t_native = native_library()  # builds cpp/ with make when missing
-    import importlib
-
     jn = importlib.reload(j_native)
     assert jn.available()
     m = j_grids.load_model(t_config.read_input_deck(dp["mraw12"]["deck"]).grid)
@@ -220,6 +219,63 @@ def _native_bvh(dp, _tmp):
     raw = rng.integers(0, 256, 15 * 40).astype(np.uint8).tobytes()
     assert_same(t_native.unpack_12bpp(raw), jn.unpack_12bpp(raw))
     assert_same(t_native.unpack_10bpp(raw), jn.unpack_10bpp(raw))
+
+
+def _transpose(_dp, tmp):
+    """The flat-file transpose, native and numpy, on a shape that its blocks
+    do not divide, against the original, byte for byte."""
+    from upsp_tpu_torch import native as t_native
+    from upsp_tpu_torch.pipeline.phase0 import native_library
+
+    native_library()
+    jn = importlib.reload(j_native)
+    rows, cols, block = 37, 53, 16
+    src = str(tmp / "src")
+    np.random.default_rng(8).normal(0, 1, (rows, cols)).astype("<f4").tofile(src)
+    jn.transpose_f32(src, str(tmp / "j"), rows, cols, block)
+    want = (tmp / "j").read_bytes()
+    assert want == np.fromfile(src, "<f4").reshape(rows, cols).T.tobytes()
+    t_native.transpose_f32_native(src, str(tmp / "native"), rows, cols, block)
+    assert (tmp / "native").read_bytes() == want
+    # the dispatch: native with rows >= block, numpy with fewer
+    for b in (block, rows + 1):
+        t_native.transpose_f32(src, str(tmp / "dispatch"), rows, cols, b)
+        assert (tmp / "dispatch").read_bytes() == want, b
+    # numpy: 16 columns at a time, and all at once
+    for max_bytes in (rows * 4 * block, 1 << 30):
+        t_native.transpose_f32_numpy(src, str(tmp / "numpy"), rows, cols, max_bytes)
+        assert (tmp / "numpy").read_bytes() == want, max_bytes
+
+
+def _async_writer(_dp, tmp):
+    """Writes at offsets out of order, from one buffer reused at once after
+    each submit, give the original writer's file; so does the synchronous
+    writer the port uses without the library."""
+    from upsp_tpu_torch import native as t_native
+    from upsp_tpu_torch.pipeline.phase0 import native_library
+
+    native_library()
+    jn = importlib.reload(j_native)
+    parts = np.random.default_rng(9).normal(0, 1, (7, 33)).astype("<f4")
+    with jn.AsyncWriter(str(tmp / "j")) as w:
+        for k, part in enumerate(parts):
+            w.submit(k * part.nbytes, part)
+    want = (tmp / "j").read_bytes()
+    assert want == parts.tobytes()
+    lib = t_native._LIB
+    try:
+        for name in ("native", "sync"):
+            t_native._LIB = lib if name == "native" else None
+            buf = np.empty(33, "<f4")
+            with t_native.AsyncWriter(str(tmp / name)) as w:
+                assert (w._handle is None) == (name == "sync")
+                for k in (4, 0, 6, 2, 5, 1, 3):
+                    buf[:] = parts[k]
+                    w.submit(k * buf.nbytes, buf)
+                    buf[:] = np.nan
+            assert (tmp / name).read_bytes() == want, name
+    finally:
+        t_native._LIB = lib
 
 
 def _python_bvh(dp, _tmp):
@@ -273,7 +329,7 @@ def _hdf5(dp, tmp):
 CASES = {f.__name__[1:]: f for f in (
     _deck, _flat_files, _read_flat, _pack_unpack, _videos, _load_model, _idw,
     _targets_cameras_conditions, _comps, _native_bvh, _python_bvh,
-    _tree_context, _hdf5,
+    _tree_context, _hdf5, _transpose, _async_writer,
 )}
 
 

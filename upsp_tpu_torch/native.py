@@ -6,17 +6,21 @@ library is absent, so the package never *requires* a compiler.  Build with::
     make -C cpp
 
 A copy of ``upsp_tpu/native.py`` (the port imports nothing of the JAX
-package), less the flat-file transpose and the async writer, which the
-port does not call.
+package).  The flat-file transpose runs a numpy blocked transpose when
+the library is absent (logged) or the file has fewer rows than a native
+block; without the library the async writer writes synchronously (logged).
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 from typing import Optional
 
 import numpy as np
+
+log = logging.getLogger("upsp_tpu")
 
 _LIB_PATHS = (
     os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -50,6 +54,19 @@ def _load() -> Optional[ctypes.CDLL]:
         [ctypes.c_void_p] * 9 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
         + [ctypes.c_int64] + [ctypes.c_void_p] * 2
     )
+    lib.upsp_transpose_f32.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64,
+    ]
+    lib.upsp_transpose_f32.restype = ctypes.c_int
+    lib.upsp_awrite_open.argtypes = [ctypes.c_char_p]
+    lib.upsp_awrite_open.restype = ctypes.c_void_p
+    lib.upsp_awrite_submit.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64
+    ]
+    lib.upsp_awrite_submit.restype = ctypes.c_int
+    lib.upsp_awrite_close.argtypes = [ctypes.c_void_p]
+    lib.upsp_awrite_close.restype = ctypes.c_int
     return lib
 
 
@@ -180,3 +197,94 @@ def bvh_intersect(flat, origins: np.ndarray, directions: np.ndarray):
     return out_t, out_prim, hit
 
 
+def transpose_f32(src: str, dst: str, rows: int, cols: int, block: int = 2048):
+    """Blocked transpose of a (rows, cols) float32 flat file into a
+    (cols, rows) one: native when available and ``rows >= block``, else
+    numpy.  The native loop writes each destination row of a block with
+    its own call, ``min(rows, block) * 4`` bytes; with fewer rows than a
+    block those writes are short and the numpy transpose, which writes
+    whole destination rows at once, is the faster (PERF.md section 6)."""
+    if _LIB is None:
+        log.info("native library unavailable: numpy flat-file transpose")
+    if _LIB is None or rows < block:
+        transpose_f32_numpy(src, dst, rows, cols)
+    else:
+        transpose_f32_native(src, dst, rows, cols, block)
+
+
+def transpose_f32_native(src: str, dst: str, rows: int, cols: int,
+                         block: int = 2048):
+    """The native transpose, ``block`` x ``block`` at a time; raises
+    without the library."""
+    if _LIB is None:
+        raise RuntimeError("native library unavailable")
+    rc = _LIB.upsp_transpose_f32(src.encode(), dst.encode(), rows, cols, block)
+    if rc != 0:
+        raise OSError(f"upsp_transpose_f32 failed with code {rc}")
+
+
+def transpose_f32_numpy(src: str, dst: str, rows: int, cols: int,
+                        max_bytes: int = 1 << 30):
+    """The numpy transpose: as many source columns at a time as fit
+    ``max_bytes`` (at least one), each source row's piece of them read
+    with one call, then written as whole destination rows with one."""
+    width = max(1, min(cols, max_bytes // max(rows * 4, 1)))
+    buf = np.empty(rows * width, "<f4")
+    with open(src, "rb", buffering=0) as fin, open(dst, "wb") as fout:
+        for c0 in range(0, cols, width):
+            cw = min(width, cols - c0)
+            piece = buf[: rows * cw].reshape(rows, cw)
+            for r in range(rows):
+                got = os.preadv(fin.fileno(), [piece[r]], (r * cols + c0) * 4)
+                if got != cw * 4:
+                    raise OSError(f"short read of {src} at row {r}: {got} bytes")
+            np.ascontiguousarray(piece.T).tofile(fout)
+
+
+class AsyncWriter:
+    """Write-behind queue over one output file (native when available).
+
+    ``submit`` copies the data before it returns, so the caller may reuse
+    its buffer at once."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._handle = None
+        self._fallback = None
+        if _LIB is not None:
+            self._handle = _LIB.upsp_awrite_open(path.encode())
+        if self._handle is None:
+            log.info("native async writer unavailable: synchronous writes to %s",
+                     path)
+            # O_CREAT without O_TRUNC, like the native path
+            fd = os.open(path, os.O_WRONLY | os.O_CREAT, 0o644)
+            self._fallback = os.fdopen(fd, "wb")
+
+    def submit(self, offset_bytes: int, data: np.ndarray) -> None:
+        buf = np.ascontiguousarray(data)
+        if self._handle is not None:
+            rc = _LIB.upsp_awrite_submit(
+                self._handle, offset_bytes,
+                buf.ctypes.data_as(ctypes.c_void_p), buf.nbytes,
+            )
+            if rc != 0:
+                raise OSError("awrite_submit failed")
+        else:
+            self._fallback.seek(offset_bytes)
+            self._fallback.write(buf.tobytes())
+
+    def close(self) -> None:
+        if self._handle is not None:
+            rc = _LIB.upsp_awrite_close(self._handle)
+            self._handle = None
+            if rc != 0:
+                raise OSError("async writes reported errors")
+        elif self._fallback is not None:
+            self._fallback.close()
+            self._fallback = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -1,18 +1,24 @@
 """End-to-end datapoint processing on one device: the ``psp_process`` path.
 
-Port of ``upsp_tpu/pipeline/run.py`` (``run_datapoint`` :385-569) in
-memory and on a single device: open the videos, phase 0 once, phase 1 per
-frame chunk, f64 frame statistics on the host, phase 2 on the device, then
-the 15 flat files, the registration telemetry and ``output.h5``.
+Port of ``upsp_tpu/pipeline/run.py`` on a single device:
+
+- ``run_datapoint`` (:385-569), in memory: open the videos, phase 0 once,
+  phase 1 per frame chunk, f64 frame statistics on the host, phase 2 on
+  the device, then the 15 flat files, the registration telemetry and
+  ``output.h5``;
+- ``run_datapoint_streaming`` (:572-833), out of core: phase-1 chunks
+  stream to the ``intensity`` flat file while f64 per-node sums accumulate
+  on the device, the file is transposed on disk, and phase 2 converts node
+  blocks read back from it, with ``output.h5`` written per block.
 
 Frames reach phase 1 as packed video bytes, unpacked on the device by
 K7/K8, whenever every camera's video supports packed reads in one format
 (``device_unpack="auto"``, the default); otherwise the
 ``upsp_tpu_torch.io.video`` readers decode them on the host.
 
-Not ported here (ROADMAP.md): out-of-core streaming, device meshes and
-multi-process runs, and the band guard that re-runs out-of-band frames on
-a dense path — the port's warp kernel has no band limit.
+Not ported here (ROADMAP.md): device meshes and multi-process runs, and
+the band guard that re-runs out-of-band frames on a dense path — the
+port's warp kernel has no band limit.
 """
 
 from __future__ import annotations
@@ -21,12 +27,13 @@ import dataclasses
 import importlib.util
 import logging
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from upsp_tpu_torch.io.flatfile import FlatFileSet
+from upsp_tpu_torch.io.flatfile import FlatFileSet, read_flat
 from upsp_tpu_torch.io.paint import PaintCalibration
 from upsp_tpu_torch.io.video import FramePrefetcher, video_reader
 from upsp_tpu_torch.io.wtd import read_wtd
@@ -34,7 +41,15 @@ from upsp_tpu_torch.pipeline.config import ProcessingConfig
 from upsp_tpu_torch.ops.projection import coverage as proj_coverage
 from upsp_tpu_torch.pipeline.phase0 import Phase0State, run_phase0
 from upsp_tpu_torch.pipeline.phase1 import make_chunk_processor
-from upsp_tpu_torch.pipeline.phase2 import Phase2Outputs, run_phase2
+from upsp_tpu_torch.pipeline.phase2 import (
+    Phase2Outputs,
+    compute_model_temperature,
+    load_steady_cp,
+    make_phase2_constants,
+    phase2_convert,
+    run_phase2,
+)
+from upsp_tpu_torch.ops.polyfit import make_detrender
 
 log = logging.getLogger("upsp_tpu")
 
@@ -99,6 +114,52 @@ def open_videos(cfg: ProcessingConfig):
     return readers, n_frames, start0
 
 
+def _stage_marker(device: torch.device, stage_times: Optional[dict]):
+    """``mark(name, t0)``: ends a stage with a device synchronise, records
+    its wall seconds in ``stage_times`` (when a dict) and returns the
+    time."""
+
+    def mark(name, t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        if stage_times is not None:
+            stage_times[name] = t1 - t0
+        return t1
+
+    return mark
+
+
+def _open_inputs(cfg, frames_array):
+    """(frames_array, readers, n_frames, start0, first_frames, bit_depths)
+    from the videos, an (F, C, H, W) array, or a callable frame source
+    ``source(start, count) -> (count, C, H, W)`` whose frame count is
+    ``cfg.frames``."""
+    if callable(frames_array):
+        if cfg.frames <= 0:
+            raise ValueError("a callable frame source requires cfg.frames > 0")
+        f0 = frames_array(0, 1)
+        f0 = f0.cpu().numpy() if isinstance(f0, torch.Tensor) else np.asarray(f0)
+        first_frames = [f0[0, c] for c in range(f0.shape[1])]
+        return (frames_array, None, cfg.frames, 0, first_frames,
+                [12] * len(first_frames))
+    if frames_array is not None:
+        frames_array, n_frames = _apply_frame_window(cfg, frames_array)
+        first_frames = [np.asarray(frames_array[0, c])
+                        for c in range(frames_array.shape[1])]
+        return (frames_array, None, n_frames, 0, first_frames,
+                [12] * len(first_frames))
+    readers, n_frames, start0 = open_videos(cfg)
+    first_frames = [r.read_frame(start0) for r in readers]
+    return (None, readers, n_frames, start0, first_frames,
+            [r.bit_depth for r in readers])
+
+
+def _close(readers):
+    for r in readers or ():
+        r.close()
+
+
 def _apply_frame_window(cfg, frames_array):
     """The deck's 1-based start_frame + frame count on an array input."""
     fa_start = max(int(getattr(cfg, "start_frame", 1)) - 1, 0)
@@ -126,6 +187,25 @@ def _camera_settings(readers, cfg, state) -> Dict:
         out["fstop"] = float(getattr(r0, "aperture", 0.0) or 0.0)
         out["exposure"] = float(getattr(r0, "exposure_us", 0.0) or 0.0)
     return out
+
+
+class _HostBuffer:
+    """One reused host buffer that device results are copied into:
+    page-locked, grown when a larger result comes.  A CPU tensor is
+    returned as it is.  ``fetch``'s array is valid until the next call."""
+
+    def __init__(self):
+        self.buffer = None
+
+    def fetch(self, t: torch.Tensor) -> np.ndarray:
+        if t.device.type == "cpu":
+            return t.numpy()
+        n = t.numel()
+        if self.buffer is None or self.buffer.numel() < n:
+            self.buffer = torch.empty(n, dtype=t.dtype, pin_memory=True)
+        host = self.buffer[:n].view(t.shape)
+        host.copy_(t)
+        return host.numpy()
 
 
 class _PinnedStaging:
@@ -157,10 +237,16 @@ class _PinnedStaging:
 
 def _chunk_iter(frames_array, readers, n_frames, start0, frames_per_chunk,
                 packed=False, device=torch.device("cpu")):
-    """Yield (start, chunk).  File input is read by background prefetchers:
-    with ``packed`` the chunk is the (chunk, C, nbytes) uint8 packed bytes,
+    """Yield (start, chunk).  A callable ``frames_array`` is called as
+    ``source(start, count)`` for each chunk (a tensor on the device or a
+    numpy array).  File input is read by background prefetchers: with
+    ``packed`` the chunk is the (chunk, C, nbytes) uint8 packed bytes,
     already on ``device`` (through pinned host memory on CUDA); otherwise
     the (chunk, C, H, W) frames decoded on the host."""
+    if callable(frames_array):
+        for s in range(0, n_frames, frames_per_chunk):
+            yield s, frames_array(s, min(frames_per_chunk, n_frames - s))
+        return
     if frames_array is not None:
         for s in range(0, n_frames, frames_per_chunk):
             yield s, frames_array[s : s + frames_per_chunk]
@@ -194,6 +280,8 @@ def run_datapoint(
     stage_times: Optional[dict] = None,
     device_unpack="auto",
     compute_dtype: str = "float32",
+    resume: bool = False,
+    write_outputs: bool = True,
 ) -> DatapointOutputs:
     """Process one datapoint end to end on ``device`` (ECC from the fft
     warm start, 8-frame batches); outputs go to ``cfg.out_dir`` when set.
@@ -206,35 +294,19 @@ def run_datapoint(
     or "bfloat16" (:func:`~upsp_tpu_torch.pipeline.phase1.make_chunk_processor`).
     ``registration_telemetry`` writes the per-frame, per-camera ECC record
     [rho, final |drho|, tx, ty, disp_bound] to the ``registration`` flat
-    file with its ``registration.json`` sidecar.  ``stage_times``, when a
-    dict, receives the wall seconds of phase 0, phase 1 (ingest included;
-    ``phase1_setup`` is its set-up part, before the first frame), phase 2
-    and the output writes, each ended by a device synchronise.
+    file with its ``registration.json`` sidecar.  ``resume`` reuses an
+    ``intensity`` flat file in ``cfg.out_dir`` whose size fits the
+    datapoint and skips phase 1.  ``write_outputs=False`` writes no file.
+    ``stage_times``, when a dict, receives the wall seconds of phase 0,
+    phase 1 (ingest included; ``phase1_setup`` is its set-up part, before
+    the first frame), phase 2 and the output writes, each ended by a
+    device synchronise.
     """
-    import time
-
     device = resolve_device(device)
-
-    def mark(name, t0):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        if stage_times is not None:
-            stage_times[name] = t1 - t0
-        return t1
-
+    mark = _stage_marker(device, stage_times)
     t0 = time.perf_counter()
-    start0 = 0
-    if frames_array is not None:
-        frames_array, n_frames = _apply_frame_window(cfg, frames_array)
-        first_frames = [np.asarray(frames_array[0, c])
-                        for c in range(frames_array.shape[1])]
-        bit_depths = [12] * len(first_frames)
-        readers = None
-    else:
-        readers, n_frames, start0 = open_videos(cfg)
-        first_frames = [r.read_frame(start0) for r in readers]
-        bit_depths = [r.bit_depth for r in readers]
+    frames_array, readers, n_frames, start0, first_frames, bit_depths = (
+        _open_inputs(cfg, frames_array))
     use_packed, packed_kw = packed_ingest_config(readers, frames_array,
                                                  device_unpack)
     if use_packed:
@@ -246,7 +318,7 @@ def run_datapoint(
     state = run_phase0(cfg, first_frames, bit_depths, device=device)
     camset = _camera_settings(readers, cfg, state)
     diag_dir = cfg.add_out_dir or cfg.out_dir
-    if diag_dir:
+    if write_outputs and diag_dir:
         try:
             from upsp_tpu_torch.pipeline.diagnostics import write_phase0_diagnostics
 
@@ -255,19 +327,32 @@ def run_datapoint(
             log.warning("opencv unavailable; skipped diagnostic images")
     t0 = mark("phase0", t0)
     if checkout:
-        for r in readers or ():
-            r.close()
+        _close(readers)
         return DatapointOutputs(state, None, None, None, None, None, n_frames)
+
+    n_nodes = state.n_nodes
+    if resume and cfg.out_dir:
+        ipath = os.path.join(cfg.out_dir, "intensity")
+        if (os.path.exists(ipath)
+                and os.path.getsize(ipath) == n_frames * n_nodes * 4):
+            log.info("resume: reusing existing intensity file, skipping phase 1")
+            intensity = read_flat(ipath).reshape(n_frames, n_nodes)
+            _close(readers)
+            t0 = mark("phase1", t0)
+            return _finish_from_intensity(cfg, state, intensity, camset=camset,
+                                          mark=mark, t0=t0,
+                                          write_outputs=write_outputs)
+        log.info("resume requested but no consistent intensity file; running")
 
     fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
                               compute_dtype=compute_dtype, **packed_kw)
     mark("phase1_setup", t0)  # part of phase 1: parameters, templates
-    n_nodes = state.n_nodes
     intensity = np.empty((n_frames, n_nodes), np.float32)
     reg_telemetry = None
     for start, chunk in _chunk_iter(frames_array, readers, n_frames, start0,
                                     frames_per_chunk, use_packed, device):
-        out, tele = fn(chunk if use_packed else np.ascontiguousarray(chunk))
+        out, tele = fn(np.ascontiguousarray(chunk)
+                       if isinstance(chunk, np.ndarray) else chunk)
         valid = out.shape[0]
         tele_np = tele.cpu().numpy()
         if reg_telemetry is None:
@@ -279,8 +364,7 @@ def run_datapoint(
     if readers:
         log.info("phase1: decoded %d frames across %d cameras",
                  sum(r.frames_decoded for r in readers), len(readers))
-        for r in readers:
-            r.close()
+    _close(readers)
 
     if registration_telemetry and reg_telemetry is not None:
         rho, conv = reg_telemetry[..., 0], reg_telemetry[..., 1]
@@ -290,7 +374,7 @@ def run_datapoint(
             rho.min(), rho.mean(), conv.mean(), conv.max(),
             np.abs(reg_telemetry[..., 2:4]).max(),
         )
-        if cfg.out_dir:
+        if write_outputs and cfg.out_dir:
             from upsp_tpu_torch.pipeline.diagnostics import write_registration_meta
 
             os.makedirs(cfg.out_dir, exist_ok=True)
@@ -298,7 +382,163 @@ def run_datapoint(
             write_registration_meta(cfg.out_dir)
     t0 = mark("phase1", t0)
     return _finish_from_intensity(cfg, state, intensity, camset=camset,
-                                  mark=mark, t0=t0)
+                                  mark=mark, t0=t0, write_outputs=write_outputs)
+
+
+def run_datapoint_streaming(
+    cfg: ProcessingConfig,
+    device="cuda",
+    frames_per_chunk: int = 64,
+    node_block: int = 65536,
+    frames_array=None,
+    device_unpack="auto",
+    write_hdf5: bool = True,
+    compute_dtype: str = "float32",
+    stage_times: Optional[dict] = None,
+) -> DatapointOutputs:
+    """Out-of-core datapoint processing on ``device``, for datapoints
+    larger than host or device memory.
+
+    The (frames x nodes) intensity never exists in memory: each phase-1
+    chunk goes to the host through one reused page-locked buffer and on
+    to the ``intensity`` flat file through the write-behind queue, while
+    the per-node f64 sum (NaN frames left out) and sum of squares (NaN
+    kept) accumulate on the device.  The blocked transpose writes
+    ``intensity_transpose``; phase 2 then converts blocks of
+    ``node_block`` nodes read back from it, writing ``pressure_transpose``
+    and (``write_hdf5``, with h5py) the ``.h5`` file block by block.  This
+    is the reference's disk-intermediate pattern (psp_process.cpp:524-563,
+    upsp_matrix_transpose) with the compute on the device.
+
+    ``frames_array``: as in :func:`run_datapoint`, or a callable frame
+    source ``source(start, count) -> (count, C, H, W)`` (a tensor on the
+    device or a numpy array), ``cfg.frames`` frames long.  Requires an
+    output directory, a wtd (sds) file and a paint calibration; raises
+    ``ValueError`` without them.  ``stage_times``: as in
+    :func:`run_datapoint`, with ``disk_transpose`` between phase 1 and
+    phase 2.  Returns no (F, N) array: ``intensity`` and the phase-2
+    ``pressure_transpose`` are None.
+    """
+    from upsp_tpu_torch import native
+
+    if not cfg.out_dir:
+        raise ValueError("streaming mode requires an output directory")
+    if not (cfg.sds and cfg.paint_cal):
+        raise ValueError(
+            "streaming mode runs phase 2 inline and requires both a wtd "
+            "(sds) file and a paint calibration (the reference refuses to "
+            "start without -paint_cal, psp_process.cpp:1240-1243); use "
+            "run_datapoint for an intensity-only run"
+        )
+    device = resolve_device(device)
+    mark = _stage_marker(device, stage_times)
+    t0 = time.perf_counter()
+    frames_array, readers, n_frames, start0, first_frames, bit_depths = (
+        _open_inputs(cfg, frames_array))
+    try:
+        state = run_phase0(cfg, first_frames, bit_depths, device=device)
+        camset = _camera_settings(readers, cfg, state)
+        t0 = mark("phase0", t0)
+        n_nodes = state.n_nodes
+        use_packed, packed_kw = packed_ingest_config(readers, frames_array,
+                                                     device_unpack)
+        fn = make_chunk_processor(state, packed=use_packed,
+                                  compute_dtype=compute_dtype, **packed_kw)
+        mark("phase1_setup", t0)
+        ffs = FlatFileSet(cfg.out_dir)
+        sum_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
+        sumsq_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
+        ratio0_src = None
+        host = _HostBuffer()
+        with native.AsyncWriter(ffs.path("intensity")) as writer:
+            for start, chunk in _chunk_iter(frames_array, readers, n_frames,
+                                            start0, frames_per_chunk,
+                                            use_packed, device):
+                out = fn(np.ascontiguousarray(chunk)
+                         if isinstance(chunk, np.ndarray) else chunk)
+                writer.submit(start * n_nodes * 4, host.fetch(out))
+                sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
+                sumsq_i += out.double().square_().sum(dim=0)
+                if start == 0:
+                    ratio0_src = out[0].clone()
+                if start % (frames_per_chunk * 8) == 0:
+                    log.info("phase1: processed frame %d / %d", start, n_frames)
+    finally:
+        _close(readers)
+    del fn  # phase 1's device state
+    nan_mask = torch.isnan(ratio0_src)
+    nan = torch.tensor(float("nan"), dtype=torch.float64, device=device)
+    sol_avg_t = torch.where(nan_mask, nan, sum_i / n_frames).float()
+    sol_avg = sol_avg_t.cpu().numpy()
+    sol_rms = torch.where(nan_mask, nan, torch.sqrt(sumsq_i / n_frames)).float(
+    ).cpu().numpy()
+    cov_t = proj_coverage(state.projections, *state.image_hw)[state.superseded_by]
+    cov = cov_t.cpu().numpy()
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ratio0 = sol_avg / ratio0_src.cpu().numpy() - 1.0
+    t0 = mark("phase1", t0)
+
+    native.transpose_f32(ffs.path("intensity"), ffs.path("intensity_transpose"),
+                         n_frames, n_nodes)
+    t0 = mark("disk_transpose", t0)
+
+    cond = read_wtd(cfg.sds)
+    cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
+    const = make_phase2_constants(PaintCalibration.read(cfg.paint_cal), cond,
+                                  device)
+    det = make_detrender(n_frames, cfg.degree, device)
+    steady = load_steady_cp(cfg, n_nodes, state.model)
+    mtemp = compute_model_temperature(cfg, cond, n_nodes, state.model)
+    steady_t = torch.as_tensor(steady, device=device)
+    mtemp_t = torch.as_tensor(mtemp, device=device)
+    steady_out = _steady_for_output(steady)
+    h5w = _open_hdf5(cfg, state, n_frames, cond, camset) if write_hdf5 else None
+    rms_all = np.empty(n_nodes, np.float32)
+    avg_all = np.empty(n_nodes, np.float32)
+    gain_all = np.empty(n_nodes, np.float32)
+    try:
+        with native.AsyncWriter(ffs.path("pressure_transpose")) as pwriter:
+            for n0 in range(0, n_nodes, node_block):
+                nw = min(node_block, n_nodes - n0)
+                block = read_flat(
+                    ffs.path("intensity_transpose"), count=nw * n_frames,
+                    offset_values=n0 * n_frames,
+                ).reshape(nw, n_frames)
+                nodes = slice(n0, n0 + nw)
+                out2 = phase2_convert(
+                    torch.from_numpy(block).to(device), sol_avg_t[nodes],
+                    cov_t[nodes], steady_t[nodes], mtemp_t[nodes], const, det,
+                )
+                press = host.fetch(out2.pressure_transpose)
+                pwriter.submit(n0 * n_frames * 4, press)
+                if h5w is not None:
+                    h5w.write_frames_block(press, node_start=n0)
+                rms_all[nodes] = out2.rms.cpu().numpy()
+                avg_all[nodes] = out2.avg.cpu().numpy()
+                gain_all[nodes] = out2.gain.cpu().numpy()
+        if h5w is not None:
+            _write_node_datasets(h5w, rms_all, avg_all, cov, steady_out, mtemp)
+    finally:
+        if h5w is not None:
+            h5w.close()
+    t0 = mark("phase2", t0)
+
+    ffs.write_standard_outputs(
+        state.model,
+        {"intensity_avg": sol_avg, "intensity_rms": sol_rms,
+         "intensity_ratio_0": ratio0, "coverage": cov},
+        {"avg": avg_all, "rms": rms_all, "gain": gain_all,
+         "steady_state": steady_out, "model_temp": mtemp},
+    )
+    mark("outputs", t0)
+    return DatapointOutputs(
+        state=state, intensity=None, intensity_avg=sol_avg,
+        intensity_rms=sol_rms, coverage=cov,
+        phase2=Phase2Outputs(pressure_transpose=None, rms=rms_all,
+                             avg=avg_all, gain=gain_all, steady_state=steady,
+                             model_temp=mtemp),
+        n_frames=n_frames,
+    )
 
 
 def _steady_for_output(steady: np.ndarray) -> np.ndarray:
@@ -308,7 +548,8 @@ def _steady_for_output(steady: np.ndarray) -> np.ndarray:
 
 
 def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
-                           mark=None, t0=None) -> DatapointOutputs:
+                           mark=None, t0=None,
+                           write_outputs=True) -> DatapointOutputs:
     """Statistics + coverage + phase 2 + outputs, from a (F, N) intensity."""
     n_frames = intensity.shape[0]
     with np.errstate(invalid="ignore"):
@@ -343,7 +584,7 @@ def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
         ))
     if mark is not None:
         t0 = mark("phase2", t0)
-    if cfg.out_dir:
+    if write_outputs and cfg.out_dir:
         _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
                        phase2, camset)
     if mark is not None:
@@ -383,30 +624,49 @@ def _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
     ffs.write_standard_outputs(state.model, p1, p2)
     if phase2 is None:
         return
-    if importlib.util.find_spec("h5py") is None:
-        log.warning("h5py unavailable; skipped HDF5 output")
-        return
-    from upsp_tpu_torch.io.hdf5io import PSPWriter
-
     cond = read_wtd(cfg.sds)
     cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
+    w = _open_hdf5(cfg, state, intensity.shape[0], cond, camset)
+    if w is None:
+        return
+    with w:
+        w.write_frames_block(phase2.pressure_transpose)
+        _write_node_datasets(w, phase2.rms, phase2.avg, cov, steady_out, mtemp)
+
+
+def _open_hdf5(cfg, state, n_frames, cond, camset=None):
+    """The ``.h5`` output open, with its grid, tunnel conditions and
+    camera settings written; None (with a warning) without h5py."""
+    if importlib.util.find_spec("h5py") is None:
+        log.warning("h5py unavailable; skipped HDF5 output")
+        return None
+    from upsp_tpu_torch.io.hdf5io import PSPWriter
+
     name = cfg.out_name or "output"
-    with PSPWriter(
+    w = PSPWriter(
         cfg.h5_out or os.path.join(cfg.out_dir, f"{name}.h5"),
-        state.model, n_frames=intensity.shape[0], transposed=True,
+        state.model, n_frames=n_frames, transposed=True,
         chunk_nodes=cfg.trans_nodes or 4096,
-    ) as w:
+    )
+    try:
         w.write_grid(cfg.grid_units)
         w.write_tunnel_conditions(cond)
         w.write_camera_settings(**(camset or dict(
             focal_lengths=[float(p.fx) for p in state.cam_params],
             cam_nums=[c.number for c in cfg.cameras],
         )))
-        w.write_frames_block(phase2.pressure_transpose)
-        w.write_new_dataset("rms", phase2.rms, "delta Cp")
-        w.write_new_dataset("average", phase2.avg, "delta Cp")
-        w.write_new_dataset("coverage", cov)
-        if steady_out is not None:
-            w.write_new_dataset("steady_state", steady_out, "Cp")
-        if mtemp is not None:
-            w.write_new_dataset("model_temp", mtemp, "F")
+    except BaseException:
+        w.close()
+        raise
+    return w
+
+
+def _write_node_datasets(w, rms, avg, cov, steady_out, mtemp):
+    """The per-node datasets of the ``.h5`` output."""
+    w.write_new_dataset("rms", rms, "delta Cp")
+    w.write_new_dataset("average", avg, "delta Cp")
+    w.write_new_dataset("coverage", cov)
+    if steady_out is not None:
+        w.write_new_dataset("steady_state", steady_out, "Cp")
+    if mtemp is not None:
+        w.write_new_dataset("model_temp", mtemp, "F")
