@@ -15,8 +15,9 @@ From the root of a checkout, on a machine with a CUDA device:
    in bfloat16, K1 bit for bit, with K1-K3 called twice for bit-identical
    output and K2 and K4 also on a 1.6x scale warp (their global-memory
    route) and on a shear that moves the frame's corners by 2.9 px; K9
-   (the fused GN step) on 8 frames of 1200x1800 in both, also against K2
-   then K3; K5-K8 at the full configuration's shapes (8 frames x 4
+   (the fused GN step) on 8 frames of each in both, also against K2 then
+   K3 and on the 2.9 px shear, bit-identical from call to call, with its
+   registers; K5-K8 at the full configuration's shapes (8 frames x 4
    cameras x 1200x1800, a 1,048,576-node gather plan; K5 with f32 and with
    bf16 frames, from the camera images and from a stack, also on a plan
    with a partial last tile and an all-NaN tile and in plain model order,
@@ -54,11 +55,12 @@ Prints the seconds of each phase, then the kernel table as one JSON line
 (per kernel: ``launches`` over the paths and ``launches_by_path``;
 ``ms``/``device_ms``/``plain_ms``/``library_ms`` and
 ``bound_ms``/``bound_by`` at the full configuration's shape, every
-measured shape under ``shapes``; the redesigned K1-K6 also
-``redesigned``, with their time before the redesign printed on a line of
-its own; K5 also ``sector_floor_ms``, ``stacked_device_ms`` and
-``model_order_device_ms``; K9
-also ``split_ms``/``split_device_ms``, the time of K2 then K3, and
+measured shape under ``shapes``; ``bound_share``, the bound over
+``device_ms``; the redesigned K1-K6 and K9 also ``redesigned``, with
+their time before the redesign printed on a line of its own; K5 also
+``sector_floor_ms``, ``stacked_device_ms`` and
+``model_order_device_ms``; K9 also ``split_ms``/``split_device_ms``, the
+time of K2 then K3, ``registers`` and ``local_bytes`` a thread, and
 ``kernel_phase_only``: no datapoint path runs it), the card's name and
 power limit, then as the last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when CUDA is unavailable, the
@@ -155,13 +157,17 @@ DEVICE = "cuda"
 # the redesigned kernels' ``ms`` before their redesign (PERF.md section 6:
 # this script on an NVIDIA H100 80GB HBM3 at 700.00 W; K3/K4 as first
 # written, K1/K2 before their own redesign, on 8 frames of each of
-# ECC_SHAPES; K5/K6 before their redesign, at the full configuration's shapes),
-# printed beside this run's ``ms`` and kept out of the kernels line
+# ECC_SHAPES; K5/K6 before their redesign, at the full configuration's shapes;
+# K9 as first written, on 8 frames of each of ECC_SHAPES, 1024x1024 from
+# ``upsp_tpu_torch/tools/k9_sweep.py --tree`` on that commit, the mean of
+# two runs), printed beside this run's ``ms`` and kept out of the kernels
+# line
 PREV_MS = {"moments": (0.1356, 0.2357), "moments_bf16": (0.1224, 0.2481),
            "warp_filter": (0.1645, 0.3355), "warp_filter_bf16": (0.1642, 0.3349),
            "blur": (0.0892, 0.1744), "blur_bf16": (0.0880, 0.1751),
            "warp": (0.0783, 0.1498), "warp_bf16": (0.0771, 0.1525),
-           "hot": 0.3831, "gather": 0.2273, "gather_bf16": 0.1971}
+           "hot": 0.3831, "gather": 0.2273, "gather_bf16": 0.1971,
+           "gn_fused": (0.2008, 0.4047), "gn_fused_bf16": (0.1903, 0.4174)}
 
 
 class SmokeFailure(Exception):
@@ -250,7 +256,8 @@ def add_row(rows, name, shape, err, ok, detail, fn, plain_fn, nbytes, flops,
                    launches=0, launches_by_path={}, max_abs_err=0.0, shapes=[])
         rows.append(row)
     timing = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
-                  bound_ms=bound_ms, bound_by=bound_by, **extra)
+                  bound_ms=bound_ms, bound_by=bound_by,
+                  bound_share=bound_ms / device_ms, **extra)
     row["shapes"].append(dict(shape=shape, max_abs_err=err, **timing))
     row.update(max_abs_err=max(row["max_abs_err"], err), **timing)
 
@@ -441,10 +448,13 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     torch.cuda.synchronize()
 
 
-def kernel_phase_gn_fused(rows, dtype_name):
-    """K9 on B frames of the full configuration's 1200x1800 (a height its
-    32-row tile does not divide) against its twin, and in f32 against K2
-    then K3, within 2e-4 relative; timed beside K2 + K3."""
+def kernel_phase_gn_fused(rows, H, W, dtype_name):
+    """K9 on B frames of H x W against its twin, and in f32 against K2
+    then K3, within 2e-4 relative, also on a shear that moves the frame's
+    corners by 2.9 px; bit-identical from call to call; timed beside K2 +
+    K3 (``split_ms``/``split_device_ms``), with its registers and local
+    (spilled) bytes a thread as built."""
+    import numpy as np
     import torch
 
     from upsp_tpu_torch.ops import ecc_kernels as K
@@ -452,29 +462,47 @@ def kernel_phase_gn_fused(rows, dtype_name):
     dtype = getattr(torch, dtype_name)
     sfx = "" if dtype == torch.float32 else "_bf16"
     e = 4 if dtype == torch.float32 else 2
-    H, W = FULL_H, FULL_W
-    imgs, tmpl, warps, mask, _ = ecc_inputs(H, W, dtype)
+    shape = f"{B}x{H}x{W} {dtype_name}"
+    imgs, tmpl, warps, mask, w = ecc_inputs(H, W, dtype)
+    kshift = K.template_shift(tmpl)
+    w_shear = w.copy()
+    w_shear[:, 0, 1] = np.sign(w[:, 0, 1]) * 2.9 / ((H - 1) / 2)
+    w_shear[:, 1, 0] = np.sign(w[:, 1, 0]) * 2.9 / ((W - 1) / 2)
+    shear = torch.tensor(w_shear, device=DEVICE)
     px = B * H * W
 
-    def fused():
-        return K.ecc_gn_fused(imgs, tmpl, warps, mask)
+    def fused(wp=warps):
+        return K.ecc_gn_fused(imgs, tmpl, wp, mask, kshift)
 
-    def split():
-        return K.ecc_gn_moments(K.warp_affine_banded(imgs, warps), tmpl, warps, mask)
+    def split(wp=warps):
+        return K.ecc_gn_moments(K.warp_affine_banded(imgs, wp), tmpl, wp, mask, kshift)
 
     got = fused()
-    err, rel = stats_err(got, K.gn_fused_plain(imgs, tmpl, warps, mask))
-    ok, detail = rel <= 2e-4, f"twin: max rel {rel:.3g} <= 2e-4"
-    if dtype == torch.float32:
-        err2, rel2 = stats_err(got, split())
-        ok, err = ok and rel2 <= 2e-4, max(err, err2)
-        detail += f"; K2 then K3: max rel {rel2:.3g} <= 2e-4"
-    else:
+    check(torch.equal(got, fused()), f"gn_fused{sfx} bit-identical from call to call "
+          f"at {shape}")
+    err, ok, details = 0.0, True, []
+    for label, wp in (("", warps), (" (2.9 px shear)", shear)):
+        g = fused(wp)
+        e1, rel = stats_err(g, K.gn_fused_plain(imgs, tmpl, wp, mask, kshift))
+        details.append(f"twin{label}: max rel {rel:.3g}")
+        err, ok = max(err, e1), ok and rel <= 2e-4
+        if dtype == torch.float32:
+            e2, rel2 = stats_err(g, split(wp))
+            details.append(f"K2 then K3{label}: max rel {rel2:.3g}")
+            err, ok = max(err, e2), ok and rel2 <= 2e-4
+    detail = "; ".join(details) + " <= 2e-4"
+    if dtype != torch.float32:
         detail += " (the bf16 K2 then K3 rounds the warped image; K9 does not)"
-    add_row(rows, "gn_fused" + sfx, f"{B}x{H}x{W} {dtype_name}", err, ok, detail,
-            fused, lambda: K.gn_fused_plain(imgs, tmpl, warps, mask),
+    regs, local = K.gn_fused_attrs(dtype)
+    split_device_ms = cuda_time(split, graph=True)
+    print(f"  gn_fused{sfx} at {shape}: {regs} registers, {local} local bytes a "
+          f"thread; K2 then K3 {split_device_ms:.4f} ms on the device", flush=True)
+    add_row(rows, "gn_fused" + sfx, shape, err, ok, detail, fused,
+            lambda: K.gn_fused_plain(imgs, tmpl, warps, mask, kshift),
             e * (px + H * W) + B * 128 * 4, FLOPS["gn_fused"] * px,
-            split_ms=cuda_time(split), split_device_ms=cuda_time(split, graph=True))
+            prev_ms=PREV_MS["gn_fused" + sfx][ECC_SHAPES.index((H, W))],
+            redesigned=True, split_ms=cuda_time(split),
+            split_device_ms=split_device_ms, registers=regs, local_bytes=local)
     torch.cuda.synchronize()
 
 
@@ -1187,7 +1215,8 @@ def main() -> int:
                 kernel_phase_ecc(rows, h, w, dtype)
             phase_s[f"K1-K4 {dtype}"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            kernel_phase_gn_fused(rows, dtype)
+            for h, w in ECC_SHAPES:
+                kernel_phase_gn_fused(rows, h, w, dtype)
             phase_s[f"K9 {dtype}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         kernel_phase_ingest(rows)

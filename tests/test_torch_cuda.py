@@ -217,23 +217,33 @@ def test_bf16_kernels_match_twins_on_card(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(2, 90, 131), (8, 1200, 1800)])
-def test_gn_fused_matches_twin_and_split_pair_on_card(cuda, shape):
-    """K9 in f32 against its twin and against K2 then K3 on the card; the
-    heights 90, 97 and 1200 are not multiples of its 32-row tile."""
+@pytest.mark.parametrize("shear", [False, True])
+@pytest.mark.parametrize("shape", SHAPES + [(2, 90, 131), (2, 90, 4100),
+                                            (8, 1200, 1800), (3, 1024, 1024)])
+def test_gn_fused_matches_twin_and_split_pair_on_card(cuda, shape, shear):
+    """K9 in f32 against its twin and against K2 then K3 on the card, also
+    on a shear that moves the frame's corners by 2.9 px; the heights 90, 97
+    and 1200 are not multiples of its 32-row chunk, and the widths 131,
+    1800 and 4100 not of its strip; bit-identical from call to call, and a
+    frame's statistics do not depend on its batch."""
     x = torch.tensor(images(20, *shape))
     tm = torch.tensor(images(21, 1, *shape[1:])[0])
-    w = torch.tensor(warps(20, shape[0]))
+    w = torch.tensor(shear_warps(20, *shape) if shear else warps(20, shape[0]))
     mw = w.clone()
     mw[:, :, 2] += torch.tensor([2.0, -1.0])
     c = [t.to(cuda) for t in (x, tm, w, mw)]
+    kshift = K.template_shift(c[1])
     before = K.launch_counts()["gn_fused"]
-    got = _np(K.ecc_gn_fused(*c))
+    got = K.ecc_gn_fused(*c, kshift)
+    assert torch.equal(got, K.ecc_gn_fused(*c, kshift))
+    one = K.ecc_gn_fused(c[0][1:2], c[1], c[2][1:2], c[3][1:2], kshift)
+    assert torch.equal(got[1:2], one)
+    got = _np(got)
     assert_stats_close(got, _np(K.gn_fused_plain(x, tm, w, mw)), tm.numpy())
     split = K.ecc_gn_moments(K.warp_affine_banded(c[0], c[2]), c[1], c[2], c[3])
     assert_stats_close(got, _np(split), tm.numpy())
     torch.cuda.synchronize()
-    assert K.launch_counts()["gn_fused"] == before + 1
+    assert K.launch_counts()["gn_fused"] == before + 3
 
 
 def clipped_mask_warps(b, h, w):
@@ -417,6 +427,23 @@ def test_warp_large_shear_on_card(cuda, shape, dtype):
     _, iw = K.warp_filter(x.to(cuda), w.to(cuda), GAUSS[3], with_warped=True)
     _, piw = K.warp_filter_plain(x, w, GAUSS[3], True)
     assert_image_kernel_close(iw, piw, dt, w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["scale", "translate", "flip"])
+def test_gn_fused_far_warps_on_card(cuda, kind, dtype):
+    """K9 off its staged windows (a 1.6x scale: every strip takes the
+    global-memory route), with windows that run off the image (40 px) and
+    with negative scales (a mirror), against its twin."""
+    shape = (2, 97, 131)
+    dt = getattr(torch, dtype)
+    x = torch.tensor(images(31, *shape)).to(dt)
+    tm = torch.tensor(images(32, 1, *shape[1:])[0]).to(dt)
+    w = torch.tensor(far_warps(shape[0], kind))
+    c = [t.to(cuda) for t in (x, tm, w, w)]
+    assert_stats_close(_np(K.ecc_gn_fused(*c)), _np(K.gn_fused_plain(x, tm, w, w)),
+                       _np(tm))
 
 
 @pytest.mark.cuda

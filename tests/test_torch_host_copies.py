@@ -4,8 +4,9 @@ A ``torch.tensor(..., device=cuda)`` copies host memory to the card and
 waits for it.  The phase-1 program builds what such copies made once, at
 set-up: the phase correlation's pool matrices live on its
 ``CorrelationTemplate``, ``warp_displacement_bound`` keeps its corner
-tensor per size and device, and K3 takes each camera template's brightness
-shift (``template_shift``) from the chunk processor.  These tests count
+tensor per size and device, and K3 takes each camera template's
+brightness shift (``template_shift``) from the chunk processor; K9 takes
+it from its caller too.  These tests count
 the calls that made those copies (``torch.tensor``, ``fftreg._pool_matrix``,
 ``ecc_kernels.template_shift``) during calls after set-up, and hold the
 outputs bit for bit to what the per-call construction gives and to the
@@ -112,6 +113,27 @@ def test_moments_take_the_shift(count, dtype):
         for lo, hi in [(0, 18), (18, 24), (24, 30), (30, 36), (36, 37), (37, 39), (39, 42)]:
             g, v = got[0, lo:hi].numpy(), want[lo:hi]
             assert (np.abs(g - v) <= 2e-4 * np.abs(v) + 2e-4 * np.abs(v).max()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_fused_takes_the_shift(count, dtype):
+    """K9 takes the template's shift from its caller, as K3 does: no
+    ``template_shift`` call and no copy when it is given, and the same
+    statistics as when K9 computes it."""
+    shape = (2, 64, 96)
+    x = torch.tensor(images(5, *shape)).to(dtype)
+    tm = torch.tensor(images(105, 1, *shape[1:])[0]).to(dtype)
+    w = torch.tensor(warps(5, 2))
+    mw = w.clone()
+    mw[:, :, 2] += torch.tensor([2.0, -1.0])
+    kshift = K.template_shift(tm)  # set-up, once per template
+    built = dict(count)
+    got = K.ecc_gn_fused(x, tm, w, mw, kshift)
+    assert count == built
+    assert torch.equal(got, K.ecc_gn_fused(x, tm, w, mw))  # computed per call
+    if dtype == torch.float32:
+        assert torch.equal(got, K.ecc_gn_moments(K.warp_affine_banded(x, w), tm, w, mw,
+                                                 kshift))
 
 
 def test_chunk_program_copies_nothing(count, tmp_path):

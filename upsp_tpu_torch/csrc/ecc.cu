@@ -38,7 +38,8 @@
 //     thread; K3 stages strips of rows with cp.async; K2 and K4 work on
 //     32x128 output tiles with per-row and per-column sampling tables and
 //     their source window staged in shared memory (shared device
-//     functions); K9 on 32x128 tiles with its halo staged there.
+//     functions); K9 walks bands of rows of column strips with the same
+//     functions and K3's row-folded sums, carrying its halo rows.
 //   - K2, K4 and K9 sample their two tent taps per axis directly at the
 //     separable positions, so there is no band limit (the TPU kernel reads
 //     static row shifts within +-3 px; here any displacement is sampled
@@ -65,11 +66,6 @@
 #include "image_io.cuh"
 
 namespace {
-
-// K9 (and fill_sep): 32 x 8 threads
-constexpr int BLOCK_X = 32;
-constexpr int BLOCK_Y = 8;
-constexpr int NTHREADS = BLOCK_X * BLOCK_Y;
 
 // K1: threads a block, each owning 16 bytes of output columns (blur_kernel)
 constexpr int BLUR_THREADS = 128;
@@ -140,6 +136,12 @@ __device__ __forceinline__ int reflect101(int i, int n) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+// a 4-byte copy (an f32 element), through L1
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -238,42 +240,6 @@ __device__ __forceinline__ void ld_run(const float* p, float* v) {
   }
 }
 
-// Separable resample at source position (ys, xs): the tent taps
-// floor(p), floor(p)+1 per axis, rows first, zero outside the image
-// (BORDER_CONSTANT) -- R @ img @ C^T of ops/warp.py, one entry.
-template <typename T>
-__device__ __forceinline__ float sep_value(const T* __restrict__ img, int H,
-                                           int W, float ys, float xs) {
-  if (!(ys > -1.f && ys < (float)H && xs > -1.f && xs < (float)W)) {
-    return 0.f;  // both taps of one axis outside the image (or NaN)
-  }
-  const float y0f = floorf(ys);
-  const float x0f = floorf(xs);
-  const int y0 = (int)y0f;
-  const int x0 = (int)x0f;
-  const float wy1 = ys - y0f;
-  const float wy0 = 1.f - wy1;
-  const float wx1 = xs - x0f;
-  const float wx0 = 1.f - wx1;
-  const bool vy0 = y0 >= 0;
-  const bool vy1 = y0 + 1 < H;
-  const bool vx0 = x0 >= 0;
-  const bool vx1 = x0 + 1 < W;
-  float t0 = 0.f, t1 = 0.f;
-  if (vx0) {
-    if (vy0) t0 = wy0 * ldf(img + (size_t)y0 * W + x0);
-    if (vy1) t0 += wy1 * ldf(img + (size_t)(y0 + 1) * W + x0);
-  }
-  if (vx1) {
-    if (vy0) t1 = wy0 * ldf(img + (size_t)y0 * W + x0 + 1);
-    if (vy1) t1 += wy1 * ldf(img + (size_t)(y0 + 1) * W + x0 + 1);
-  }
-  float out = 0.f;
-  if (vx0) out = wx0 * t0;
-  if (vx1) out += wx1 * t1;
-  return out;
-}
-
 // The order-2 shear Taylor term of one warped pixel from the 3x3
 // neighbourhood of the separable image (rows u, m, d; columns l, c, r),
 // its row's x displacement dx = a01 (y - cy) and hdx2 = 0.5 dx dx, its
@@ -317,29 +283,6 @@ __device__ __forceinline__ float taylor_px(float ul, float uc, float ur,
 // 0.5 d d as the plain twin rounds it
 __device__ __forceinline__ float half_sq(float d) {
   return __fmul_rn(__fmul_rn(0.5f, d), d);
-}
-
-// Fill a shared tile with the separable image over rows [r0, r0+ny) and
-// columns [c0, c0+nx) (any integers: outside the image it is still the
-// BORDER_CONSTANT resample).
-template <typename T>
-__device__ __forceinline__ void fill_sep(float* sep, int pitch, int r0,
-                                         int c0, int ny, int nx,
-                                         const T* __restrict__ img, int H,
-                                         int W, const WarpP& w) {
-  const float cy = (H - 1) * 0.5f;
-  const float cx = (W - 1) * 0.5f;
-  const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
-  for (int i = tid; i < ny * nx; i += NTHREADS) {
-    const int ly = i / nx;
-    const int lx = i - ly * nx;
-    const int r = r0 + ly;
-    const int c = c0 + lx;
-    // separable sample positions, residual shear centred on the image
-    const float ys = affine_pos(w.a11, (float)r, w.ty, w.a10, cx);
-    const float xs = affine_pos(w.a00, (float)c, w.tx, w.a01, cy);
-    sep[ly * pitch + lx] = sep_value(img, H, W, ys, xs);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -530,7 +473,7 @@ __device__ __forceinline__ WarpedAt warped_at(int off, float d, bool edge) {
   return {off, d, half_sq(d), edge};
 }
 
-// the tent taps of position p over [0, n), zero outside (sep_value's)
+// the tent taps of position p over [0, n), zero outside the image
 __device__ __forceinline__ Tent tent(float p, int n) {
   Tent t;
   if (p > -1.f && p < (float)n) {
@@ -549,7 +492,8 @@ __device__ __forceinline__ Tent tent(float p, int n) {
   return t;
 }
 
-// separable row r's and column c's taps (fill_sep's positions)
+// separable row r's and column c's taps: the sample positions, residual
+// shear centred on the image
 __device__ __forceinline__ Tent row_tent(const WarpP& w, int r, int H,
                                          int W) {
   return tent(affine_pos(w.a11, (float)r, w.ty, w.a10, (W - 1) * 0.5f), H);
@@ -599,9 +543,11 @@ __device__ __forceinline__ Window sep_window(const WarpP& w, int H, int W,
 
 // The window's rows into `src` (pitch L::SRC_P), one warp a row, each as
 // stage_row lays it out: the 16-byte body as cp.async copies, one group per
-// thread; the unaligned head and tail element by element, every row's
-// loads issued before any of them is stored, so a warp waits for global
-// memory once and not once a row.
+// thread; the unaligned head and tail element by element: f32 elements as
+// 4-byte cp.async copies too, so nothing waits for global memory here;
+// bf16 elements (2 bytes, below cp.async's least size) loaded, every
+// row's loads issued before any of them is stored, so a warp waits for
+// global memory once and not once a row.
 template <typename L, typename T>
 __device__ __forceinline__ void stage_window(T* src, const T* img, int W,
                                              const Window& win, int wid,
@@ -624,8 +570,13 @@ __device__ __forceinline__ void stage_window(T* src, const T* img, int W,
       cp_async16(d + head + v * V, s + head + v * V);
     }
     if (lane < head + tail) {
-      at[m] = lane < head ? lane : nvec * V + lane;
-      edge[m] = s[at[m]];
+      const int e = lane < head ? lane : nvec * V + lane;
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(d + e, s + e);
+      } else {
+        at[m] = e;
+        edge[m] = s[e];
+      }
     }
   }
   cp_async_commit();
@@ -1048,54 +999,122 @@ warp_filter_kernel(const T* __restrict__ in, const float* __restrict__ warps,
 //     warps); moments_reduce_kernel sums the partials in a fixed order in
 //     f64 (no atomics: deterministic statistics).
 
-template <typename Acc>
-__device__ __forceinline__ Acc warp_sum(Acc v) {
+__device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) {
     v += __shfl_down_sync(0xffffffffu, v, off);
   }
   return v;
 }
 
-// One valid pixel's share of the 42 statistics: the warped gradient from
-// the central differences (gix, giy) of the warped image, the
-// brightness-shifted image and template values (pallas_ecc.py:536-543).
-__device__ __forceinline__ void accumulate_pixel(float* acc, float gix,
-                                                 float giy, float iv,
-                                                 float tv, float xf, float yf,
-                                                 const WarpP& w,
-                                                 float inv_det) {
-  const float gx = (w.a11 * gix - w.a10 * giy) * inv_det;
-  const float gy = (-w.a01 * gix + w.a00 * giy) * inv_det;
-  const float f3[3] = {gx * gx, gx * gy, gy * gy};
+// The 42 statistics, factored per row (K3 and K9).  A thread sums the
+// x-only terms of each row it owns -- sum f x^2, f x, f for the three
+// Hessian products f = gx gx, gx gy, gy gy; g x, g for the six products g =
+// gx t, gy t, gx i, gy i, gx, gy; the masked sums -- and mom_fold_row folds
+// the row's f x, f and g sums with y and y^2 at the row's end, so no y term
+// is formed per pixel.  The products share ax = gx x and ay = gy x (f x^2 =
+// ax ax, ..., g x = ax t, ...).
+struct MomSums {  // a thread's sums over its rows
+  float fxx[3], fxy[3], fyy[3], fx[3], fy[3], f1[3];
+  float gxs[6], gys[6], g1[6];
+  float ms[6];
+};
+struct MomRow {  // one row's sums that mom_fold_row folds with y
+  float rfx[3], rf[3], rg[6];
+};
+
+// the warped gradient from the undivided differences dh = i(x+1) - i(x-1)
+// and dv = i(y+1) - i(y-1): gx = p dh + q dv, gy = r dh + s dv
+struct GradCoef {
+  float p, q, r, s;
+};
+__device__ __forceinline__ GradCoef grad_coef(const WarpP& w, float inv_det) {
+  return {0.5f * w.a11 * inv_det, -0.5f * w.a10 * inv_det,
+          -0.5f * w.a01 * inv_det, 0.5f * w.a00 * inv_det};
+}
+
+// one valid pixel at column xf: its differences, its warped value `mid`
+// and its template value `tmv` (pallas_ecc.py:536-543)
+__device__ __forceinline__ void mom_pixel(MomSums& a, MomRow& row, float dh,
+                                          float dv, float mid, float tmv,
+                                          float xf, float kshift,
+                                          const GradCoef& c) {
+  const float gx = c.p * dh + c.q * dv;
+  const float gy = c.r * dh + c.s * dv;
+  const float iv = mid - kshift;
+  const float tv = tmv - kshift;
+  const float ax = gx * xf;
+  const float ay = gy * xf;
+  a.fxx[0] += ax * ax;
+  a.fxx[1] += ax * ay;
+  a.fxx[2] += ay * ay;
+  row.rfx[0] += ax * gx;
+  row.rfx[1] += ax * gy;
+  row.rfx[2] += ay * gy;
+  row.rf[0] += gx * gx;
+  row.rf[1] += gx * gy;
+  row.rf[2] += gy * gy;
+  a.gxs[0] += ax * tv;
+  a.gxs[1] += ay * tv;
+  a.gxs[2] += ax * iv;
+  a.gxs[3] += ay * iv;
+  a.gxs[4] += ax;
+  a.gxs[5] += ay;
+  row.rg[0] += gx * tv;
+  row.rg[1] += gy * tv;
+  row.rg[2] += gx * iv;
+  row.rg[3] += gy * iv;
+  row.rg[4] += gx;
+  row.rg[5] += gy;
+  a.ms[1] += tv;
+  a.ms[2] += iv;
+  a.ms[3] += tv * tv;
+  a.ms[4] += iv * iv;
+  a.ms[5] += tv * iv;
+}
+
+// the end of a valid row y with ncols valid columns of this thread
+__device__ __forceinline__ void mom_fold_row(MomSums& a, const MomRow& row,
+                                             float ncols, int y) {
+  a.ms[0] += ncols;
+  const float yf = (float)y;
+  const float yy = yf * yf;
 #pragma unroll
-  for (int q = 0; q < 3; ++q) {  // Hessian moments [xx,xy,yy,x,y,1]
-    const float f = f3[q];
-    acc[6 * q + 0] += f * xf * xf;
-    acc[6 * q + 1] += f * xf * yf;
-    acc[6 * q + 2] += f * yf * yf;
-    acc[6 * q + 3] += f * xf;
-    acc[6 * q + 4] += f * yf;
-    acc[6 * q + 5] += f;
+  for (int j = 0; j < 3; ++j) {
+    a.fx[j] += row.rfx[j];
+    a.f1[j] += row.rf[j];
+    a.fxy[j] += yf * row.rfx[j];
+    a.fy[j] += yf * row.rf[j];
+    a.fyy[j] += yy * row.rf[j];
   }
-  const float z3[3] = {tv, iv, 1.f};
 #pragma unroll
-  for (int zi = 0; zi < 3; ++zi) {  // [gx x, gy x, gx y, gy y, gx, gy].z
-    const float gxz = gx * z3[zi];
-    const float gyz = gy * z3[zi];
-    acc[18 + 6 * zi + 0] += gxz * xf;
-    acc[18 + 6 * zi + 1] += gyz * xf;
-    acc[18 + 6 * zi + 2] += gxz * yf;
-    acc[18 + 6 * zi + 3] += gyz * yf;
-    acc[18 + 6 * zi + 4] += gxz;
-    acc[18 + 6 * zi + 5] += gyz;
+  for (int n = 0; n < 6; ++n) {
+    a.g1[n] += row.rg[n];
+    a.gys[n] += yf * row.rg[n];
   }
-  // masked sums: area, S_t, S_i, S_tt, S_ii, S_ti
-  acc[36] += 1.f;
-  acc[37] += tv;
-  acc[38] += iv;
-  acc[39] += tv * tv;
-  acc[40] += iv * iv;
-  acc[41] += tv * iv;
+}
+
+// the (42,) layout of ecc_gn_moments
+__device__ __forceinline__ void mom_stats(const MomSums& a, float* acc) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    acc[6 * q + 0] = a.fxx[q];
+    acc[6 * q + 1] = a.fxy[q];
+    acc[6 * q + 2] = a.fyy[q];
+    acc[6 * q + 3] = a.fx[q];
+    acc[6 * q + 4] = a.fy[q];
+    acc[6 * q + 5] = a.f1[q];
+  }
+#pragma unroll
+  for (int z = 0; z < 3; ++z) {  // [gx x, gy x, gx y, gy y, gx, gy] . z
+    acc[18 + 6 * z + 0] = a.gxs[2 * z];
+    acc[18 + 6 * z + 1] = a.gxs[2 * z + 1];
+    acc[18 + 6 * z + 2] = a.gys[2 * z];
+    acc[18 + 6 * z + 3] = a.gys[2 * z + 1];
+    acc[18 + 6 * z + 4] = a.g1[2 * z];
+    acc[18 + 6 * z + 5] = a.g1[2 * z + 1];
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) acc[36 + k] = a.ms[k];
 }
 
 // validity of pixel (y, x)'s separable sample under the MASK warp (the
@@ -1111,10 +1130,10 @@ __device__ __forceinline__ bool mask_col(const WarpP& m, int x, int W,
   return xsm >= 0.f && xsm <= (float)(W - 1);
 }
 
-// sum of a block's per-thread accumulators: warp shuffles in Acc (K9 f64;
-// K3 f32, its thread sums being short), then the warps in order in f64;
-// thread 0..41 writes statistic k of the block's partial
-template <int THREADS, typename Acc = double>
+// sum of a block's per-thread accumulators (K3, K9): warp shuffles in f32,
+// a thread's sums being short, then the warps in order in f64; thread
+// 0..41 writes statistic k of the block's partial
+template <int THREADS>
 __device__ __forceinline__ void block_partial(const float* acc, int tid,
                                               double (*red)[NSTAT],
                                               double* __restrict__ out) {
@@ -1122,7 +1141,7 @@ __device__ __forceinline__ void block_partial(const float* acc, int tid,
   const int wid = tid >> 5;
 #pragma unroll
   for (int k = 0; k < NSTAT; ++k) {
-    const double v = warp_sum((Acc)acc[k]);
+    const double v = warp_sum(acc[k]);
     if (lane == 0) red[wid][k] = v;
   }
   __syncthreads();
@@ -1197,18 +1216,8 @@ moments_kernel(const T* __restrict__ iws, const T* __restrict__ tmpl,
     if (x > 0 && x < W - 1) inner |= 1u << k;
   }
   const float ncols = (float)__popc(cols);
-  // the warped gradient from the undivided differences dh = i(x+1) - i(x-1)
-  // and dv = i(y+1) - i(y-1): gx = p dh + q dv, gy = r dh + s dv
-  const float p = 0.5f * w.a11 * inv_det, q = -0.5f * w.a10 * inv_det;
-  const float r = -0.5f * w.a01 * inv_det, s = 0.5f * w.a00 * inv_det;
-
-  // strip sums, for the three Hessian products f = gx gx, gx gy, gy gy:
-  // f x^2, f x y, f y^2, f x, f y, f; for the six products g = gx t, gy t,
-  // gx i, gy i, gx, gy: g x, g y, g; the masked sums
-  float fxx[3] = {}, fxy[3] = {}, fyy[3] = {}, fx[3] = {}, fy[3] = {},
-        f1[3] = {};
-  float gxs[6] = {}, gys[6] = {}, g1[6] = {};
-  float ms[6] = {};
+  const GradCoef gc = grad_coef(w, inv_det);
+  MomSums a = {};
 
   for (int i = 0; i < nrows; ++i) {
     cp_async_wait<MOM_AHEAD>();
@@ -1229,90 +1238,23 @@ moments_kernel(const T* __restrict__ iws, const T* __restrict__ tmpl,
     const T* tr = staged(tbuf + ((i + 1) % MOM_TMPL_SLOTS) * pitch,
                          tmpl + (size_t)y * W + s0);
     const int e0 = c0 + tid - s0;
-    float rfx[3] = {}, rf[3] = {}, rg[6] = {};  // the row's sums
+    MomRow rs = {};
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) {
       if (!(cols & (1u << k))) continue;
       const int e = e0 + k * MOM_THREADS;
-      const float xf = (float)(c0 + tid + k * MOM_THREADS);
       const float dh =
           (inner & (1u << k)) ? to_f(mid[e + 1]) - to_f(mid[e - 1]) : 0.f;
-      const float dv = to_f(dn[e]) - to_f(up[e]);
-      const float gx = p * dh + q * dv;
-      const float gy = r * dh + s * dv;
-      const float iv = to_f(mid[e]) - kshift;
-      const float tv = to_f(tr[e]) - kshift;
-      const float ax = gx * xf;
-      const float ay = gy * xf;
-      fxx[0] += ax * ax;
-      fxx[1] += ax * ay;
-      fxx[2] += ay * ay;
-      rfx[0] += ax * gx;
-      rfx[1] += ax * gy;
-      rfx[2] += ay * gy;
-      rf[0] += gx * gx;
-      rf[1] += gx * gy;
-      rf[2] += gy * gy;
-      gxs[0] += ax * tv;
-      gxs[1] += ay * tv;
-      gxs[2] += ax * iv;
-      gxs[3] += ay * iv;
-      gxs[4] += ax;
-      gxs[5] += ay;
-      rg[0] += gx * tv;
-      rg[1] += gy * tv;
-      rg[2] += gx * iv;
-      rg[3] += gy * iv;
-      rg[4] += gx;
-      rg[5] += gy;
-      ms[1] += tv;
-      ms[2] += iv;
-      ms[3] += tv * tv;
-      ms[4] += iv * iv;
-      ms[5] += tv * iv;
+      mom_pixel(a, rs, dh, to_f(dn[e]) - to_f(up[e]), to_f(mid[e]),
+                to_f(tr[e]), (float)(c0 + tid + k * MOM_THREADS), kshift, gc);
     }
-    ms[0] += ncols;
-    const float yf = (float)y;
-    const float yy = yf * yf;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      fx[j] += rfx[j];
-      f1[j] += rf[j];
-      fxy[j] += yf * rfx[j];
-      fy[j] += yf * rf[j];
-      fyy[j] += yy * rf[j];
-    }
-#pragma unroll
-    for (int n = 0; n < 6; ++n) {
-      g1[n] += rg[n];
-      gys[n] += yf * rg[n];
-    }
+    mom_fold_row(a, rs, ncols, y);
   }
 
-  // the (42,) layout of ecc_gn_moments
   float acc[NSTAT];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    acc[6 * q + 0] = fxx[q];
-    acc[6 * q + 1] = fxy[q];
-    acc[6 * q + 2] = fyy[q];
-    acc[6 * q + 3] = fx[q];
-    acc[6 * q + 4] = fy[q];
-    acc[6 * q + 5] = f1[q];
-  }
-#pragma unroll
-  for (int z = 0; z < 3; ++z) {  // [gx x, gy x, gx y, gy y, gx, gy] . z
-    acc[18 + 6 * z + 0] = gxs[2 * z];
-    acc[18 + 6 * z + 1] = gxs[2 * z + 1];
-    acc[18 + 6 * z + 2] = gys[2 * z];
-    acc[18 + 6 * z + 3] = gys[2 * z + 1];
-    acc[18 + 6 * z + 4] = g1[2 * z];
-    acc[18 + 6 * z + 5] = g1[2 * z + 1];
-  }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) acc[36 + k] = ms[k];
+  mom_stats(a, acc);
   const size_t blk = (size_t)blockIdx.y * gridDim.z + blockIdx.z;
-  block_partial<MOM_THREADS, float>(
+  block_partial<MOM_THREADS>(
       acc, tid, red,
       partials + ((size_t)b * gridDim.y * gridDim.z + blk) * NSTAT);
 }
@@ -1336,98 +1278,292 @@ __global__ void moments_reduce_kernel(const double* __restrict__ partials,
 // K9: one Gauss-Newton step's statistics straight from the UNWARPED image:
 // K3's 42 statistics of K2's warped image, without the warped image.
 // Replaces _gn_fused_kernel (pallas_ecc.py:968, via _gn_fused_batched
-// :1044).  Bound: reading the image and the template, 8 B/pixel in f32 (4
-// in bf16) -- against K2 then K3's 16 (8): the warped image is neither
-// written nor read back (17.3 MB per 1200x1800 f32 frame per step).
-// Design: each block owns a GN_TY x GN_TX tile.  It computes K2's
-// separable image over the tile plus a 2-pixel ring into shared memory
-// (fill_sep, the same sampling as K2), then the warped image over the tile
-// plus a 1-pixel ring (taylor_px, as K2; zero outside the image), so the
-// central differences at the tile's seams read the neighbouring tiles'
-// rows and columns from shared memory.  The statistics then follow K3
-// pixel by pixel (accumulate_pixel), one f64 partial per block, summed by
-// moments_reduce_kernel in a fixed order.  The warped values stay f32 also
-// for bf16 images (the JAX kernel's _sep_rows_block does the same), so
-// K9 does not round where K2 then K3 rounds the warped image.
+// :1044).  Bound: 97 flops a pixel (K2's 36 and K3's 61) against 67
+// TFLOP/s of f32, above its bytes (8 B/pixel in f32: the image and the
+// template; K2 then K3 move 16): instruction work bounds it, so the design
+// does K2's and K3's work once a pixel and nothing more per pixel.
+// Design:
+//   - a block owns a strip of at most GN_TX columns (the frame's width cut
+//     into equal strips, as K3's column chunks) and a band of whole GN_TY-
+//     row chunks of one frame, and walks the band chunk by chunk; the
+//     frame is the fastest grid index, so the blocks of one strip and band
+//     in all B frames read the template's rows from L2.  gn_grid sizes the
+//     bands from H and W alone (so a frame's statistics do not depend on
+//     its batch) to about GN_FRAME_BLOCKS blocks a frame: 8 frames are one
+//     wave of GN_BLOCKS_PER_SM blocks on 132 SMs (8 x 15 strips x 2 bands
+//     of 608 rows at 1200x1800, 8 x 8 x 4 of 256 at 1024x1024);
+//   - the separable image comes from K2's code: the chunk's source window
+//     (sep_window) staged by stage_window's cp.async copies -- the next
+//     chunk's in flight while the block computes this chunk's warped rows
+//     and statistics -- the column tent table (tent_table) built once per
+//     strip, the row table once per chunk, and sep_tile_from over the
+//     chunk's new separable rows.  The route (staged window or global
+//     memory) is chosen once per strip, since the column table's offsets
+//     depend on it;
+//   - the warped image: taylor_px from the 3x3 separable neighbourhood with
+//     K2's displacements (the row's once per row, the column's from its
+//     index), four columns a lane with 16-byte shared loads and stores,
+//     into a shared tile;
+//   - the halo: a chunk's statistics read warped rows y-1..y+1, which read
+//     separable rows y-2..y+2.  The last four separable and two warped rows
+//     of a chunk are the first of the next: they are moved to the top of
+//     their tiles, not recomputed; only the band's first chunk computes its
+//     upper ring;
+//   - the statistics: K3's mom_pixel and mom_fold_row, half a warp a row,
+//     a thread's 8 columns x = c0 + l + 16 q summed in K3's order (q
+//     ascending) and folded once per row, the row's 8 template values
+//     loaded at once; mask_col once per column and strip, mask_row once
+//     per row;
+//   - one block reduction per band (block_partial: f32 within a warp, f64
+//     across warps); moments_reduce_kernel sums the partials in a fixed
+//     order in f64 (no atomics: the same statistics from run to run).
+// Two blocks an SM, at most 128 registers a thread (-Xptxas -v: 124 in
+// f32, 120 in bf16, no spills): three (80 registers, 28 bytes of spill
+// stores in f32) measured 2% slower at 1200x1800 and 12% at 1024x1024
+// (PERF.md).  Instruction issue, not HBM, holds it: it takes about K2's
+// plus K3's time, the HBM round trip it saves being no part of theirs.
+// The warped values are K2's to the bit: the same tables, the same
+// separable sums (sep_tile rounds each product and sum on its own) and the
+// same taylor_px with the same displacements, none of it contracted into
+// FMAs.  They stay f32 for bf16 images (the JAX kernel's _sep_rows_block
+// widens too): they are the f32 values that bf16 K2 rounds at its store,
+// so K9 in bf16 does not round where K2 then K3 rounds the warped image.
 
-constexpr int GN_TX = 128;
-constexpr int GN_TY = 32;
-constexpr int GN_SP = GN_TX + 4 + 1;  // separable tile pitch (+2 ring)
-constexpr int GN_WP = GN_TX + 2 + 1;  // warped tile pitch (+1 ring)
+constexpr int GN_TX = 128;  // the widest strip
+constexpr int GN_TY = 32;   // rows a chunk
+// at most 128 registers a thread and 113 KB of shared memory a block
+constexpr int GN_BLOCKS_PER_SM = 2;
+// blocks a frame: 8 frames of GN_FRAME_BLOCKS blocks are one wave of
+// GN_BLOCKS_PER_SM blocks on 132 SMs (gn_grid)
+constexpr int GN_FRAME_BLOCKS = GN_BLOCKS_PER_SM * 132 / 8;
+constexpr int GN_KMAX = GN_TX / 16;  // a thread's columns
+
+// Shared memory: the staged source window, the separable tile (GN_TY + 4
+// rows, the strip plus a 2-pixel ring), the warped tile (GN_TY + 2 rows,
+// the strip plus a 1-pixel ring) and the tent tables.  A window's budget
+// is |a00|, |a11| up to ~1.1 over the band's first chunk (GN_TY + 4
+// separable rows).
+template <typename T>
+struct GnLayout {
+  static constexpr int SEP_ROWS = GN_TY + 4;
+  static constexpr int SEP_COLS = GN_TX + 4;
+  static constexpr int SEP_P = SEP_COLS;
+  static constexpr int WRP_ROWS = GN_TY + 2;
+  // 16 mod 32 floats: the two half-warps of a warp read banks 16 apart
+  static constexpr int WRP_P = (GN_TX + 2 + 15) / 32 * 32 + 16;
+  static constexpr int SRC_ROWS = SEP_ROWS + 4;
+  static constexpr int SRC_COLS = SEP_COLS + 6;
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int SRC_P = (SRC_COLS + 2 * (V - 1)) / V * V;
+  static constexpr int SRC_FLOATS =
+      (SRC_ROWS * SRC_P * (int)sizeof(T) + 15) / 16 * 4;
+  static constexpr size_t BYTES =
+      sizeof(float) * (SRC_FLOATS + SEP_ROWS * SEP_P + WRP_ROWS * WRP_P) +
+      sizeof(Tent) * (SEP_ROWS + SEP_COLS);
+};
 
 template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(32 * WF_WARPS, GN_BLOCKS_PER_SM)
 gn_fused_kernel(const T* __restrict__ imgs, const T* __restrict__ tmpl,
                 const float* __restrict__ warps,
                 const float* __restrict__ mask_warps,
                 const float* __restrict__ kshift_p,
-                double* __restrict__ partials, int H, int W) {
-  __shared__ float sep[(GN_TY + 4) * GN_SP];
-  __shared__ float wrp[(GN_TY + 2) * GN_WP];
-  __shared__ double red[NTHREADS / 32][NSTAT];
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * GN_TY;
-  const int x0 = blockIdx.x * GN_TX;
-  const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
+                double* __restrict__ partials, int H, int W, int band,
+                int cw) {
+  using L = GnLayout<T>;
+  constexpr int SP = L::SEP_P;
+  constexpr int WP = L::WRP_P;
+  constexpr int NT = 32 * WF_WARPS;
+  extern __shared__ __align__(16) float gn_smem[];
+  __shared__ double red[WF_WARPS][NSTAT];
+  T* src = reinterpret_cast<T*>(gn_smem);
+  float* sep = gn_smem + L::SRC_FLOATS;
+  float* wrp = sep + L::SEP_ROWS * SP;
+  Tent* srow = reinterpret_cast<Tent*>(wrp + L::WRP_ROWS * WP);
+  Tent* scol = srow + L::SEP_ROWS;
+
+  const int lane = threadIdx.x;
+  const int wid = threadIdx.y;
+  const int tid = wid * 32 + lane;
+  const int b = blockIdx.x;
+  const int by0 = blockIdx.y * band;  // the band's rows [by0, by1)
+  const int by1 = min(by0 + band, H);
+  const int nchunks = (by1 - by0 + GN_TY - 1) / GN_TY;
+  const int c0 = blockIdx.z * cw;  // the strip's columns [c0, c1)
+  const int c1 = min(W, c0 + cw);
+  const int nxs = c1 - c0 + 4;  // separable columns [c0 - 2, c1 + 2)
+  const int nxw = c1 - c0 + 2;  // warped columns [c0 - 1, c1 + 1)
   const T* img = imgs + (size_t)b * H * W;
   const WarpP w = load_warp(warps, b);
   const WarpP m = load_warp(mask_warps, b);
-
-  fill_sep(sep, GN_SP, y0 - 2, x0 - 2, GN_TY + 4, GN_TX + 4, img, H, W, w);
-  __syncthreads();
-  // warped rows [y0-1, y0+GN_TY+1), columns [x0-1, x0+GN_TX+1); zero
-  // outside the image (the moments kernel never reads those: the outer
-  // ring has no central difference)
-  constexpr int NY = GN_TY + 2;
-  constexpr int NX = GN_TX + 2;
   const float cy = (H - 1) * 0.5f;
   const float cx = (W - 1) * 0.5f;
-  const float inv_ax = 1.f / w.a00;
-  const float inv_ay = 1.f / w.a11;
-  for (int i = tid; i < NY * NX; i += NTHREADS) {
-    const int ly = i / NX;
-    const int lx = i - ly * NX;
-    const int r = y0 - 1 + ly;
-    const int c = x0 - 1 + lx;
-    float v = 0.f;
-    if (r >= 0 && r < H && c >= 0 && c < W) {
-      constexpr int P = GN_SP;
-      const float* s = sep + (ly + 1) * P + lx + 1;
-      const float dx = w.a01 * ((float)r - cy);
-      const float dy = w.a10 * ((float)c - cx);
-      v = taylor_px(s[-P - 1], s[-P], s[-P + 1], s[-1], s[0], s[1], s[P - 1],
-                    s[P], s[P + 1], dx, half_sq(dx), (r > 0) && (r < H - 1),
-                    dy, half_sq(dy), (c > 0) && (c < W - 1), inv_ax, inv_ay);
-    }
-    wrp[ly * GN_WP + lx] = v;
-  }
-  __syncthreads();
 
+  // chunk k: output rows [r0, r0 + n); its new separable rows [s0, s0 +
+  // ns): the band's first chunk's include its upper ring, the others' start
+  // below the four rows they carry
+  struct Chunk {
+    int r0, n, s0, ns;
+  };
+  auto chunk = [&](int k) {
+    Chunk c;
+    c.r0 = by0 + k * GN_TY;
+    c.n = min(GN_TY, by1 - c.r0);
+    c.s0 = k == 0 ? c.r0 - 2 : c.r0 + 2;
+    c.ns = k == 0 ? c.n + 4 : c.n;
+    return c;
+  };
+  auto window = [&](int k) {
+    const Chunk c = chunk(k);
+    return sep_window<L>(w, H, W, c.s0, c.ns, c0 - 2, nxs);
+  };
+  // the strip's route: the staged windows only if every chunk's fits
+  bool fits = true;
+  for (int k = tid; k < nchunks; k += NT) fits = fits && window(k).smem;
+  const bool smem = __syncthreads_and(fits);
+  Window win = window(0);
+  win.smem = smem;
+  if (smem) stage_window<L>(src, img, W, win, wid, lane);
+  if (wid == 0) tent_table<L>(scol, false, c0 - 2, nxs, w, H, W, img, win, lane);
+
+  // this thread's columns x = c0 + l + 16 q: bit q of `cols` if the mask
+  // warp keeps x, of `inner` if x has both neighbours
+  const int half = lane >> 4;
+  const int l = lane & 15;
+  unsigned cols = 0, inner = 0;
+#pragma unroll
+  for (int q = 0; q < GN_KMAX; ++q) {
+    const int x = c0 + l + 16 * q;
+    if (x < c1 && mask_col(m, x, W, cy)) cols |= 1u << q;
+    if (x > 0 && x < W - 1) inner |= 1u << q;
+  }
+  const float ncols = (float)__popc(cols);
   const float kshift = *kshift_p;
   const float inv_det = 1.f / (w.a00 * w.a11 - w.a01 * w.a10);
-  float acc[NSTAT];
-#pragma unroll
-  for (int k = 0; k < NSTAT; ++k) acc[k] = 0.f;
-  for (int i = tid; i < GN_TY * GN_TX; i += NTHREADS) {
-    const int ly = i / GN_TX;
-    const int lx = i - ly * GN_TX;
-    const int y = y0 + ly;
-    const int x = x0 + lx;
-    if (y >= H || x >= W || !mask_row(m, y, H, cx) || !mask_col(m, x, W, cy)) {
-      continue;
+  const GradCoef gc = grad_coef(w, inv_det);
+  const float inv_ax = 1.f / w.a00;
+  const float inv_ay = 1.f / w.a11;
+  MomSums a = {};
+
+  for (int k = 0; k < nchunks; ++k) {
+    const Chunk c = chunk(k);
+    cp_async_wait<0>();
+    __syncthreads();  // this chunk's window staged; the last chunk done
+    // 1. the carried rows to the top of their tiles, this chunk's row
+    //    table
+    if (k > 0) {
+      for (int i = tid; i < 4 * nxs; i += NT) {
+        const int r = i / nxs;
+        const int j = i - r * nxs;
+        sep[r * SP + j] = sep[(GN_TY + r) * SP + j];
+      }
+      for (int i = tid; i < 2 * nxw; i += NT) {
+        const int r = i / nxw;
+        const int j = i - r * nxw;
+        wrp[r * WP + j] = wrp[(GN_TY + r) * WP + j];
+      }
     }
-    const float* c = wrp + (ly + 1) * GN_WP + lx + 1;
-    const float gix = (x > 0 && x < W - 1) ? 0.5f * (c[1] - c[-1]) : 0.f;
-    const float giy =
-        (y > 0 && y < H - 1) ? 0.5f * (c[GN_WP] - c[-GN_WP]) : 0.f;
-    accumulate_pixel(acc, gix, giy, c[0] - kshift,
-                     ldf(tmpl + (size_t)y * W + x) - kshift, (float)x,
-                     (float)y, w, inv_det);
+    if (wid == 0) {
+      Window cur = window(k);
+      cur.smem = smem;
+      tent_table<L>(srow, true, c.s0, c.ns, w, H, W, img, cur, lane);
+    }
+    __syncthreads();
+
+    // 2. the new separable rows: separable row r0 - 2 + i at tile row i
+    sep_tile_from(sep + (c.s0 - (c.r0 - 2)) * SP, SP, srow, scol, c.ns, nxs,
+                  lane, wid, win, src, img);
+    __syncthreads();
+    // the next chunk's window in flight from here to the next chunk
+    if (smem && k + 1 < nchunks) {
+      stage_window<L>(src, img, W, window(k + 1), wid, lane);
+    }
+
+    // 3. the new warped rows: warped row r0 - 1 + i at tile row i, column
+    //    c0 - 1 + j at j, its separable centre at (i + 1, j + 1); zero
+    //    outside the image (never read: the outer ring has no central
+    //    difference).  A warp takes a row, lane l its columns [4 l, 4 l +
+    //    4): it reads the six separable columns they need from each of
+    //    three rows as 16- and 8-byte loads and stores the four warped
+    //    values as one; the row's displacement once per row, the column's
+    //    from its index, as K2 (warp_kernel)
+    for (int i = (k == 0 ? 0 : 2) + wid; i < c.n + 2; i += WF_WARPS) {
+      const int y = c.r0 - 1 + i;
+      const WarpedAt rf =
+          warped_at(0, w.a01 * ((float)y - cy), (y > 0) && (y < H - 1));
+      const bool yin = y >= 0 && y < H;
+      auto px = [&](int j, const float* u, const float* m, const float* d) {
+        const int x = c0 - 1 + j;
+        if (!yin || x < 0 || x >= W) return 0.f;
+        const float dy = w.a10 * ((float)x - cx);
+        return taylor_px(u[0], u[1], u[2], m[0], m[1], m[2], d[0], d[1], d[2],
+                         rf.d, rf.dd, rf.edge, dy, half_sq(dy),
+                         (x > 0) && (x < W - 1), inv_ax, inv_ay);
+      };
+      const float* s = sep + i * SP;  // separable row i, the row above
+      float* o = wrp + i * WP;
+      const int j0 = 4 * lane;
+      if (j0 < nxw) {
+        float q[3][6];
+#pragma unroll
+        for (int u = 0; u < 3; ++u) {
+          ld_run<4>(s + u * SP + j0, q[u]);
+          const float2 t = *reinterpret_cast<const float2*>(s + u * SP + j0 + 4);
+          q[u][4] = t.x;
+          q[u][5] = t.y;
+        }
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = px(j0 + e, q[0] + e, q[1] + e, q[2] + e);
+        if (j0 + 4 <= nxw) {
+          st_vec(o + j0, v);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (j0 + e < nxw) o[j0 + e] = v[e];
+          }
+        }
+      }
+      // the columns past 128 (a 128-column strip's ring), one a lane
+      for (int j = 4 * 32 + lane; j < nxw; j += 32) {
+        o[j] = px(j, s + j, s + SP + j, s + 2 * SP + j);
+      }
+    }
+    __syncthreads();
+
+    // 4. the statistics of rows [r0, r0 + n), half a warp a row; on the
+    //    outer rows up = dn = mid, so dv = 0 there
+    for (int ly = 2 * wid + half; ly < c.n; ly += 2 * WF_WARPS) {
+      const int y = c.r0 + ly;
+      if (!mask_row(m, y, H, cx)) continue;
+      const bool gmask = (y > 0) && (y < H - 1);
+      const float* mid = wrp + (ly + 1) * WP + 1;  // column c0 at mid[0]
+      const float* up = gmask ? mid - WP : mid;
+      const float* dn = gmask ? mid + WP : mid;
+      // the row's template values, every load in flight at once
+      const T* tr = tmpl + (size_t)y * W + c0;
+      float tv[GN_KMAX];
+#pragma unroll
+      for (int q = 0; q < GN_KMAX; ++q) tv[q] = ldf(tr + min(l + 16 * q, c1 - c0 - 1));
+      MomRow rs = {};
+#pragma unroll
+      for (int q = 0; q < GN_KMAX; ++q) {
+        if (!(cols & (1u << q))) continue;
+        const int e = l + 16 * q;
+        const float dh = (inner & (1u << q)) ? mid[e + 1] - mid[e - 1] : 0.f;
+        mom_pixel(a, rs, dh, dn[e] - up[e], mid[e], tv[q], (float)(c0 + e),
+                  kshift, gc);
+      }
+      mom_fold_row(a, rs, ncols, y);
+    }
   }
-  const int nblk = gridDim.x * gridDim.y;
-  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-  block_partial<NTHREADS>(acc, tid, red,
-                          partials + ((size_t)b * nblk + blk) * NSTAT);
+
+  float acc[NSTAT];
+  mom_stats(a, acc);
+  const size_t blk = (size_t)blockIdx.y * gridDim.z + blockIdx.z;
+  block_partial<NT>(
+      acc, tid, red,
+      partials + ((size_t)b * gridDim.y * gridDim.z + blk) * NSTAT);
 }
 
 // ---------------------------------------------------------------------------
@@ -1611,10 +1747,6 @@ Taps make_taps(int k, float t0, float t1, float t2, float t3, float t4,
   return t;
 }
 
-dim3 gn_grid(int B, int H, int W) {
-  return dim3((W + GN_TX - 1) / GN_TX, (H + GN_TY - 1) / GN_TY, B);
-}
-
 // a kernel's shared memory above the default 48 KB, static and dynamic
 // together, must be allowed first (once per kernel and size)
 template <typename Kernel>
@@ -1752,19 +1884,35 @@ int launch_moments(const T* iws, const T* tmpl, const float* warps,
   return (int)cudaGetLastError();
 }
 
+// K9's grid: (frames, bands of `band` rows, strips of `cw` <= GN_TX
+// columns): about GN_FRAME_BLOCKS blocks a frame, each band a whole
+// number of chunks, from H and W alone
+dim3 gn_grid(int B, int H, int W, int* band, int* cw) {
+  const int ncol = (W + GN_TX - 1) / GN_TX;
+  *cw = (W + ncol - 1) / ncol;
+  const int bands = max(1, GN_FRAME_BLOCKS / ncol);
+  const int chunks = ((H + bands - 1) / bands + GN_TY - 1) / GN_TY;
+  *band = max(1, chunks) * GN_TY;
+  return dim3(B, (H + *band - 1) / *band, ncol);
+}
+
 template <typename T>
 int launch_gn_fused(const T* imgs, const T* tmpl, const float* warps,
                     const float* mask_warps, const float* kshift,
                     double* partials, float* out, int B, int H, int W,
                     void* stream) {
-  const dim3 grid = gn_grid(B, H, W);
-  gn_fused_kernel<T><<<grid, dim3(BLOCK_X, BLOCK_Y), 0,
-                       (cudaStream_t)stream>>>(imgs, tmpl, warps, mask_warps,
-                                               kshift, partials, H, W);
-  cudaError_t err = cudaGetLastError();
+  static size_t allowed = 0;
+  int band, cw;
+  const dim3 grid = gn_grid(B, H, W, &band, &cw);
+  const size_t smem = GnLayout<T>::BYTES;
+  cudaError_t err = allow_smem(gn_fused_kernel<T>, smem, &allowed);
+  if (err != cudaSuccess) return (int)err;
+  gn_fused_kernel<T><<<grid, dim3(32, WF_WARPS), smem, (cudaStream_t)stream>>>(
+      imgs, tmpl, warps, mask_warps, kshift, partials, H, W, band, cw);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   moments_reduce_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
-      partials, out, grid.x * grid.y);
+      partials, out, grid.y * grid.z);
   return (int)cudaGetLastError();
 }
 
@@ -1833,8 +1981,22 @@ int upsp_ecc_moments_blocks(int H, int W) {
   return (int)(g.y * g.z);
 }
 int upsp_ecc_gn_fused_blocks(int H, int W) {
-  const dim3 g = gn_grid(1, H, W);
-  return (int)(g.x * g.y);
+  int band, cw;
+  const dim3 g = gn_grid(1, H, W, &band, &cw);
+  return (int)(g.y * g.z);
+}
+
+// K9's registers a thread and local (spilled) bytes, as the compiler
+// built it; bf16_images selects the bfloat16 instantiation
+int upsp_ecc_gn_fused_attrs(int bf16_images, int* regs, int* local_bytes) {
+  cudaFuncAttributes at;
+  const cudaError_t err =
+      bf16_images ? cudaFuncGetAttributes(&at, gn_fused_kernel<bf16>)
+                  : cudaFuncGetAttributes(&at, gn_fused_kernel<float>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = at.numRegs;
+  *local_bytes = (int)at.localSizeBytes;
+  return 0;
 }
 
 int upsp_ecc_blur(const float* in, float* out, int B, int H, int W,

@@ -26,8 +26,9 @@ rounds once at its store (round to nearest even); warps and statistics
 stay f32.  The plain twins do the same: they widen bf16 to f32, compute as
 for f32 and round the output once (never bf16 arithmetic op by op).  The
 launch counts tell the instantiations apart (``blur`` and ``blur_bf16``,
-...).  K9 is no step of the frame program (neither package's datapoint
-path calls it; ``registration._gn_step`` stays K2 then K3).
+...).  ``registration._gn_step`` runs K9 for f32 images and K2 then K3 for
+bf16 (K9 keeps the warped image f32 where the JAX reference's bf16 step
+rounds it).
 
 The library is compiled from ``csrc/ecc.cu`` with ``nvcc`` for ``sm_90a``
 at first use, into ``build/torch_kernels/`` at the repository root
@@ -87,6 +88,9 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.restype = i
     lib.upsp_ecc_moments_blocks.restype = i
     lib.upsp_ecc_gn_fused_blocks.restype = i
+    ip = ctypes.POINTER(i)
+    lib.upsp_ecc_gn_fused_attrs.argtypes = [i, ip, ip]
+    lib.upsp_ecc_gn_fused_attrs.restype = i
 
 
 LIBRARY = CudaLibrary("ecc", _bind)
@@ -303,11 +307,12 @@ def warp_filter_plain(imgs, warps, taps, with_warped: bool = False):
     return (out, iw) if with_warped else out
 
 
-def gn_fused_plain(imgs, tmpl, warps, mask_warps) -> torch.Tensor:
+def gn_fused_plain(imgs, tmpl, warps, mask_warps,
+                   kshift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2 then K3 with the warped image kept in f32 (not rounded to a bf16
     image's dtype): ``ecc_gn_fused`` semantics."""
     return moments_plain(_warp_f32(imgs.float(), warps), tmpl, warps,
-                         mask_warps)
+                         mask_warps, kshift)
 
 
 # ---------------------------------------------------------------------------
@@ -363,17 +368,31 @@ def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
 
 
 def ecc_gn_fused(imgs: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
-                 mask_warps: torch.Tensor) -> torch.Tensor:
+                 mask_warps: torch.Tensor,
+                 kshift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9: ``ecc_gn_moments(warp_affine_banded(imgs, warps), ...)`` in one
     kernel from the UNWARPED (blurred) (B, H, W) images; the warped image
-    never reaches device memory and stays f32 for bf16 images."""
+    never reaches device memory and stays f32 for bf16 images (in f32 its
+    values are K2's to the bit).  ``kshift``: the template's
+    :func:`template_shift`, computed here when None."""
     _check_stats_args(imgs, tmpl, warps, mask_warps, "gn_fused")
+    if kshift is None:
+        kshift = template_shift(tmpl)
     if imgs.device.type == "cpu":
-        return gn_fused_plain(imgs, tmpl, warps, mask_warps)
-    b, h, w = imgs.shape
-    return _launch_stats("gn_fused", imgs, tmpl, warps, mask_warps,
-                         template_shift(tmpl),
-                         LIBRARY.lib().upsp_ecc_gn_fused_blocks(h, w))
+        return gn_fused_plain(imgs, tmpl, warps, mask_warps, kshift)
+    return _launch_stats("gn_fused", imgs, tmpl, warps, mask_warps, kshift,
+                         LIBRARY.lib().upsp_ecc_gn_fused_blocks(*imgs.shape[1:]))
+
+
+def gn_fused_attrs(dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """(registers a thread, local bytes a thread) of K9's instantiation for
+    ``dtype`` as built (``cudaFuncGetAttributes``; local bytes above 0 mean
+    spills)."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    rc = LIBRARY.lib().upsp_ecc_gn_fused_attrs(
+        int(dtype == torch.bfloat16), ctypes.byref(regs), ctypes.byref(local))
+    check_rc(rc, "gn_fused attributes")
+    return regs.value, local.value
 
 
 def _check_stats_args(imgs, tmpl, warps, mask_warps, name: str) -> None:

@@ -84,7 +84,9 @@ def ecc_blur(imgs: torch.Tensor, gauss_size: int = 5) -> torch.Tensor:
 def _gn_step(img, tmpl, kshift, warp, rho_prev, valid_shift):
     """One Gauss-Newton step (``body_pallas``): K2 warp, K3 statistics
     (``kshift``: the template's brightness shift), closed-form ECC
-    update."""
+    update.  K2 then K3, not K9 (``ecc_gn_fused``, the same statistics in
+    one kernel): on the H100 K9 is the faster of the two at 1024x1024 but
+    not at the full configuration's 1200x1800 (PERF.md section 6)."""
     iw = warp_affine_banded(img, warp)
     if valid_shift is None:
         mask_warp = warp
@@ -92,7 +94,13 @@ def _gn_step(img, tmpl, kshift, warp, rho_prev, valid_shift):
         mask_warp = torch.cat(
             [warp[:, :, :2], (warp[:, :, 2] + valid_shift)[:, :, None]], dim=2
         ).contiguous()
-    mom = ecc_gn_moments(iw, tmpl, warp, mask_warp, kshift)
+    return _gn_update(ecc_gn_moments(iw, tmpl, warp, mask_warp, kshift), warp,
+                      rho_prev)
+
+
+def _gn_update(mom, warp, rho_prev):
+    """The closed-form ECC update from a step's (B, 128) statistics: (new
+    warps, rho, |rho - rho_prev|)."""
     hmat, i_proj, t_proj, iw_norm2, corr, tmpl_norm, _ = (
         ecc_statistics_from_moments(mom)
     )
