@@ -14,7 +14,8 @@ From the root of a checkout, on a machine with a CUDA device:
    f32): K1-K4 on 8 frames of 1024x1024 and of 1200x1800, in float32 and
    in bfloat16, K1 bit for bit, with K1-K3 called twice for bit-identical
    output and K2 and K4 also on a 1.6x scale warp (their global-memory
-   route) and on a shear that moves the frame's corners by 2.9 px; K9
+   route) and on a shear that moves the frame's corners by 2.9 px, K2 and
+   K3 on a 40 px, -25 px translation with the mask warp the warp; K9
    (the fused GN step) on 8 frames of each in both, also against K2 then
    K3 and on the 2.9 px shear, bit-identical from call to call, with its
    registers; K5-K8 at the full configuration's shapes (8 frames x 4
@@ -28,12 +29,16 @@ From the root of a checkout, on a machine with a CUDA device:
    before and read just after, packed ingest on and hot pixels injected, in this order:
    (a) 2 cameras x 1024x1024 12-bit .mraw, 64 frames, 81,920 nodes;
    (c) 2 cameras x 1024x1024 10-bit packed .cine, 32 frames;
+   (h) (c)'s configuration with the deck option pixel_interpolation =
+       nearest, through --ecc-init scan (the while loop from the previous
+       frame's warp, nearest final warps: no K4);
    (b) the full configuration: 4 cameras x 1200x1800 12-bit .mraw, 64
        frames, a 1024x1024 grid (1,048,576 nodes);
    (d) path (b)'s files again with --compute-dtype bfloat16;
    then (b)'s files once more in f32 and in bf16, for a bf16-against-f32
    frames/s that (b)'s first run at 1200x1800 does not bias; every path
-   uses polynomial patches, gaussian 3, best view and the fft warm start;
+   uses polynomial patches, gaussian 3, best view and, but (g) and (h),
+   the fft warm start;
    between (b) and (d), two out-of-core runs (``run_datapoint_streaming``):
    (e) (b)'s files through ``upsp-process-torch --streaming`` in f32,
        with its disk transpose (numpy, fewer rows than a native block)
@@ -43,11 +48,18 @@ From the root of a checkout, on a machine with a CUDA device:
        with its peak device memory and phase 2's memory per node block,
        after a sweep of phase 2's memory against the frame count; then
        the native and the numpy transpose of a 4096 x 32768 file;
+   and between (f) and (d):
+   (g) (b)'s files through --no-warm-start (reference parity: identity
+       starts, the while loop), into an output directory of its own, with
+       its frames/s, the histogram of its iteration counts and its
+       largest translation difference from (b);
 5. checks each path's outputs (all flat files, the registration sidecar,
    output.h5 where h5py is installed, finite values on visible nodes, the
    kernels the path must launch, and for (d) that no f32 ECC kernel ran)
    and one batch of its frames — packed bytes unpacked on the card —
-   against the port's CPU twin path; (d)'s batch also against (b)'s; (e)'s
+   against the port's CPU twin path with the same ECC start ((g) and (h):
+   the sidecar says "iters", column 1 holds integers in [1, 50], iteration
+   counts within one of the twins'); (d)'s batch also against (b)'s; (e)'s
    outputs against (b)'s, (f)'s first 64 intensity rows and frame
    statistics against (b)'s.
 
@@ -153,6 +165,16 @@ FULL_PATHS = (
     ("d: full config in bfloat16 (--compute-dtype bfloat16), path (b)'s files",
      "bfloat16", BF16_KERNELS + ("unpack12",)),
 )
+# path (g): (b)'s files again, reference parity (identity starts, the while
+# loop), into an output directory of its own
+G_LABEL = ("g: full config with --no-warm-start (identity starts, the while loop), "
+           "path (b)'s files")
+# path (h): (c)'s configuration with nearest final warps, scan starts; no K4
+H_PATH = ("h: 2 x 1024x1024 cine10, 32 frames, 81,920 nodes, pixel_interpolation = "
+          "nearest, --ecc-init scan",
+          dict(n_cameras=2, image_hw=(1024, 1024), n_frames=32, grid_shape=(320, 256),
+               video_format="cine10", options=["pixel_interpolation = nearest"]),
+          slice(0, 8), ("blur", "warp", "moments", "gather", "hot", "unpack10"))
 DEVICE = "cuda"
 # the redesigned kernels' ``ms`` before their redesign (PERF.md section 6:
 # this script on an NVIDIA H100 80GB HBM3 at 700.00 W; K3/K4 as first
@@ -315,8 +337,11 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     compute in f32 and round once), K3 within 2e-4 relative; K1-K3
     bit-identical from call to call; K2 and K4 also on a 1.6x scale warp,
     whose taps they read from global memory instead of their staged
-    window, and on a shear that moves the frame's corners by 2.9 px.  K1's yardstick, conv2d over a reflect pad, runs with cuDNN's
-    TF32 off (its default for f32 convolutions is TF32)."""
+    window, and on a shear that moves the frame's corners by 2.9 px; K2
+    and K3 also on a 40 px, -25 px translation with the mask warp the warp
+    (what the while loop gives them from identity).  K1's yardstick,
+    conv2d over a reflect pad, runs with cuDNN's TF32 off (its default for
+    f32 convolutions is TF32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -406,7 +431,18 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     e_sh, k_sh, d_sh = image_err(K.warp_affine_banded(imgs, shear),
                                  K.warp_plain(imgs, shear), edge=edge_mask(w_shear))
     check(k_sh, f"warp{sfx} on a 2.9 px shear matches its twin at {shape}: {d_sh}")
-    add_row(rows, "warp" + sfx, shape, max(err, e_far, e_sh), ok, det,
+    # what the while loop gives K2 and K3 from identity: a whole-pixel
+    # translation (40 px in x, -25 px in y) with the small rotation, no
+    # pre-shift, so the mask warp is the warp and strips tens of pixels
+    # wide leave the statistics
+    w_40 = w.copy()
+    w_40[:, :, 2] = np.array([40.0, -25.0], np.float32)
+    t40 = torch.tensor(w_40, device=DEVICE)
+    iw40 = K.warp_affine_banded(imgs, t40)
+    e_40, k_40, d_40 = image_err(iw40, K.warp_plain(imgs, t40), edge=edge_mask(w_40))
+    check(k_40, f"warp{sfx} on a 40 px, -25 px translation matches its twin at "
+          f"{shape}: {d_40}")
+    add_row(rows, "warp" + sfx, shape, max(err, e_far, e_sh, e_40), ok, det,
             lambda: K.warp_affine_banded(imgs, warps),
             lambda: K.warp_plain(imgs, warps), 2 * e * px, FLOPS["warp"] * px,
             **redesign("warp" + sfx))
@@ -415,6 +451,11 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     check(torch.equal(got, K.ecc_gn_moments(imgs, tmpl, warps, mask)),
           f"moments{sfx} bit-identical from call to call at {shape}")
     err, rel = stats_err(got, K.moments_plain(imgs, tmpl, warps, mask))
+    e_40, rel_40 = stats_err(K.ecc_gn_moments(iw40, tmpl, t40, t40),
+                             K.moments_plain(iw40, tmpl, t40, t40))
+    check(rel_40 <= 2e-4, f"moments{sfx} on the 40 px, -25 px translation (mask "
+          f"warp = warp) matches its twin at {shape}: max rel {rel_40:.3g} <= 2e-4")
+    err = max(err, e_40)
     add_row(rows, "moments" + sfx, shape, err, rel <= 2e-4,
             f"max rel {rel:.3g} <= 2e-4 (f32 reduction order)",
             lambda: K.ecc_gn_moments(imgs, tmpl, warps, mask),
@@ -744,29 +785,37 @@ def print_stages(what, wall, t):
           f"outputs {t['outputs']:.3f} s", flush=True)
 
 
-def cli_run(dp, dtype, streaming=False):
-    """The datapoint once through the CLI (out of core with ``streaming``);
-    prints and returns its stage seconds (``--timings``)."""
+def cli_run(dp, dtype, streaming=False, flags=()):
+    """The datapoint once through the CLI (out of core with ``streaming``,
+    ``flags`` added); prints and returns its stage seconds
+    (``--timings``)."""
     import torch
 
     timings = os.path.join(os.path.dirname(dp["deck"]), "timings.json")
     t0 = time.perf_counter()
     run_cli([SCRIPT, "-input_deck", dp["deck"], "--registration-telemetry",
              "--timings", timings, "--device", DEVICE, "--compute-dtype", dtype]
-            + (["--streaming"] if streaming else []))
+            + (["--streaming"] if streaming else []) + list(flags))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with open(timings) as fh:
         t = json.load(fh)
-    print_stages(f"{dtype}{' streaming' if streaming else ''} CLI run", wall, t)
+    print_stages(f"{dtype}{' streaming' if streaming else ''}"
+                 f"{' ' + ' '.join(flags) if flags else ''} CLI run", wall, t)
     return t
 
 
-def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None):
-    """One datapoint through the CLI, its outputs, and one batch of its
-    packed frames on the card against the CPU twins (a bf16 batch also
-    against ``ref``, an f32 path's result on the same files).  Returns the
-    kernel launch counts of the CLI run and the batch's card results."""
+def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None,
+                   warm_start="fft", flags=(), absent=()):
+    """One datapoint through the CLI (``flags`` added), its outputs, and
+    one batch of its packed frames on the card against the CPU twins with
+    the same ECC start (``warm_start``, as ``make_chunk_processor`` takes
+    it; a bf16 batch also against ``ref``, an f32 path's result on the
+    same files).  ``absent``: kernels the path must not launch.  With the
+    while loop (any start but "fft") column 1 of the telemetry must hold
+    iteration counts, its sidecar must say so, and the card's counts must
+    equal the twins' within one.  Returns the kernel launch counts of the
+    CLI run and the batch's card results with the CLI's telemetry."""
     import numpy as np
     import torch
 
@@ -783,11 +832,13 @@ def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None):
     n_nodes = spec["grid_shape"][0] * spec["grid_shape"][1]
 
     cuda_lib.reset_launch_counts()
-    stages = cli_run(dp, dtype)
+    stages = cli_run(dp, dtype, flags=flags)
     counts = cuda_lib.launch_counts()
     print(f"  launches on this path: {counts}", flush=True)
     for name in expect:
         check(counts[name] > 0, f"kernel {name} launched on this path")
+    for name in absent:
+        check(counts[name] == 0, f"kernel {name} not launched on this path")
     if dtype == "bfloat16":
         check(not any(counts[k] for k in F32_ECC + ("gather",)),
               "no f32 ECC or gather kernel launched on this path")
@@ -815,6 +866,17 @@ def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None):
           f"{np.abs(tele[..., 2:4]).max():.3f} px, bound max "
           f"{tele[..., 4].max():.3f} px", flush=True)
     check(np.isfinite(tele).all() and tele[..., 0].min() > 0.9, "registration telemetry")
+    loop = warm_start != "fft"
+    if loop:
+        with open(os.path.join(out, "registration.json")) as fh:
+            check(json.load(fh)["conv_semantics"] == "iters",
+                  "the sidecar says column 1 holds iteration counts")
+        n = tele[..., 1]
+        check(bool((n == np.rint(n)).all() and n.min() >= 1 and n.max() <= 50),
+              "column 1 holds integers in [1, 50]")
+        hist = np.bincount(n.astype(np.int64).ravel())
+        print(f"  iterations a frame and camera: mean {n.mean():.3f}, histogram "
+              f"{ {k: int(v) for k, v in enumerate(hist) if v} }", flush=True)
 
     print(f"  outputs checked in {time.perf_counter() - t_check:.2f} s", flush=True)
 
@@ -834,27 +896,47 @@ def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None):
         for r in readers:
             r.close()
     gpu, gtele = make_chunk_processor(state, with_telemetry=True, packed=True,
-                                      compute_dtype=dtype, **kw)(
-        torch.from_numpy(packed).to(DEVICE))
+                                      compute_dtype=dtype, warm_start=warm_start,
+                                      **kw)(torch.from_numpy(packed).to(DEVICE))
     torch.cuda.synchronize()
     t_cpu = time.perf_counter()
     cpu, ctele = make_chunk_processor(state.to("cpu"), with_telemetry=True,
-                                      compute_dtype=dtype)(dp["frames"][batch])
+                                      compute_dtype=dtype, warm_start=warm_start)(
+        dp["frames"][batch])
     print(f"  batch of {batch.stop - batch.start} frames: phase 0 and the card "
           f"{t_cpu - t_batch:.2f} s, the CPU twins {time.perf_counter() - t_cpu:.2f} s",
           flush=True)
     gpu, cpu = gpu.cpu().numpy(), cpu.numpy()
     gtele, ctele = gtele.cpu().numpy(), ctele.numpy()
     d_t = float(np.abs(gtele[..., 2:4] - ctele[..., 2:4]).max())
+    rows = np.ones(gpu.shape[0], bool)  # frames held to the intensity bound
+    if loop:
+        d_n = np.abs(gtele[..., 1] - ctele[..., 1])
+        rows = (d_n == 0).all(axis=1)
+        print(f"  iteration counts, card vs CPU twins: {int((d_n > 0).sum())} of "
+              f"{d_n.size} frame-cameras differ (by at most {d_n.max():.0f}); rho "
+              f"max abs {np.abs(gtele[..., 0] - ctele[..., 0]).max():.3g}; "
+              f"translations max abs {d_t:.3g} px", flush=True)
+        check(d_n.max() <= 1 and rows.sum() * 2 > rows.size,
+              "iteration counts within one of the twins', equal on most frames")
+        check(d_t < 0.05 and np.abs(gtele[..., 0] - ctele[..., 0]).max() < 1e-3,
+              "card telemetry matches the twins' (rho 1e-3, translations 0.05 px)")
     if dtype == "float32":
         check(np.array_equal(np.isnan(gpu), np.isnan(cpu)), "NaN at the same nodes")
-        v = np.isfinite(cpu)
+        v = np.isfinite(cpu) & rows[:, None]
         d = np.abs(gpu[v] - cpu[v])
         viol = int((d > 0.2 + 1e-4 * np.abs(cpu[v])).sum())
-        print(f"  frames {k0}-{k1 - 1}, card (packed) vs CPU twins: max abs "
-              f"{d.max():.4g} counts, {viol} beyond rtol 1e-4 + atol 0.2; telemetry "
-              f"max abs {np.abs(gtele - ctele).max():.3g}", flush=True)
-        check(viol == 0, "card path matches the CPU twin path (rtol 1e-4, atol 0.2)")
+        # nearest sampling is discontinuous: a translation that differs by
+        # d_t px takes a sample across a half-pixel line with probability
+        # ~2 d_t per axis, so a few nodes may show a neighbouring pixel
+        allowed = int(1e-3 * v.sum()) if cfg.pixel_interpolation == "nearest" else 0
+        print(f"  frames {k0}-{k1 - 1} ({int(rows.sum())} with equal iteration "
+              f"counts held), card (packed) vs CPU twins: max abs {d.max():.4g} "
+              f"counts, {viol} of {int(v.sum())} beyond rtol 1e-4 + atol 0.2 "
+              f"(allowed {allowed}); telemetry max abs "
+              f"{np.abs(gtele - ctele).max():.3g}", flush=True)
+        check(viol <= allowed,
+              "card path matches the CPU twin path (rtol 1e-4, atol 0.2)")
         check(np.allclose(intensity[batch][:, visible], gpu[:, visible], rtol=1e-5,
                           atol=1e-3), "the batch equals the CLI's intensity rows")
     else:
@@ -872,7 +954,8 @@ def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None):
         check(ok and d_f < 0.05, "card bf16 path matches the card f32 path")
         ok, det = bf16_bounds(intensity[batch][:, visible], gpu[:, visible], scale)
         check(ok, f"the batch matches the CLI's intensity rows ({det})")
-    return counts, dict(gpu=gpu, tele=gtele, label=label.split(":")[0], stages=stages)
+    return counts, dict(gpu=gpu, tele=gtele, label=label.split(":")[0], stages=stages,
+                        cli_tele=tele)
 
 
 def same_values(got, want, what, rtol=0.0, atol=0.0):
@@ -938,6 +1021,44 @@ def tall_transpose(rows=TALL[0], cols=TALL[1]):
     return t_native, t_numpy
 
 
+def own_output(dp, name):
+    """``dp`` with a deck of its own under WORK/b/``name`` that writes to
+    an output directory there: the same videos, (b)'s outputs kept."""
+    root = os.path.join(WORK, "b", name)
+    os.makedirs(root)
+    with open(dp["deck"]) as fh:
+        deck = fh.read()
+    check(deck.count(dp["out_dir"]) == 1,
+          f"path ({name})'s deck names (b)'s output dir once")
+    out = os.path.join(root, "out")
+    new = dict(dp, deck=os.path.join(root, "deck.inp"), out_dir=out)
+    with open(new["deck"], "w") as fh:
+        fh.write(deck.replace(dp["out_dir"], out))
+    return new
+
+
+def identity_path(dp, b_tele):
+    """Path (g), reference parity at full width: (b)'s files through
+    ``upsp-process-torch --no-warm-start`` (identity starts, the while
+    loop, frames batched 8 with per-frame stopping) into an output
+    directory of its own, with FULL_BATCH's frames held against the CPU
+    twins' while loop.  Prints the largest |translation| difference from
+    (b)'s fft-mode telemetry ``b_tele`` (informative: the fft solve's
+    pre-shift blur moves it, ROADMAP.md queue 3).  Returns the launch
+    counts and the run's results."""
+    import numpy as np
+
+    g_dp = own_output(dp, "g")
+    counts, res = datapoint_path(G_LABEL, g_dp, FULL, FULL_BATCH,
+                                 FRAME_KERNELS + ("unpack12",), "float32",
+                                 warm_start=False, flags=("--no-warm-start",))
+    d_t = np.abs(res["cli_tele"][..., 2:4] - b_tele[..., 2:4])
+    print(f"  (g) against (b)'s fft telemetry: largest |translation difference| "
+          f"{d_t.max():.4f} px, mean {d_t.mean():.4f} px (informative)", flush=True)
+    shutil.rmtree(os.path.dirname(g_dp["deck"]), ignore_errors=True)
+    return counts, res
+
+
 def streaming_cli_path(dp, n_nodes):
     """Path (e): (b)'s files through ``upsp-process-torch --streaming`` in
     f32, into an output directory of its own, with the launch counts reset
@@ -954,15 +1075,8 @@ def streaming_cli_path(dp, n_nodes):
 
     print("  -- path e: (b)'s files through upsp-process-torch --streaming, f32",
           flush=True)
-    root = os.path.join(WORK, "b", "e")
-    os.makedirs(root)
-    out = os.path.join(root, "out")
-    with open(dp["deck"]) as fh:
-        deck = fh.read()
-    check(deck.count(dp["out_dir"]) == 1, "path (e)'s deck names (b)'s output dir once")
-    e_dp = dict(deck=os.path.join(root, "deck.inp"))
-    with open(e_dp["deck"], "w") as fh:
-        fh.write(deck.replace(dp["out_dir"], out))
+    e_dp = own_output(dp, "e")
+    root, out = os.path.dirname(e_dp["deck"]), e_dp["out_dir"]
     cuda_lib.reset_launch_counts()
     stages = cli_run(e_dp, "float32", streaming=True)
     counts = cuda_lib.launch_counts()
@@ -1129,13 +1243,14 @@ def streaming_long_path(dp, b_out, slope):
 
 def full_config_paths(by_path, phase_s):
     """Paths (b) and (d) on one full-config datapoint, written once: (b) in
-    f32, (d) in bf16 with its batch also held against (b)'s.  (b) is the
+    f32, (d) in bf16 with its batch also held against (b)'s; (g) on its
+    files with identity starts.  (b) is the
     process's first run at 1200x1800 (it creates the cuFFT plans and the
     allocator's blocks), so the CLI then runs once more in f32 (b') and in
     bf16 (d'), and bf16 is compared with f32 as the mean of (d) and (d')
     against (b'): d, b', d' is balanced around b' in time.  The streaming
-    paths (e) and (f) run between (b) and (d), while (b)'s outputs are on
-    disk."""
+    paths (e) and (f) and then (g) run between (b) and (d), while (b)'s
+    outputs are on disk."""
     dp = write_path_datapoint("b", FULL)
     n_nodes = FULL["grid_shape"][0] * FULL["grid_shape"][1]
     try:
@@ -1150,6 +1265,9 @@ def full_config_paths(by_path, phase_s):
         del b_out
         tall = tall_transpose()
         phase_s["path f"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["g"], g_res = identity_path(dp, ref["cli_tele"])
+        phase_s["path g"] = time.perf_counter() - t0
         by_path["d"], res = datapoint_path(ld, dp, FULL, FULL_BATCH, exp_d, dtype_d,
                                            ref=ref)
         print("  -- (b') and (d'): the same files through the CLI again, f32 then "
@@ -1158,9 +1276,11 @@ def full_config_paths(by_path, phase_s):
     finally:
         shutil.rmtree(os.path.join(WORK, "b"), ignore_errors=True)
     b, d, b2, d2 = (t["frames_per_s"] for t in runs)
+    g = g_res["stages"]["frames_per_s"]
     print(f"  phase-1 frames/s (ingest included): b {b:.2f} (first at this size), "
           f"d {d:.2f}, b' {b2:.2f}, d' {d2:.2f}; bf16 / f32 = mean(d, d') / b' = "
-          f"{(d + d2) / 2 / b2:.3f}", flush=True)
+          f"{(d + d2) / 2 / b2:.3f}; g (identity, while loop) {g:.2f}, "
+          f"g / b' = {g / b2:.3f}", flush=True)
     print(f"  streaming: (e) {e_stages['frames_per_s']:.2f} frames/s against b "
           f"{b:.2f} and b' {b2:.2f} (e / b' = {e_stages['frames_per_s'] / b2:.3f}); "
           f"(e) disk transpose {e_stages['disk_transpose']:.3f} s, phase 2 by "
@@ -1231,8 +1351,16 @@ def main() -> int:
             shutil.rmtree(os.path.join(WORK, p), ignore_errors=True)
             phase_s[f"path {p}"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        label, spec, batch, expect = H_PATH
+        dp = write_path_datapoint("h", spec)
+        by_path["h"], _ = datapoint_path(label, dp, spec, batch, expect, "float32",
+                                         warm_start="scan", flags=("--ecc-init", "scan"),
+                                         absent=("warp_filter",))
+        shutil.rmtree(os.path.join(WORK, "h"), ignore_errors=True)
+        phase_s["path h"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         full_config_paths(by_path, phase_s)
-        phase_s["paths b, e, f, d, b', d'"] = time.perf_counter() - t0
+        phase_s["paths b, e, f, g, d, b', d'"] = time.perf_counter() - t0
         for r in rows:
             if r["name"] in KERNEL_PHASE_ONLY:
                 r.update(launches_by_path={}, launches=0, kernel_phase_only=True)

@@ -583,3 +583,112 @@ def test_gather_tiles_per_camera_on_card(cuda, n_cams):
         for g in (got, stacked.cpu().numpy()):
             np.testing.assert_array_equal(np.isnan(g), np.isnan(want))
             np.testing.assert_array_equal(g[~np.isnan(want)], want[~np.isnan(want)])
+
+
+# ---------------------------------------------------------------------------
+# the while-loop ECC and the registration helpers on the card
+
+
+def ecc_scenes(seed, b, h, w):
+    """(template, (b, h, w) frames) of one broadband field
+    (``pipeline/synthetic``), frame k shifted by up to 3 px; the last
+    frame is noise (it never converges at a tight epsilon)."""
+    from upsp_tpu_torch.pipeline.synthetic import scene_spectrum, shift_field
+
+    rng = np.random.default_rng(seed)
+    spec = scene_spectrum(rng, (h, w))
+    shifts = rng.uniform(-3.0, 3.0, (b, 2))
+    frames = np.stack([2000.0 + shift_field(spec, (h, w), dx, dy) for dx, dy in shifts])
+    frames[-1] = rng.normal(2000.0, 300.0, (h, w))
+    return (2000.0 + shift_field(spec, (h, w), 0.0, 0.0)).astype(np.float32), \
+        frames.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_while_loop_on_card(cuda, dtype):
+    """The while loop's K1-K3 solve on the card: each lane of a batch of 8
+    equals its single-frame solve bit for bit, the lanes stopping at
+    different steps (epsilon 3e-6) and the noise lane at the cap (set one
+    below the step its uncapped solve stops at, so it is reached whatever
+    that step is); and the converging lanes match the CPU twins (rho atol
+    1e-3, translations 0.05 px, counts within one, equal on most).  The
+    noise lane is left out there: it never converges, so its path follows
+    its rounding."""
+    from upsp_tpu_torch.ops import registration as R
+
+    dt = getattr(torch, dtype)
+    ref, frames = ecc_scenes(31, 8, 240, 320)
+    r, f = torch.tensor(ref).to(dt), torch.tensor(frames).to(dt)
+    before = K.launch_counts()
+    cap = int(R.ecc_affine(r.to(cuda), f.to(cuda), epsilon=3e-6)[2].max()) - 1
+    kw = dict(epsilon=3e-6, max_iters=cap)
+    warp, rho, iters = R.ecc_affine(r.to(cuda), f.to(cuda), **kw)
+    after = K.launch_counts()
+    sfx = "" if dtype == "float32" else "_bf16"
+    assert all(after[k + sfx] > before[k + sfx] for k in ("blur", "warp", "moments"))
+    assert int(iters[-1]) == cap > int(iters[:-1].max()), iters.tolist()
+    assert len(set(iters.tolist())) >= 3, iters.tolist()
+    for i in range(8):
+        w1, r1, n1 = R.ecc_affine(r.to(cuda), f[i : i + 1].to(cuda), **kw)
+        assert torch.equal(w1[0], warp[i]) and torch.equal(r1[0], rho[i])
+        assert int(n1[0]) == int(iters[i])
+    c_warp, c_rho, c_iters = R.ecc_affine(r, f, **kw)
+    n, cn = iters.cpu().numpy()[:-1], c_iters.numpy()[:-1]
+    assert np.abs(n - cn).max() <= 1 and (n != cn).sum() <= 2
+    ok = n == cn  # a lane one step apart differs by that step
+    np.testing.assert_allclose(warp.cpu().numpy()[:-1][ok][:, :, 2],
+                               c_warp.numpy()[:-1][ok][:, :, 2], atol=0.05)
+    np.testing.assert_allclose(rho.cpu().numpy()[:-1][ok], c_rho.numpy()[:-1][ok],
+                               atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 1024, 1024), (2, 1200, 1800)])
+def test_warp_and_moments_translated_40px_on_card(cuda, shape, dtype):
+    """K2 and K3 on what the while loop feeds them from identity: warps
+    that translate by 40 px in x and -25 px in y with a small rotation, no
+    pre-shift (the mask warp is the warp), so strips tens of pixels wide
+    leave the mask and some of K3's row blocks are masked whole."""
+    dt = getattr(torch, dtype)
+    b, h, w = shape
+    x = torch.tensor(images(40, *shape)).to(dt)
+    tm = torch.tensor(images(41, 1, h, w)[0]).to(dt)
+    wn = warps(40, b)
+    wn[:, :, 2] += np.array([40.0, -25.0], np.float32)
+    wp = torch.tensor(wn)
+    got = K.warp_affine_banded(x.to(cuda), wp.to(cuda))
+    want = K.warp_plain(x, wp)
+    if dtype == "float32":
+        assert_images_close(_np(got), _np(want), wn, atol=2e-3)
+    else:
+        assert_within_ulp(_np(got), _np(want), wn)
+    assert_stats_close(K.ecc_gn_moments(x.to(cuda), tm.to(cuda), wp.to(cuda),
+                                        wp.to(cuda)).cpu(),
+                       K.moments_plain(x, tm, wp, wp), _np(tm))
+
+
+@pytest.mark.cuda
+def test_coarse_stage_and_warp_affine_on_card(cuda):
+    """The coarse stage (K1-K3 at 600x900, whose rows end in partial
+    tiles) against the CPU twins; the gather warp equal to its CPU run
+    (nearest exactly)."""
+    from upsp_tpu_torch.ops import registration as R
+
+    ref, frames = ecc_scenes(32, 2, 1200, 1800)
+    init = torch.tensor(np.tile(np.array([[1.0, 0.0, 0.3], [0.0, 1.0, -0.2]],
+                                         np.float32), (2, 1, 1)))
+    args = dict(max_iters=2, unroll=True, coarse_iters=1)
+    gw, grho, _ = R.ecc_affine(torch.tensor(ref).to(cuda), torch.tensor(frames).to(cuda),
+                               init.to(cuda), **args)
+    cw, crho, _ = R.ecc_affine(torch.tensor(ref), torch.tensor(frames), init, **args)
+    np.testing.assert_allclose(gw.cpu().numpy()[:, :, 2], cw.numpy()[:, :, 2], atol=0.05)
+    np.testing.assert_allclose(gw.cpu().numpy()[:, :, :2], cw.numpy()[:, :, :2], atol=1e-3)
+    np.testing.assert_allclose(grho.cpu().numpy(), crho.numpy(), atol=1e-3)
+    wp = torch.tensor(warps(33, 2)) + torch.tensor([[0, 0, 40.0], [0, 0, -25.0]])
+    x = torch.tensor(frames)
+    assert torch.equal(R.warp_affine(x.to(cuda), wp.to(cuda), "nearest").cpu(),
+                       R.warp_affine(x, wp, "nearest"))
+    np.testing.assert_allclose(R.warp_affine(x.to(cuda), wp.to(cuda)).cpu(),
+                               R.warp_affine(x, wp), atol=2e-3, rtol=0)

@@ -80,6 +80,6 @@ def test_ecc_affine_steps_by_dtype(calls, dtype):
     """``ecc_affine``'s two steps: two K2 and two K3 calls, no K9."""
     img, tmpl, kshift, warp, _, shift = _step_inputs(dtype)
     ref = torch.tensor(images(60, 1, 97, 131))[0].to(dtype)
-    R.ecc_affine(ref, img, warp_init=warp, max_iters=2, valid_shift=shift,
-                 tmpl_blurred=tmpl, tmpl_shift=kshift)
+    R.ecc_affine(ref, img, warp_init=warp, max_iters=2, unroll=True,
+                 valid_shift=shift, tmpl_blurred=tmpl, tmpl_shift=kshift)
     assert calls == {"gn_fused": 0, "warp": 2, "moments": 2}

@@ -186,14 +186,39 @@ def test_cli_loads_no_jax_package(deck, tmp_path, mode):
 
 @pytest.mark.parametrize("flags,needle", [
     (["--mesh", "auto"], "M10"),
-    (["--no-warm-start"], "M4/M6"),
-    (["--ecc-init", "scan"], "M4/M6"),
 ])
 def test_cli_refuses_unported_paths(deck, flags, needle):
     r = _run([sys.executable, SCRIPT, "-input_deck", deck["deck"], "--device",
               "cpu"] + flags)
     assert r.returncode != 0
     assert "NotImplementedError" in r.stderr and needle in r.stderr
+
+
+@pytest.mark.parametrize("flags", [
+    ["--no-warm-start"],
+    ["--ecc-init", "scan"],
+    ["--ecc-init", "identity", "--streaming"],
+])
+def test_cli_ecc_init(deck, flags):
+    """The while-loop starts through the CLI: identity (``--no-warm-start``,
+    reference parity) and scan; the telemetry's column 1 holds iteration
+    counts and its sidecar says so."""
+    import json
+
+    import numpy as np
+
+    streaming = "--streaming" in flags
+    r = _run([sys.executable, SCRIPT, "-input_deck", deck["deck"], "--device",
+              "cpu"] + ([] if streaming else ["--registration-telemetry"]) + flags)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "processed 3 frames, 357 nodes" in r.stdout
+    if streaming:
+        return
+    with open(os.path.join(deck["out_dir"], "registration.json")) as fh:
+        assert json.load(fh)["conv_semantics"] == "iters"
+    tele = np.fromfile(os.path.join(deck["out_dir"], "registration"), "<f4")
+    iters = tele.reshape(3, -1, 5)[..., 1]
+    assert (iters == np.rint(iters)).all() and iters.min() >= 1 and iters.max() <= 50
 
 
 def test_cuda_requested_without_cuda_raises():

@@ -26,9 +26,8 @@ rounds once at its store (round to nearest even); warps and statistics
 stay f32.  The plain twins do the same: they widen bf16 to f32, compute as
 for f32 and round the output once (never bf16 arithmetic op by op).  The
 launch counts tell the instantiations apart (``blur`` and ``blur_bf16``,
-...).  ``registration._gn_step`` runs K9 for f32 images and K2 then K3 for
-bf16 (K9 keeps the warped image f32 where the JAX reference's bf16 step
-rounds it).
+...).  ``registration._gn_step`` runs K2 then K3 in both dtypes; K9 runs
+in no datapoint path (it lost to the pair at 1200x1800 on the H100).
 
 The library is compiled from ``csrc/ecc.cu`` with ``nvcc`` for ``sm_90a``
 at first use, into ``build/torch_kernels/`` at the repository root

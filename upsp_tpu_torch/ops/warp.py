@@ -4,8 +4,9 @@ Port of ``upsp_tpu/ops/warp.py``.  The order-2 warp itself
 (``warp_affine_mxu`` semantics) is kernel K2,
 ``ops/ecc_kernels.warp_affine_banded``: the JAX package resamples with
 tent-matrix matmuls because the TPU has no fast gather, the port samples
-the two tent taps per axis directly.  This module holds the validity mask
-and the integer pre-shift, plain PyTorch as XLA ran them.
+the two tent taps per axis directly.  This module holds the validity mask,
+the integer pre-shift and the pyramid helpers (``downsample2``,
+``scale_warp``), plain PyTorch as XLA ran them.
 """
 
 from __future__ import annotations
@@ -54,3 +55,18 @@ def integer_shift(imgs: torch.Tensor, t_int: torch.Tensor,
     out = rows.gather(2, xs.clamp(0, w - 1)[:, None, :].expand(b, h, w))
     valid = ((ys >= 0) & (ys < h))[:, :, None] & ((xs >= 0) & (xs < w))[:, None, :]
     return torch.where(valid, out, torch.zeros_like(out))
+
+
+def downsample2(imgs: torch.Tensor) -> torch.Tensor:
+    """2x box decimation of the last two axes (a pyramid level): the mean
+    of each 2x2 block, an odd last row or column dropped."""
+    h, w = imgs.shape[-2:]
+    h2, w2 = h // 2, w // 2
+    x = imgs[..., : h2 * 2, : w2 * 2]
+    return x.reshape(x.shape[:-2] + (h2, 2, w2, 2)).mean(dim=(-3, -1))
+
+
+def scale_warp(warps: torch.Tensor, factor: float) -> torch.Tensor:
+    """(..., 2, 3) warps between pyramid levels: the translation scales by
+    ``factor``, the linear part does not."""
+    return torch.cat([warps[..., :2], warps[..., 2:] * factor], dim=-1)

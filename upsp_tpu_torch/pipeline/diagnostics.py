@@ -1,8 +1,11 @@
 """Phase-0 diagnostic images and the registration-telemetry sidecar.
 
-Port of ``write_phase0_diagnostics`` and ``write_registration_meta`` (with
-their drawing helpers) from ``upsp_tpu/pipeline/diagnostics.py``, whose
-module imports the JAX ops at load time and so cannot be reused.
+Port of ``write_phase0_diagnostics`` (with its drawing helpers) and of
+the registration-telemetry sidecar, readers and report
+(``write_registration_meta``, ``read_registration_meta``,
+``read_registration_telemetry``, ``analyze_registration_telemetry``) from
+``upsp_tpu/pipeline/diagnostics.py``, whose module imports the JAX ops at
+load time and so cannot be reused.
 """
 
 from __future__ import annotations
@@ -112,20 +115,112 @@ def write_phase0_diagnostics(state, out_dir: str) -> None:
             cv2.imwrite(prefix + "8bit-cluster-boundaries.png", bimg)
 
 
-def write_registration_meta(out_dir: str) -> None:
-    """The ``registration.json`` sidecar naming the telemetry columns of
-    the fixed-iteration (fft) ECC: column 1 is the final |drho|.
-
-    ``epsilon`` and ``max_iters`` are the reference's while-loop criteria
-    (psp_process.cpp:1665-1667), recorded as the JAX package records them.
-    ``band`` is null: the port's warp kernel has no band limit, so column 4
-    (the displacement bound) is informational only."""
+def write_registration_meta(out_dir: str, conv_semantics: str = "drho",
+                            ecc_iters=None, max_iters: int = 50,
+                            epsilon: float = 1e-3) -> None:
+    """The ``registration.json`` sidecar: what telemetry column 1 means,
+    ``"iters"`` (while-loop ECC: the iteration count) or ``"drho"``
+    (fixed-step fft ECC: the final |drho|), and the while loop's
+    criteria (psp_process.cpp:1665-1667).  ``band`` is null: the port's
+    warp kernel has no band limit, so column 4 (the displacement bound)
+    is informational only."""
     meta = {
-        "columns": ["rho", "drho", "warp_tx", "warp_ty", "disp_bound"],
-        "conv_semantics": "drho",
-        "epsilon": 1e-3,
-        "max_iters": 50,
+        "columns": ["rho", conv_semantics, "warp_tx", "warp_ty", "disp_bound"],
+        "conv_semantics": conv_semantics,
+        "epsilon": epsilon,
+        "max_iters": max_iters,
         "band": None,
     }
+    if ecc_iters is not None:
+        meta["ecc_unroll_iters"] = int(ecc_iters)
     with open(os.path.join(out_dir, "registration.json"), "w") as f:
         json.dump(meta, f, indent=1)
+
+
+def read_registration_meta(path: str) -> dict:
+    """The sidecar of a ``registration`` flat file at ``path`` (absent:
+    the while-loop "iters" contract, which predates the sidecar)."""
+    mpath = os.path.join(os.path.dirname(path), "registration.json")
+    if os.path.exists(mpath):
+        with open(mpath) as f:
+            return json.load(f)
+    return {"conv_semantics": "iters", "epsilon": 1e-3, "max_iters": 50}
+
+
+def read_registration_telemetry(path: str, n_cameras: int) -> np.ndarray:
+    """The ``registration`` flat file as (F, C, K) [rho, conv, warp_tx,
+    warp_ty, disp_bound]; K from the sidecar's ``columns`` (4 for files
+    from before the bound)."""
+    k = len(read_registration_meta(path).get("columns", [])) or 4
+    return np.fromfile(path, "<f4").reshape(-1, n_cameras, k)
+
+
+def analyze_registration_telemetry(
+    telemetry: np.ndarray,
+    max_iters: int = 50,
+    epsilon: float = 1e-3,
+    conv_semantics: str = "iters",
+) -> dict:
+    """Per-camera ECC convergence report and tuning advice
+    (upsp_tpu/pipeline/diagnostics.py:215-298).
+
+    ``"iters"``: if the iteration budget saturates, relax epsilon; if
+    convergence is immediate, tighten it.  ``"drho"``: the fraction of
+    frames whose final |drho| is not below epsilon, and one more fixed
+    step when it passes 2%.  Frames whose rho falls 4 sigma below the
+    sequence's mean are listed in both.  With column 4 present the report
+    gives its maximum and 99th percentile, and ``band_violations`` 0: the
+    port has no band, so no frame can leave it (the JAX package counts
+    bounds above its 3 px band there)."""
+    if conv_semantics not in ("iters", "drho"):
+        raise ValueError(f"conv_semantics must be iters|drho, got {conv_semantics!r}")
+    tele = np.asarray(telemetry, np.float64)
+    F, C, _ = tele.shape
+    cameras = []
+    for c in range(C):
+        rho = tele[:, c, 0]
+        conv = tele[:, c, 1]
+        shift = np.hypot(tele[:, c, 2], tele[:, c, 3])
+        mu, sd = float(rho.mean()), float(rho.std())
+        suspect = np.nonzero(rho < mu - 4.0 * max(sd, 1e-6))[0]
+        rec = {
+            "rho_min": float(rho.min()),
+            "rho_mean": mu,
+            "shift_max_px": float(shift.max()),
+            "conv_semantics": conv_semantics,
+            "suspect_frames": suspect.tolist(),
+        }
+        if conv_semantics == "iters":
+            p95 = float(np.percentile(conv, 95))
+            rec_iters = int(np.clip(np.ceil(p95 * 1.25), 5, max_iters))
+            if p95 >= max_iters:
+                rec_eps = epsilon * 3.0  # budget-bound: stop earlier
+            elif float(conv.mean()) <= 2.0:
+                rec_eps = epsilon / 3.0  # converges at once: ask for more
+            else:
+                rec_eps = epsilon
+            rec.update(
+                iters_mean=float(conv.mean()),
+                iters_p95=p95,
+                iters_max=int(conv.max()),
+                recommended_max_iters=rec_iters,
+                recommended_epsilon=float(rec_eps),
+            )
+        else:
+            unconverged = float((conv >= epsilon).mean())
+            rec.update(
+                drho_mean=float(conv.mean()),
+                drho_p95=float(np.percentile(conv, 95)),
+                drho_max=float(conv.max()),
+                unconverged_frac=unconverged,
+                recommend_extra_unroll_step=bool(unconverged > 0.02),
+            )
+        if tele.shape[2] >= 5:
+            bound = tele[:, c, 4]
+            rec.update(
+                disp_bound_max=float(bound.max()),
+                disp_bound_p99=float(np.percentile(bound, 99)),
+                band_violations=0,
+            )
+        cameras.append(rec)
+    return {"n_frames": F, "cameras": cameras}

@@ -15,10 +15,16 @@ hot-pixel repair, the phase correlation and the integer shift run on the
 f32 frame, which is then cast, and K1-K5 run their bf16 instantiations;
 warps, statistics, telemetry and intensities stay f32.
 
-Only the fft warm start with integer pre-shift is ported (the JAX
-package's production default); ``scan`` and identity starts, the dense
-``jnp`` ECC path and the camera-vmapped variant are not (ROADMAP.md
-queue 1, M4/M6).
+The ECC start (``make_chunk_processor(warm_start=...)``): "fft" (the
+default, above), "scan" (the previous frame's warp, identity at each
+chunk's first frame; frames run in order) or False (identity, the
+reference's semantics).  Scan and identity solve with the while loop
+(``ops/registration.ecc_affine``), identity batched over frames with
+per-lane stopping.  With ``pixel_interpolation = nearest`` the final warp
+is the nearest-neighbour ``warp_affine``, then patches and the filter, so
+K4 does not run.  Not ported: the camera-vmapped variant
+(``vmap_cameras``) and the banded XLA oracle (``ecc_band``); both raise
+``NotImplementedError`` (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -56,7 +62,15 @@ from upsp_tpu_torch.ops.patching import (
     patch_correction_values,
 )
 from upsp_tpu_torch.ops.projection import NodeProjection, project_frame
-from upsp_tpu_torch.ops.registration import ecc_affine, ecc_blur
+from upsp_tpu_torch.ops.registration import (
+    EPSILON,
+    MAX_ITERS,
+    ecc_affine,
+    ecc_blur,
+    ecc_route,
+    identity_warp,
+    warp_affine,
+)
 from upsp_tpu_torch.ops.unpack_kernels import make_unpacker
 from upsp_tpu_torch.ops.warp import MAX_INTEGER_SHIFT, integer_shift
 
@@ -169,20 +183,37 @@ def process_frames_core(
     patch: bool,
     filter_type: str,
     filter_size: int,
+    interpolation: str = "linear",
     warp_init: Optional[torch.Tensor] = None,  # (B, C, 2, 3)
     valid_shift: Optional[torch.Tensor] = None,  # (B, C, 2) pre-shift
     fix_hot: bool = True,
     ecc_templates: Optional[List[torch.Tensor]] = None,  # blurred, per cam
     ecc_shifts: Optional[List[torch.Tensor]] = None,  # their template_shift
     compute_dtype: torch.dtype = torch.float32,  # images between stages
+    ecc_unroll_iters: Optional[int] = ECC_ITERS,  # None: the while loop
+    ecc_coarse_iters: int = 0,
+    ecc_epsilon: Optional[float] = None,  # while loop |drho| stop (1e-3)
+    ecc_max_iters: Optional[int] = None,  # while loop cap (50)
+    ecc_impl: str = "auto",
 ):
     """A frame batch -> (intensity (B, N), warps (B, C, 2, 3), telemetry
-    (B, C, 5)), all f32.  Telemetry per camera is [rho, final |drho|, total
-    tx, total ty, displacement bound]; column 4 is written for format
-    parity (the port's K2 has no band limit)."""
+    (B, C, 5)), all f32.  Telemetry per camera is [rho, conv, total tx,
+    total ty, displacement bound]: ``conv`` is the final |drho| of the
+    ``ecc_unroll_iters`` fixed steps, or with ``ecc_unroll_iters=None``
+    the while loop's iteration count; the bound (written for format
+    parity: the port's K2 has no band limit) is 0 for the while loop and
+    for nearest warps, as the JAX package's dense path writes it."""
     b, n_cams, h, w = frames.shape
     dev = frames.device
-    tail_taps = filter_taps(filter_type, filter_size) if registration == "pixel" else None
+    nearest = interpolation == "nearest"
+    tail_taps = (filter_taps(filter_type, filter_size)
+                 if registration == "pixel" and not nearest else None)
+    if ecc_unroll_iters is None:
+        ecc_kw = dict(max_iters=MAX_ITERS if ecc_max_iters is None else ecc_max_iters,
+                      epsilon=EPSILON if ecc_epsilon is None else ecc_epsilon)
+    else:
+        ecc_kw = dict(max_iters=ecc_unroll_iters, unroll=True,
+                      coarse_iters=ecc_coarse_iters)
     warps, teles, processed, overlays = [], [], [], []
     sol = None
     for c in range(n_cams):
@@ -196,15 +227,17 @@ def process_frames_core(
             warp, rho, conv = ecc_affine(
                 params.ref_frames[c], img,
                 warp_init=None if warp_init is None else warp_init[:, c],
-                max_iters=ECC_ITERS, gauss_size=ECC_GAUSS_SIZE,
-                valid_shift=vs_c,
+                gauss_size=ECC_GAUSS_SIZE, valid_shift=vs_c, impl=ecc_impl,
                 tmpl_blurred=None if ecc_templates is None else ecc_templates[c],
                 tmpl_shift=None if ecc_shifts is None else ecc_shifts[c],
+                **ecc_kw,
             )
             t_tot = warp[:, :, 2] if vs_c is None else warp[:, :, 2] + vs_c
-            cert = warp_displacement_bound(warp, h, w)
-            teles.append(torch.stack([rho, conv, t_tot[:, 0], t_tot[:, 1], cert],
-                                     dim=1))
+            cert = (warp_displacement_bound(warp, h, w)
+                    if ecc_unroll_iters is not None and not nearest
+                    else torch.zeros_like(rho))
+            teles.append(torch.stack([rho, conv.to(torch.float32), t_tot[:, 0],
+                                      t_tot[:, 1], cert], dim=1))
             warps.append(warp)
             # a correction exists only on the best-view path, and with it
             # the plan's overlay of camera c
@@ -214,7 +247,9 @@ def process_frames_core(
                 corr is not None
                 and params.corr_filter == (filter_type, filter_size)
             )
-            if tail_taps is not None and (not need_patch or corr_ok):
+            if nearest:
+                img = warp_affine(img, warp, "nearest")
+            elif tail_taps is not None and (not need_patch or corr_ok):
                 if need_patch:
                     img, iw = warp_filter(img, warp, tail_taps, with_warped=True)
                     overlays.append((c, patch_correction_values(iw, corr)))
@@ -248,10 +283,52 @@ def process_frames_core(
     return sol, torch.stack(warps, dim=1), torch.stack(teles, dim=1)
 
 
+def process_frame(frames, params: Phase1Params, registration: str = "pixel",
+                  patch: bool = True, filter_type: str = "gaussian",
+                  filter_size: int = 3, interpolation: str = "linear",
+                  with_telemetry: bool = False):
+    """One multi-camera (C, H, W) frame -> per-node intensity (N,), with
+    the while-loop ECC from identity (the JAX package's ``process_frame``,
+    overlap supersession applied); ``with_telemetry`` also returns the
+    (C, 5) record [rho, iterations, tx, ty, 0]."""
+    x = torch.as_tensor(frames).to(params.ref_frames.device, torch.float32)
+    sol, _, tele = process_frames_core(
+        x[None], params, registration, patch, filter_type, filter_size,
+        interpolation=interpolation, ecc_unroll_iters=None,
+    )
+    return (sol[0], tele[0]) if with_telemetry else sol[0]
+
+
+def make_frame_processor(state, with_telemetry: bool = False):
+    """Bind the phase-0 state and its config into a (C, H, W) frame ->
+    (N,) callable (:func:`process_frame`)."""
+    p = phase1_params(state)
+    cfg = state.config
+
+    def fn(frames):
+        return process_frame(
+            frames, p, registration=cfg.registration,
+            patch=(cfg.target_patcher == "polynomial"),
+            filter_type=cfg.filter, filter_size=cfg.filter_size,
+            interpolation=cfg.pixel_interpolation,
+            with_telemetry=with_telemetry,
+        )
+
+    return fn
+
+
 def make_chunk_processor(state, with_telemetry: bool = False,
                          frame_batch: int = 8, packed: bool = False,
                          packed_bits: int = 12, lut=None,
-                         compute_dtype="float32"):
+                         compute_dtype="float32", warm_start="fft",
+                         ecc_iters: Optional[int] = None,
+                         ecc_coarse_iters: Optional[int] = None,
+                         ecc_epsilon: Optional[float] = None,
+                         ecc_max_iters: Optional[int] = None,
+                         ecc_impl: str = "auto",
+                         pre_shift: Optional[bool] = None,
+                         ecc_band: Optional[int] = None,
+                         vmap_cameras: Optional[bool] = None):
     """Build the chunk program: (F, C, H, W) frames (numpy or tensor, any
     numeric dtype) -> (F, N) intensities [and (F, C, 5) telemetry], on the
     state's device.
@@ -260,51 +337,97 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     (``packed_bits`` 12 or 10, with the optional (1024,) 10->12-bit
     ``lut``), unpacked on the device by K7/K8 before the frame program.
 
-    With pixel registration each frame's ECC starts from the fft warm
-    start: the phase-correlation estimate, split into an integer pre-shift
-    applied to the frame and a sub-pixel ECC start; the shift is composed
-    into the ECC validity mask.  Frames run in batches of ``frame_batch``.
+    ``warm_start``, the start of each frame's ECC solve with pixel
+    registration:
+
+    - ``"fft"`` (default): the phase-correlation estimate; with
+      ``pre_shift`` (default on with the kernel route) split into an
+      integer pre-shift applied to the hot-pixel-repaired frame and a
+      sub-pixel start, the shift composed into the ECC validity mask
+      (phase1.py:895-928); without it the whole estimate starts the solve
+      on the raw frame (:929-956).  ``ecc_iters`` (2) fixed Gauss-Newton
+      steps, after ``ecc_coarse_iters`` (0) on a 2x decimated pair.
+    - ``True`` / ``"scan"``: the previous frame's converged warp, identity
+      at the chunk's first frame (:833-846); the chunk's frames run in
+      order, one frame per solve.
+    - ``False``: identity starts, the reference's semantics
+      (registration.cpp:53-64).
+
+    Scan and identity run the while loop (``ecc_epsilon`` 1e-3,
+    ``ecc_max_iters`` 50); identity batches ``frame_batch`` frames with
+    per-lane stopping (the JAX package runs it a frame at a time; a
+    lane's result does not depend on its batch).  Other frames run in
+    batches of ``frame_batch``.  ``ecc_impl``: "auto"/"kernels" (K2 then
+    K3 a step; the JAX package's "pallas") or "jnp" (the dense step),
+    ``ops/registration``.
 
     ``compute_dtype``: "float32" or "bfloat16", the images' dtype between
-    stages (raises ``ValueError`` on anything else).
+    stages (raises ``ValueError`` on anything else).  ``ecc_band`` and
+    ``vmap_cameras`` are not ported and raise ``NotImplementedError``.
     """
-    cfg = state.config
-    if cfg.pixel_interpolation == "nearest":
+    if ecc_band is not None:
         raise NotImplementedError(
-            "pixel_interpolation 'nearest' is not ported yet "
-            "(ROADMAP.md queue 1, M4: nearest-neighbour warp_affine)"
-        )
+            "ecc_band (the banded XLA warp oracle) is not ported: the port's "
+            "K2 has no band limit (ROADMAP.md queue 1, item 4)")
+    if vmap_cameras:
+        raise NotImplementedError(
+            "vmap_cameras is not ported yet: it needs K1 and K3 to take one "
+            "template per image (ROADMAP.md queue 1, item 4)")
+    cfg = state.config
     cdtype = _as_compute_dtype(compute_dtype)
+    route = ecc_route(ecc_impl)
     p = phase1_params(state)
     n_cams = int(p.ref_frames.shape[0])
+    pixel = cfg.registration == "pixel"
+    mode = warm_start if pixel else False
+    if mode is True:
+        mode = "scan"
+    if mode not in ("fft", "scan", False):
+        raise ValueError(f"warm_start must be 'fft', 'scan', True or False, "
+                         f"got {warm_start!r}")
+    if pre_shift is None:
+        pre_shift = route == "kernels"
+    pre_shift = pre_shift and mode == "fft"
     static = dict(
         registration=cfg.registration,
         patch=(cfg.target_patcher == "polynomial"),
         filter_type=cfg.filter,
         filter_size=cfg.filter_size,
+        interpolation=cfg.pixel_interpolation,
         compute_dtype=cdtype,
+        ecc_unroll_iters=(ECC_ITERS if ecc_iters is None else ecc_iters)
+        if mode == "fft" else None,
+        ecc_coarse_iters=ecc_coarse_iters or 0,
+        ecc_epsilon=ecc_epsilon,
+        ecc_max_iters=ecc_max_iters,
+        ecc_impl=ecc_impl,
     )
-    fft = cfg.registration == "pixel"
-    if fft:
-        dec = default_decimate(*state.image_hw)
-        corr_tmpls = [prepare_template(p.ref_frames[c], dec) for c in range(n_cams)]
+    if pixel:
         # the ECC template is blurred once, not once per frame, in the
-        # images' dtype (ecc_affine's rule)
+        # images' dtype (ecc_affine's rule), and K3's brightness shift of
+        # each computed once
         ecc_tmpls = [
             ecc_blur(p.ref_frames[c][None].to(cdtype).contiguous(),
                      ECC_GAUSS_SIZE)[0]
             for c in range(n_cams)
         ]
-        # and K3's brightness shift of each, once
-        ecc_shifts = [template_shift(t) for t in ecc_tmpls]
+        static.update(ecc_templates=ecc_tmpls,
+                      ecc_shifts=[template_shift(t) for t in ecc_tmpls])
+    if mode == "fft":
+        dec = default_decimate(*state.image_hw)
+        corr_tmpls = [prepare_template(p.ref_frames[c], dec) for c in range(n_cams)]
 
     unpack = (make_unpacker(packed_bits, lut, state.image_hw, state.device)
               if packed else None)
 
-    def one_batch(frames: torch.Tensor):
-        if not fft:
-            sol, _, tele = process_frames_core(frames, p, **static)
-            return sol, tele
+    def fft_batch(frames: torch.Tensor):
+        b = frames.shape[0]
+        if not pre_shift:
+            tvecs = torch.stack(
+                [correlate(corr_tmpls[c], frames[:, c]) for c in range(n_cams)],
+                dim=1)  # (B, C, 2), on the raw frames
+            init = translation_warp(tvecs.reshape(-1, 2)).reshape(b, n_cams, 2, 3)
+            return process_frames_core(frames, p, warp_init=init, **static)
         # hot-pixel repair first, then split the translation estimate:
         # integer part shifted off, sub-pixel residual solved by ECC; all
         # on the f32 frame, cast to the compute dtype after
@@ -317,28 +440,69 @@ def make_chunk_processor(state, with_telemetry: bool = False,
             [integer_shift(fixed[:, c], t_int[:, c]) for c in range(n_cams)],
             dim=1,
         )
-        b = frames.shape[0]
         init = translation_warp((tvecs - t_int).reshape(-1, 2)).reshape(
             b, n_cams, 2, 3
         )
-        sol, _, tele = process_frames_core(
-            shifted, p, warp_init=init, valid_shift=t_int, fix_hot=False,
-            ecc_templates=ecc_tmpls, ecc_shifts=ecc_shifts, **static,
-        )
-        return sol, tele
+        return process_frames_core(shifted, p, warp_init=init, valid_shift=t_int,
+                                   fix_hot=False, **static)
+
+    def scan_chunk(x: torch.Tensor):
+        """The chunk's frames in order, each solve from the last one's
+        warps; identity at the chunk's first frame."""
+        carry = identity_warp(n_cams, state.device)
+        sols, teles = [], []
+        for f in range(x.shape[0]):
+            frame = x[f : f + 1].to(state.device, torch.float32)
+            sol, warps, tele = process_frames_core(frame, p, warp_init=carry[None],
+                                                   **static)
+            carry = warps[0]
+            sols.append(sol)
+            teles.append(tele)
+        return sols, teles
 
     def process(chunk):
         x = torch.as_tensor(chunk)
         if unpack is not None:
             x = unpack(x.to(state.device))
-        sols, teles = [], []
-        for s in range(0, x.shape[0], max(frame_batch, 1)):
-            frames = x[s : s + max(frame_batch, 1)].to(state.device)
-            sol, tele = one_batch(frames.to(torch.float32))
-            sols.append(sol)
-            teles.append(tele)
+        if mode == "scan":
+            sols, teles = scan_chunk(x)
+        else:
+            sols, teles = [], []
+            step = max(frame_batch, 1)
+            for s in range(0, x.shape[0], step):
+                frames = x[s : s + step].to(state.device, torch.float32)
+                if mode == "fft":
+                    sol, _, tele = fft_batch(frames)
+                else:
+                    sol, _, tele = process_frames_core(frames, p, **static)
+                sols.append(sol)
+                teles.append(tele)
         sols = torch.cat(sols)
         teles = torch.cat(teles)
         return (sols, teles) if with_telemetry else sols
 
     return process
+
+
+def process_frames(state, frames, batched: bool = True) -> torch.Tensor:
+    """(F, C, H, W) frames -> (F, N) intensities with identity starts: the
+    stateless oracle of the warm-started chunk program.  ``batched`` runs
+    the frames in batches of 8 through the identity chunk program, else
+    one :func:`process_frame` call a frame: the same ECC solves, and
+    intensities the same to 1e-6 (the patch matmuls round by a blocking
+    that depends on the batch size)."""
+    if batched:
+        return make_chunk_processor(state, warm_start=False)(frames)
+    fn = make_frame_processor(state)
+    x = torch.as_tensor(frames)
+    return torch.stack([fn(x[i]) for i in range(x.shape[0])])
+
+
+def phase1_statistics(intensity) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frame-axis mean and root mean square of an (F, N) intensity,
+    accumulated in f64 as the reference does (psp_process.cpp:1722-1730),
+    returned f32 (NaN where a node is NaN)."""
+    i64 = torch.as_tensor(intensity).to(torch.float64)
+    avg = i64.mean(dim=0).to(torch.float32)
+    rms = torch.sqrt((i64 * i64).mean(dim=0)).to(torch.float32)
+    return avg, rms

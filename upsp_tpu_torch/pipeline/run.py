@@ -282,9 +282,17 @@ def run_datapoint(
     compute_dtype: str = "float32",
     resume: bool = False,
     write_outputs: bool = True,
+    warm_start="fft",
 ) -> DatapointOutputs:
-    """Process one datapoint end to end on ``device`` (ECC from the fft
-    warm start, 8-frame batches); outputs go to ``cfg.out_dir`` when set.
+    """Process one datapoint end to end on ``device``; outputs go to
+    ``cfg.out_dir`` when set.
+
+    ``warm_start``: each frame's ECC start, as
+    :func:`~upsp_tpu_torch.pipeline.phase1.make_chunk_processor` takes it:
+    "fft" (default; per-frame phase correlation, fixed steps, 8-frame
+    batches), True/"scan" (the previous frame's warp, identity at each
+    chunk's start) or False (identity, the while loop with the reference's
+    criteria: reference parity, batched 8 frames with per-frame stopping).
 
     ``frames_array`` (F, C, H, W) bypasses the video files.
     ``device_unpack``: "auto" (or True) ships the videos' packed bytes to
@@ -293,8 +301,9 @@ def run_datapoint(
     ``compute_dtype``: the images' dtype between phase-1 stages, "float32"
     or "bfloat16" (:func:`~upsp_tpu_torch.pipeline.phase1.make_chunk_processor`).
     ``registration_telemetry`` writes the per-frame, per-camera ECC record
-    [rho, final |drho|, tx, ty, disp_bound] to the ``registration`` flat
-    file with its ``registration.json`` sidecar.  ``resume`` reuses an
+    [rho, conv, tx, ty, disp_bound] to the ``registration`` flat file with
+    its ``registration.json`` sidecar: ``conv`` is the final |drho| in fft
+    mode ("drho") and the iteration count otherwise ("iters").  ``resume`` reuses an
     ``intensity`` flat file in ``cfg.out_dir`` whose size fits the
     datapoint and skips phase 1.  ``write_outputs=False`` writes no file.
     ``stage_times``, when a dict, receives the wall seconds of phase 0,
@@ -345,7 +354,8 @@ def run_datapoint(
         log.info("resume requested but no consistent intensity file; running")
 
     fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
-                              compute_dtype=compute_dtype, **packed_kw)
+                              compute_dtype=compute_dtype, warm_start=warm_start,
+                              **packed_kw)
     mark("phase1_setup", t0)  # part of phase 1: parameters, templates
     intensity = np.empty((n_frames, n_nodes), np.float32)
     reg_telemetry = None
@@ -368,10 +378,11 @@ def run_datapoint(
 
     if registration_telemetry and reg_telemetry is not None:
         rho, conv = reg_telemetry[..., 0], reg_telemetry[..., 1]
+        conv_semantics = "drho" if warm_start == "fft" else "iters"
         log.info(
-            "registration: rho min/mean %.4f/%.4f, conv(drho) mean/max "
+            "registration: rho min/mean %.4f/%.4f, conv(%s) mean/max "
             "%.3g/%.3g, |t| max %.2f px",
-            rho.min(), rho.mean(), conv.mean(), conv.max(),
+            rho.min(), rho.mean(), conv_semantics, conv.mean(), conv.max(),
             np.abs(reg_telemetry[..., 2:4]).max(),
         )
         if write_outputs and cfg.out_dir:
@@ -379,7 +390,7 @@ def run_datapoint(
 
             os.makedirs(cfg.out_dir, exist_ok=True)
             FlatFileSet(cfg.out_dir).write("registration", reg_telemetry)
-            write_registration_meta(cfg.out_dir)
+            write_registration_meta(cfg.out_dir, conv_semantics)
     t0 = mark("phase1", t0)
     return _finish_from_intensity(cfg, state, intensity, camset=camset,
                                   mark=mark, t0=t0, write_outputs=write_outputs)
@@ -395,6 +406,7 @@ def run_datapoint_streaming(
     write_hdf5: bool = True,
     compute_dtype: str = "float32",
     stage_times: Optional[dict] = None,
+    warm_start="fft",
 ) -> DatapointOutputs:
     """Out-of-core datapoint processing on ``device``, for datapoints
     larger than host or device memory.
@@ -410,7 +422,8 @@ def run_datapoint_streaming(
     is the reference's disk-intermediate pattern (psp_process.cpp:524-563,
     upsp_matrix_transpose) with the compute on the device.
 
-    ``frames_array``: as in :func:`run_datapoint`, or a callable frame
+    ``frames_array`` and ``warm_start``: as in :func:`run_datapoint`;
+    ``frames_array`` may also be a callable frame
     source ``source(start, count) -> (count, C, H, W)`` (a tensor on the
     device or a numpy array), ``cfg.frames`` frames long.  Requires an
     output directory, a wtd (sds) file and a paint calibration; raises
@@ -443,7 +456,8 @@ def run_datapoint_streaming(
         use_packed, packed_kw = packed_ingest_config(readers, frames_array,
                                                      device_unpack)
         fn = make_chunk_processor(state, packed=use_packed,
-                                  compute_dtype=compute_dtype, **packed_kw)
+                                  compute_dtype=compute_dtype,
+                                  warm_start=warm_start, **packed_kw)
         mark("phase1_setup", t0)
         ffs = FlatFileSet(cfg.out_dir)
         sum_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
