@@ -47,12 +47,24 @@ From the root of a checkout, on a machine with a CUDA device:
        source that tiles (b)'s 64 frames from one tensor on the card,
        with its peak device memory and phase 2's memory per node block,
        after a sweep of phase 2's memory against the frame count; then
-       the native and the numpy transpose of a 4096 x 32768 file;
+       the native and the numpy transpose of a 4096 x 32768 file, and
+       the column transposes that (j)'s two ranks make, on the same file;
+   between (e) and (f), two runs of (b)'s files as two ranks of
+   ``upsp-process-torch --distributed``, two processes on the one card
+   (gloo by the transport rule), each rank's launch counts and stage
+   seconds from its --timings file:
+   (i) in memory, its files against (b)'s;
+   (j) out of core (--streaming), its intensity_transpose against (e)'s
+       bit for bit and its other files against (b)'s;
    and between (f) and (d):
    (g) (b)'s files through --no-warm-start (reference parity: identity
        starts, the while loop), into an output directory of its own, with
        its frames/s, the histogram of its iteration counts and its
        largest translation difference from (b);
+   last, (k): a one-rank NCCL group in this process, the exchange, the
+   gathers, the f64 reduction and the barrier on a 64 x 1,048,576 block
+   against torch, the exchange timed (the only NCCL code a one-card
+   machine runs);
 5. checks each path's outputs (all flat files, the registration sidecar,
    output.h5 where h5py is installed, finite values on visible nodes, the
    kernels the path must launch, and for (d) that no f32 ECC kernel ran)
@@ -61,7 +73,8 @@ From the root of a checkout, on a machine with a CUDA device:
    the sidecar says "iters", column 1 holds integers in [1, 50], iteration
    counts within one of the twins'); (d)'s batch also against (b)'s; (e)'s
    outputs against (b)'s, (f)'s first 64 intensity rows and frame
-   statistics against (b)'s.
+   statistics against (b)'s; every rank of (i) and (j) on the card,
+   launching K1-K7.
 
 Prints the seconds of each phase, then the kernel table as one JSON line
 (per kernel: ``launches`` over the paths and ``launches_by_path``;
@@ -175,6 +188,22 @@ H_PATH = ("h: 2 x 1024x1024 cine10, 32 frames, 81,920 nodes, pixel_interpolation
           dict(n_cameras=2, image_hw=(1024, 1024), n_frames=32, grid_shape=(320, 256),
                video_format="cine10", options=["pixel_interpolation = nearest"]),
           slice(0, 8), ("blur", "warp", "moments", "gather", "hot", "unpack10"))
+# (e)'s outputs against (b)'s: what phase 1 writes exactly, the frame
+# statistics (summed in f64 in another order) within rtol 1e-5, carried to
+# ratio_0 as atol 1e-5 since avg / I0 is near 1, phase 2 within
+# tests/test_outputs.py's bounds; (j) is held to the same
+E_FILES = ("intensity", "intensity_avg", "intensity_rms", "intensity_ratio_0",
+           "coverage", "gain", "steady_state", "model_temp", "pressure_transpose",
+           "avg", "rms")
+E_TOL = {"intensity_avg": dict(rtol=1e-5), "intensity_rms": dict(rtol=1e-5),
+         "intensity_ratio_0": dict(atol=1e-5),
+         "pressure_transpose": dict(rtol=1e-4, atol=1e-6),
+         "avg": dict(rtol=1e-4, atol=1e-6), "rms": dict(rtol=1e-4, atol=1e-6)}
+# paths (i) and (j): (b)'s files through two CLI ranks on the one card
+RANKS = 2
+RANK_TIMEOUT_S = 300
+# path (k): the NCCL exchange of one rank, on a (frames, nodes) f32 block
+K_SHAPE = (64, 1 << 20)
 DEVICE = "cuda"
 # the redesigned kernels' ``ms`` before their redesign (PERF.md section 6:
 # this script on an NVIDIA H100 80GB HBM3 at 700.00 W; K3/K4 as first
@@ -1015,10 +1044,30 @@ def tall_transpose(rows=TALL[0], cols=TALL[1]):
     native.transpose_f32(src, dst, rows, cols)
     t_native = time.perf_counter() - t0
     t_numpy = timed_transpose("numpy", src, rows, cols, dst)
+    # the out-of-core multi-rank route: each of RANKS ranks transposes its
+    # node columns into its rows of one sized file, one after the other
+    cdst = f"{dst}.columns"
+    with open(cdst, "wb") as fh:
+        fh.truncate(rows * cols * 4)
+    t0 = time.perf_counter()
+    for r in range(RANKS):
+        native.transpose_f32_numpy(src, cdst, rows, cols, columns=(
+            r * cols // RANKS, (r + 1) * cols // RANKS))
+    t_cols = time.perf_counter() - t0
+    with open(cdst, "rb") as a, open(dst, "rb") as b:
+        same = True
+        while same:
+            x, y = a.read(1 << 26), b.read(1 << 26)
+            same = x == y
+            if not x:
+                break
+    check(same, f"{RANKS} ranks' column transposes of {rows} x {cols} equal the "
+          f"whole file's ({t_cols:.3f} s)")
     shutil.rmtree(root, ignore_errors=True)
     print(f"  disk transpose of {rows} x {cols} f32 ({rows * cols * 4 / 2**30:.2f} "
-          f"GiB): native {t_native:.3f} s, numpy {t_numpy:.3f} s", flush=True)
-    return t_native, t_numpy
+          f"GiB): native {t_native:.3f} s, numpy {t_numpy:.3f} s, {RANKS} ranks' "
+          f"columns in turn {t_cols:.3f} s", flush=True)
+    return t_native, t_numpy, t_cols
 
 
 def own_output(dp, name):
@@ -1066,8 +1115,9 @@ def streaming_cli_path(dp, n_nodes):
     disk: what phase 1 writes exactly (the frame statistics, summed in f64
     in another order, within rtol 1e-5, carried to ratio_0 as atol 1e-5
     since avg / I0 is near 1), phase 2 within tests/test_outputs.py's
-    bounds (rtol 1e-4, atol 1e-6).  Returns the launch counts, the stage
-    seconds and (b)'s first 64 intensity rows and frame statistics."""
+    bounds (rtol 1e-4, atol 1e-6): E_TOL.  Returns the launch counts, the
+    stage seconds, (b)'s first 64 intensity rows and frame statistics,
+    and (e)'s datapoint, whose outputs stay on disk for (j)."""
     import numpy as np
 
     from upsp_tpu_torch.io.flatfile import FLAT_FILES, read_flat
@@ -1085,17 +1135,11 @@ def streaming_cli_path(dp, n_nodes):
         check(counts[name] > 0, f"kernel {name} launched on this path")
     for name in FLAT_FILES:
         check(os.path.exists(os.path.join(out, name)), f"output {name}")
-    tol = {"intensity_avg": dict(rtol=1e-5), "intensity_rms": dict(rtol=1e-5),
-           "intensity_ratio_0": dict(atol=1e-5), "pressure_transpose": dict(
-               rtol=1e-4, atol=1e-6), "avg": dict(rtol=1e-4, atol=1e-6),
-           "rms": dict(rtol=1e-4, atol=1e-6)}
     b_out = {}
-    for name in ("intensity", "intensity_avg", "intensity_rms", "intensity_ratio_0",
-                 "coverage", "gain", "steady_state", "model_temp",
-                 "pressure_transpose", "avg", "rms"):
+    for name in E_FILES:
         want = read_flat(os.path.join(dp["out_dir"], name))
         same_values(read_flat(os.path.join(out, name)), want,
-                    f"(e) {name} against (b)", **tol.get(name, {}))
+                    f"(e) {name} against (b)", **E_TOL.get(name, {}))
         if name in ("intensity", "intensity_avg", "intensity_rms"):
             b_out[name] = want
     b_out["intensity"] = b_out["intensity"].reshape(-1, n_nodes)
@@ -1103,8 +1147,7 @@ def streaming_cli_path(dp, n_nodes):
     stages["native_transpose"] = timed_transpose(
         "native", os.path.join(out, "intensity"), b_out["intensity"].shape[0],
         n_nodes, os.path.join(out, "intensity_transpose"))
-    shutil.rmtree(root, ignore_errors=True)
-    return counts, stages, b_out
+    return counts, stages, b_out, e_dp
 
 
 def phase2_memory_sweep():
@@ -1241,6 +1284,159 @@ def streaming_long_path(dp, b_out, slope):
                         written_bytes=written, frames_max=f_max)
 
 
+def two_rank_path(dp, b_counts, e_dp=None):
+    """Path (i) (in memory) or, with ``e_dp``, (j) (out of core): (b)'s
+    files through ``upsp-process-torch --distributed`` as RANKS CLI
+    processes on the one card (torchrun's environment on a free local
+    port: both ranks on cuda:0, so the transport rule gives gloo), into an
+    output directory of its own.  Each rank's process starts with its
+    launch counts at 0 and writes them with its stage seconds
+    (``--timings``).  Checks that every rank ran on the card through gloo
+    and launched K1-K7, fewer per-frame launches than (b)'s ``b_counts``
+    each; (i): every flat file, the registration file and output.h5
+    against (b)'s (intensity and its statistics rtol 1e-6, atol 1e-3
+    counts, printed whether bit for bit; phase 2 rtol 1e-4, atol 1e-6;
+    the rest exactly); (j): ``intensity_transpose`` equal to (e)'s bit for
+    bit and the other files within E_TOL of (b)'s.  Returns the ranks'
+    launch counts summed and their stage seconds."""
+    import numpy as np
+
+    from upsp_tpu_torch.io.flatfile import FLAT_FILES, read_flat
+    from upsp_tpu_torch.parallel.launcher import run_local_ranks
+
+    p = "j" if e_dp else "i"
+    print(f"  -- path {p}: (b)'s files through {RANKS} ranks of upsp-process-torch "
+          f"--distributed{' --streaming' if e_dp else ''} on the one card, f32",
+          flush=True)
+    r_dp = own_output(dp, p)
+    root, out = os.path.dirname(r_dp["deck"]), r_dp["out_dir"]
+    timings = os.path.join(root, "timings.json")
+    log = os.path.join(root, "ranks.log")
+    cmd = [sys.executable, SCRIPT, "-input_deck", r_dp["deck"], "--registration-telemetry",
+           "--timings", timings, "--device", DEVICE, "--distributed"]
+    t0 = time.perf_counter()
+    with open(log, "a") as fh:  # appends: the ranks' lines stay whole
+        rcs = run_local_ranks(cmd + (["--streaming"] if e_dp else []), RANKS,
+                              timeout_s=RANK_TIMEOUT_S, stdout=fh,
+                              stderr=subprocess.STDOUT)
+    wall = time.perf_counter() - t0
+    with open(log) as fh:
+        text = fh.read()
+    print("  " + "\n  ".join(l for l in text.splitlines() if l.startswith("processed")),
+          flush=True)
+    if any(rcs):
+        print(text[-6000:], flush=True)
+    check(rcs == [0] * RANKS, f"{RANKS} ranks exited 0 ({rcs}) in {wall:.2f} s")
+    ranks = []
+    for r in range(RANKS):
+        with open(timings if r == 0 else f"{timings}.rank{r}") as fh:
+            ranks.append(json.load(fh))
+    for r, t in enumerate(ranks):
+        check((t["rank"], t["world"], t["transport"]) == (r, RANKS, "gloo"),
+              f"rank {r} of {RANKS}, transport gloo (the ranks share a card)")
+        check(f"rank {r} of {RANKS} on cuda:0" in text, f"rank {r} ran on cuda:0")
+        c = t["launches"]
+        print(f"  rank {r} launches: {c}", flush=True)
+        print(f"  rank {r} per-frame launches against (b)'s: " + ", ".join(
+            f"{k} {c[k]}/{b_counts[k]} = {c[k] / b_counts[k]:.3f}"
+            for k in FRAME_KERNELS), flush=True)
+        for k in FRAME_KERNELS:
+            check(0 < c[k] < b_counts[k], f"rank {r} launched {k}, fewer times than (b)")
+        check(c["unpack12"] > 0, f"rank {r} launched unpack12")
+        print(f"  rank {r} stages: phase 0 {t['phase0']:.3f} s, phase 1 "
+              f"{t['phase1']:.3f} s (set-up {t['phase1_setup']:.3f} s)"
+              + (f", disk transpose {t['disk_transpose']:.3f} s"
+                       if "disk_transpose" in t else "")
+              + f", phase 2 {t['phase2']:.3f} s, outputs {t['outputs']:.3f} s; "
+              f"barrier waits {t['barrier']}", flush=True)
+    for name in FLAT_FILES + (() if e_dp else ("registration", "registration.json")):
+        check(os.path.exists(os.path.join(out, name)), f"output {name}")
+    if importlib.util.find_spec("h5py") is None:
+        print("  h5py is not installed here: output.h5 not written", flush=True)
+    else:
+        check(os.path.exists(os.path.join(out, "output.h5")), "output output.h5")
+    if e_dp:
+        with open(os.path.join(out, "intensity_transpose"), "rb") as a, \
+                open(os.path.join(e_dp["out_dir"], "intensity_transpose"), "rb") as b:
+            check(a.read() == b.read(), "(j) intensity_transpose equals (e)'s bit for bit")
+        for name in E_FILES:
+            same_values(read_flat(os.path.join(out, name)),
+                        read_flat(os.path.join(dp["out_dir"], name)),
+                        f"(j) {name} against (b)", **E_TOL.get(name, {}))
+    else:
+        for name in FLAT_FILES + ("registration",):
+            got = read_flat(os.path.join(out, name))
+            want = read_flat(os.path.join(dp["out_dir"], name))
+            if name.startswith("intensity") and name != "intensity_ratio_0":
+                tol = dict(rtol=1e-6, atol=1e-3)
+                print(f"  (i) {name} bit for bit against (b): "
+                      f"{np.array_equal(got, want, equal_nan=True)}", flush=True)
+            elif name in ("intensity_ratio_0", "pressure_transpose", "avg", "rms",
+                          "registration"):
+                tol = dict(rtol=1e-4, atol=1e-6)
+            else:
+                tol = {}
+            same_values(got, want, f"(i) {name} against (b)", **tol)
+        if importlib.util.find_spec("h5py") is not None:
+            import h5py
+
+            with h5py.File(os.path.join(out, "output.h5")) as a, \
+                    h5py.File(os.path.join(dp["out_dir"], "output.h5")) as b:
+                for key in ("frames", "rms", "average", "coverage"):
+                    same_values(a[key][()], b[key][()], f"(i) output.h5 {key}",
+                                rtol=1e-4, atol=1e-6)
+    print(f"  path {p}: rank 0's stages {json.dumps({k: v for k, v in ranks[0].items() if k != 'launches'})}",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    counts = {k: sum(t["launches"][k] for t in ranks) for k in ranks[0]["launches"]}
+    return counts, ranks
+
+
+def nccl_path():
+    """Path (k): a one-rank NCCL group in this process (the only NCCL code
+    a one-card machine can run): ``global_transpose``, ``fetch_global``,
+    ``gather`` and the f64 ``all_reduce`` on a K_SHAPE f32 block, against
+    torch's ``.T``, the block and the sums, exactly, and ``barrier``,
+    which must leave the card's stream idle; the exchange timed by CUDA
+    events beside ``.T.contiguous()``.  Returns its ms."""
+    import torch
+    import torch.distributed as dist
+
+    from upsp_tpu_torch.parallel import mesh as M
+    from upsp_tpu_torch.parallel.launcher import free_port, initialize_distributed
+
+    print(f"  -- path k: the NCCL exchange of one rank in this process, "
+          f"{K_SHAPE[0]} x {K_SHAPE[1]} f32 (two or more NCCL ranks need a card "
+          f"each: not run on a one-card machine)", flush=True)
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=120)
+    try:
+        mesh = M.make_mesh(DEVICE)
+        check(mesh.backend == "nccl", f"transport nccl for one rank on its own card "
+              f"({mesh.device})")
+        gen = torch.Generator(DEVICE).manual_seed(13)
+        block = torch.rand(K_SHAPE, generator=gen, device=DEVICE)
+        check(torch.equal(M.global_transpose(mesh, block), block.T),
+              "global_transpose equals .T")
+        check(torch.equal(M.fetch_global(mesh, block), block), "fetch_global equals the block")
+        check(torch.equal(M.gather(mesh, block, "cpu"), block.cpu()),
+              "gather to rank 0 equals the block")
+        M.global_transpose(mesh, block)
+        M.barrier(mesh)
+        check(torch.cuda.current_stream(mesh.device).query(),
+              "the NCCL barrier returns with the card's stream idle")
+        sums = block.double().sum(0)
+        check(torch.equal(M.all_reduce(mesh, sums.clone()), sums), "f64 all_reduce")
+        ms = cuda_time(lambda: M.global_transpose(mesh, block), iters=10, warmup=2)
+        t_ms = cuda_time(lambda: block.T.contiguous(), iters=10, warmup=2)
+        nbytes = 2 * block.numel() * 4
+        print(f"  NCCL global_transpose (one rank) {ms:.4f} ms = "
+              f"{nbytes / ms / 1e6:.0f} GB/s read + written; .T.contiguous() "
+              f"{t_ms:.4f} ms", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return ms
+
+
 def full_config_paths(by_path, phase_s):
     """Paths (b) and (d) on one full-config datapoint, written once: (b) in
     f32, (d) in bf16 with its batch also held against (b)'s; (g) on its
@@ -1257,8 +1453,15 @@ def full_config_paths(by_path, phase_s):
         (lb, dtype_b, exp_b), (ld, dtype_d, exp_d) = FULL_PATHS
         by_path["b"], ref = datapoint_path(lb, dp, FULL, FULL_BATCH, exp_b, dtype_b)
         t0 = time.perf_counter()
-        by_path["e"], e_stages, b_out = streaming_cli_path(dp, n_nodes)
+        by_path["e"], e_stages, b_out, e_dp = streaming_cli_path(dp, n_nodes)
         phase_s["path e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["i"], i_ranks = two_rank_path(dp, by_path["b"])
+        phase_s["path i"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["j"], j_ranks = two_rank_path(dp, by_path["b"], e_dp)
+        shutil.rmtree(os.path.dirname(e_dp["deck"]), ignore_errors=True)
+        phase_s["path j"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         slope = phase2_memory_sweep()
         by_path["f"], f_stages = streaming_long_path(dp, b_out, slope)
@@ -1291,7 +1494,15 @@ def full_config_paths(by_path, phase_s):
           f"transpose {f_stages['disk_transpose']:.3f} s; (e)'s transpose numpy "
           f"{e_stages['disk_transpose']:.3f} s (the run's) / native "
           f"{e_stages['native_transpose']:.3f} s; {TALL[0]} x {TALL[1]} native / numpy "
-          f"{tall[0]:.3f} / {tall[1]:.3f} s", flush=True)
+          f"/ {RANKS} ranks' columns {tall[0]:.3f} / {tall[1]:.3f} / {tall[2]:.3f} s",
+          flush=True)
+    for p, ranks in (("i", i_ranks), ("j", j_ranks)):
+        print(f"  two ranks on one card, path ({p}): " + "; ".join(
+            f"rank {t['rank']} phase 1 {t['phase1']:.3f} s = "
+            f"{t['n_frames'] / (t['phase1'] - t['phase1_setup']):.2f} frames/s of "
+            f"the datapoint after set-up, phase 2 {t['phase2']:.3f} s"
+            for t in ranks) + f"; one rank, (b') phase 2 {runs[2]['phase2']:.3f} s",
+            flush=True)
 
 
 def main() -> int:
@@ -1360,7 +1571,10 @@ def main() -> int:
         phase_s["path h"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         full_config_paths(by_path, phase_s)
-        phase_s["paths b, e, f, g, d, b', d'"] = time.perf_counter() - t0
+        phase_s["paths b, e, i, j, f, g, d, b', d'"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k_ms = nccl_path()
+        phase_s["path k"] = time.perf_counter() - t0
         for r in rows:
             if r["name"] in KERNEL_PHASE_ONLY:
                 r.update(launches_by_path={}, launches=0, kernel_phase_only=True)
@@ -1375,6 +1589,8 @@ def main() -> int:
         return 3
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
+    print(f"path (k): NCCL global_transpose of one rank, {K_SHAPE[0]} x {K_SHAPE[1]} "
+          f"f32: {k_ms:.4f} ms", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check; "
           f"by phase: " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items()),
           flush=True)

@@ -185,13 +185,17 @@ def test_cli_loads_no_jax_package(deck, tmp_path, mode):
 
 
 @pytest.mark.parametrize("flags,needle", [
-    (["--mesh", "auto"], "M10"),
+    (["--distributed"], "RuntimeError: a distributed run needs its coordinator"),
 ])
 def test_cli_refuses_unported_paths(deck, flags, needle):
+    """What the CLI cannot run, it refuses: ``--distributed`` with no
+    process group configured raises instead of running one process (the
+    CLI's last refusal, ``--mesh auto``, now runs:
+    tests/test_torch_distributed.py)."""
     r = _run([sys.executable, SCRIPT, "-input_deck", deck["deck"], "--device",
               "cpu"] + flags)
     assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and needle in r.stderr
+    assert needle in r.stderr, r.stderr[-3000:]
 
 
 @pytest.mark.parametrize("flags", [

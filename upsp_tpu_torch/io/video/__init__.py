@@ -3,7 +3,6 @@
 import os
 
 from upsp_tpu_torch.io.video.base import (  # noqa: F401
-    FramePrefetcher,
     IntervalPrefetcher,
     VideoReader,
 )

@@ -224,15 +224,21 @@ def transpose_f32_native(src: str, dst: str, rows: int, cols: int,
 
 
 def transpose_f32_numpy(src: str, dst: str, rows: int, cols: int,
-                        max_bytes: int = 1 << 30):
+                        max_bytes: int = 1 << 30, columns=None):
     """The numpy transpose: as many source columns at a time as fit
     ``max_bytes`` (at least one), each source row's piece of them read
-    with one call, then written as whole destination rows with one."""
-    width = max(1, min(cols, max_bytes // max(rows * 4, 1)))
+    with one call, then written as whole destination rows with one.
+    ``columns`` = (c0, c1) transposes only those source columns, into
+    rows [c0, c1) of an existing (cols, rows) ``dst``, which is otherwise
+    written anew."""
+    lo, hi = (0, cols) if columns is None else columns
+    width = max(1, min(hi - lo, max_bytes // max(rows * 4, 1)))
     buf = np.empty(rows * width, "<f4")
-    with open(src, "rb", buffering=0) as fin, open(dst, "wb") as fout:
-        for c0 in range(0, cols, width):
-            cw = min(width, cols - c0)
+    with open(src, "rb", buffering=0) as fin, \
+            open(dst, "wb" if columns is None else "r+b") as fout:
+        fout.seek(lo * rows * 4)
+        for c0 in range(lo, hi, width):
+            cw = min(width, hi - c0)
             piece = buf[: rows * cw].reshape(rows, cw)
             for r in range(rows):
                 got = os.preadv(fin.fileno(), [piece[r]], (r * cols + c0) * 4)

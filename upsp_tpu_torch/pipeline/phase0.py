@@ -230,10 +230,12 @@ def _apply_normals_file(model: SurfaceModel, path: str) -> None:
 
 def run_phase0(
     cfg: ProcessingConfig, first_frames: Sequence[np.ndarray],
-    bit_depths: Optional[Sequence[int]] = None, device="cpu",
+    bit_depths: Optional[Sequence[int]] = None, device="cuda",
     model: Optional[SurfaceModel] = None, max_leaf: int = 4,
 ) -> Phase0State:
-    """Build the phase-0 state from the config and per-camera first frames."""
+    """Build the phase-0 state from the config and per-camera first frames,
+    its tensors on ``device`` (the card unless the caller asks for the
+    CPU)."""
     device = torch.device(device)
     native = native_library()
     if model is None:

@@ -328,7 +328,7 @@ def make_chunk_processor(state, with_telemetry: bool = False,
                          ecc_impl: str = "auto",
                          pre_shift: Optional[bool] = None,
                          ecc_band: Optional[int] = None,
-                         vmap_cameras: Optional[bool] = None):
+                         vmap_cameras: Optional[bool] = None, mesh=None):
     """Build the chunk program: (F, C, H, W) frames (numpy or tensor, any
     numeric dtype) -> (F, N) intensities [and (F, C, 5) telemetry], on the
     state's device.
@@ -364,6 +364,12 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     ``compute_dtype``: "float32" or "bfloat16", the images' dtype between
     stages (raises ``ValueError`` on anything else).  ``ecc_band`` and
     ``vmap_cameras`` are not ported and raise ``NotImplementedError``.
+
+    ``mesh`` (:class:`~upsp_tpu_torch.parallel.mesh.Mesh` of two or more
+    ranks): the chunk, whose frame count the caller pads to a multiple of
+    the world size, is split into one contiguous block a rank
+    (phase1.py:959-970's ``shard_map``); this rank runs its own block and
+    returns its rows.  In scan mode each block starts from identity.
     """
     if ecc_band is not None:
         raise NotImplementedError(
@@ -481,7 +487,19 @@ def make_chunk_processor(state, with_telemetry: bool = False,
         teles = torch.cat(teles)
         return (sols, teles) if with_telemetry else sols
 
-    return process
+    if mesh is None or mesh.world == 1:
+        return process
+
+    from upsp_tpu_torch.parallel.mesh import frame_sharding
+
+    def process_block(chunk):
+        if chunk.shape[0] % mesh.world:
+            raise ValueError(f"a chunk of {chunk.shape[0]} frames does not "
+                             f"divide over {mesh.world} ranks; pad it first")
+        start, stop = frame_sharding(mesh, chunk.shape[0])
+        return process(chunk[start:stop])
+
+    return process_block
 
 
 def process_frames(state, frames, batched: bool = True) -> torch.Tensor:

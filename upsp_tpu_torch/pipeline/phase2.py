@@ -7,7 +7,8 @@ Port of ``upsp_tpu/pipeline/phase2.py`` (:35-173) on node-major tensors:
     gain   = a + bT + cT^2 + (d + eT + fT^2) * (qbar * Cp_steady + ps)
     dCp    = (ratio - fit) * gain * 144 / qbar
 
-Nodes with zero coverage carry NaN throughout.
+Nodes with zero coverage carry NaN throughout.  :func:`run_phase2_sharded`
+runs it over the ranks of a mesh, each on its own block of nodes.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import torch
 from upsp_tpu_torch.io.paint import PaintCalibration
 from upsp_tpu_torch.io.wtd import TunnelConditions, model_temperature
 from upsp_tpu_torch.ops.polyfit import PolyDetrender, detrend, make_detrender
-
 
 class Phase2Constants(NamedTuple):
     paint: torch.Tensor  # (6,) a..f
@@ -131,3 +131,42 @@ def run_phase2(cfg, intensity_transpose: torch.Tensor, sol_avg: torch.Tensor,
     out = phase2_convert(intensity_transpose, sol_avg, coverage, steady, mtemp,
                          const, det)
     return out._replace(steady_state=steady, model_temp=mtemp)
+
+
+def run_phase2_sharded(cfg, it_local: torch.Tensor, sol_avg: torch.Tensor,
+                       coverage: np.ndarray, cond: TunnelConditions,
+                       pcal: PaintCalibration, mesh, model=None
+                       ) -> Optional[Phase2Outputs]:
+    """Phase 2 over the ranks of ``mesh`` (upsp_tpu/pipeline/phase2.py:
+    175-257): each rank converts its (N_pad/D, F) node block ``it_local``
+    (the frames->nodes exchange's result, frame pads already cut) with its
+    nodes' ``sol_avg`` on its device, and rank 0 gathers every node's
+    outputs; the other ranks return None.  ``coverage`` is over every
+    node.  Node pads carry coverage 0, so they convert to NaN, and are cut
+    from the gathered arrays.
+    """
+    from upsp_tpu_torch.parallel.mesh import gather, node_sharding
+
+    dev = mesh.device
+    N, F = coverage.shape[0], it_local.shape[1]
+    n0, n1 = node_sharding(mesh, N)
+
+    def local_nodes(a):
+        out = torch.zeros(n1 - n0, dtype=torch.float32, device=dev)
+        a = np.asarray(a, np.float32)[n0:n1]
+        out[: a.shape[0]] = torch.as_tensor(a, device=dev)
+        return out
+
+    const = make_phase2_constants(pcal, cond, dev)
+    det = make_detrender(F, cfg.degree, dev)
+    steady = load_steady_cp(cfg, N, model)
+    mtemp = compute_model_temperature(cfg, cond, N, model)
+    out = phase2_convert(it_local, sol_avg, local_nodes(coverage),
+                         local_nodes(steady), local_nodes(mtemp), const, det)
+    whole = {k: gather(mesh, getattr(out, k), "cpu")
+             for k in ("pressure_transpose", "rms", "avg", "gain")}
+    if mesh.rank != 0:
+        return None
+    return Phase2Outputs(**{k: v[:N] for k, v in whole.items()},
+                         steady_state=torch.as_tensor(steady),
+                         model_temp=torch.as_tensor(mtemp))

@@ -1,6 +1,6 @@
-"""End-to-end datapoint processing on one device: the ``psp_process`` path.
+"""End-to-end datapoint processing: the ``psp_process`` path.
 
-Port of ``upsp_tpu/pipeline/run.py`` on a single device:
+Port of ``upsp_tpu/pipeline/run.py``:
 
 - ``run_datapoint`` (:385-569), in memory: open the videos, phase 0 once,
   phase 1 per frame chunk, f64 frame statistics on the host, phase 2 on
@@ -16,9 +16,21 @@ K7/K8, whenever every camera's video supports packed reads in one format
 (``device_unpack="auto"``, the default); otherwise the
 ``upsp_tpu_torch.io.video`` readers decode them on the host.
 
-Not ported here (ROADMAP.md): device meshes and multi-process runs, and
-the band guard that re-runs out-of-band frames on a dense path — the
-port's warp kernel has no band limit.
+Multi-device runs (``mesh``, :mod:`upsp_tpu_torch.parallel`): one
+process per rank, each on its own device.  Every rank runs phase 0,
+decodes and runs only its contiguous block of each frame chunk (the
+reference's per-rank read-ahead and apportioning, psp_process.cpp:
+867-908, 1520-1523), and phase 2 runs on each rank's block of nodes after
+the frames->nodes exchange: in memory each chunk's, on the devices (the
+reference's global_transpose, psp_process.cpp:707-771); out of core
+through the shared ``intensity`` file, each rank transposing its node
+columns.  Only rank 0 writes the whole-datapoint files
+(psp_process.cpp:1930-2016); out of core, each rank writes its own rows
+of the large files at their offsets.  The rows that pad a chunk's last
+rank are not computed: they carry zeros through the exchange and are cut.
+
+Not ported (ROADMAP.md): the band guard that re-runs out-of-band frames
+on a dense path — the port's warp kernel has no band limit.
 """
 
 from __future__ import annotations
@@ -27,7 +39,6 @@ import dataclasses
 import importlib.util
 import logging
 import os
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -35,7 +46,7 @@ import torch
 
 from upsp_tpu_torch.io.flatfile import FlatFileSet, read_flat
 from upsp_tpu_torch.io.paint import PaintCalibration
-from upsp_tpu_torch.io.video import FramePrefetcher, video_reader
+from upsp_tpu_torch.io.video import IntervalPrefetcher, video_reader
 from upsp_tpu_torch.io.wtd import read_wtd
 from upsp_tpu_torch.pipeline.config import ProcessingConfig
 from upsp_tpu_torch.ops.projection import coverage as proj_coverage
@@ -48,8 +59,12 @@ from upsp_tpu_torch.pipeline.phase2 import (
     make_phase2_constants,
     phase2_convert,
     run_phase2,
+    run_phase2_sharded,
 )
 from upsp_tpu_torch.ops.polyfit import make_detrender
+from upsp_tpu_torch.parallel import mesh as M
+from upsp_tpu_torch.parallel.launcher import chunk_plan
+from upsp_tpu_torch.utils.timing import StageClock
 
 log = logging.getLogger("upsp_tpu")
 
@@ -114,20 +129,39 @@ def open_videos(cfg: ProcessingConfig):
     return readers, n_frames, start0
 
 
-def _stage_marker(device: torch.device, stage_times: Optional[dict]):
-    """``mark(name, t0)``: ends a stage with a device synchronise, records
-    its wall seconds in ``stage_times`` (when a dict) and returns the
-    time."""
+def _resolve_mesh(mesh, device):
+    """None | "none" | "auto" | Mesh -> a Mesh of two or more ranks, or
+    None (one device).  "auto" is the mesh of the default process group
+    (upsp_tpu_torch.parallel.launcher.initialize_distributed) when it has
+    two or more ranks, else one device (upsp_tpu/pipeline/run.py:127-139):
+    this process cannot start ranks of its own (``upsp-process-torch
+    --mesh auto`` does, one a card)."""
+    if mesh is None or mesh in ("none", ""):
+        return None
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"unknown mesh spec {mesh!r}")
+        if not (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            log.info("mesh auto: no process group of two or more ranks; "
+                     "one device")
+            return None
+        mesh = M.make_mesh(device)
+    if mesh.world == 1:
+        return None
+    if mesh.device.type != device.type:
+        raise ValueError(f"the mesh's device {mesh.device} is not a "
+                         f"{device.type} device")
+    return mesh
 
-    def mark(name, t0):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        if stage_times is not None:
-            stage_times[name] = t1 - t0
-        return t1
 
-    return mark
+def _stage_clock(device: torch.device, stage_times: Optional[dict], mesh=None):
+    """A StageClock whose points wait for the device (and, on a mesh, for
+    every rank) and record their wall seconds in ``stage_times``."""
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
+    barrier = None if mesh is None else (lambda: M.barrier(mesh))
+    return StageClock(barrier=barrier, sync=sync, times=stage_times)
 
 
 def _open_inputs(cfg, frames_array):
@@ -236,38 +270,81 @@ class _PinnedStaging:
 
 
 def _chunk_iter(frames_array, readers, n_frames, start0, frames_per_chunk,
-                packed=False, device=torch.device("cpu")):
-    """Yield (start, chunk).  A callable ``frames_array`` is called as
-    ``source(start, count)`` for each chunk (a tensor on the device or a
-    numpy array).  File input is read by background prefetchers: with
-    ``packed`` the chunk is the (chunk, C, nbytes) uint8 packed bytes,
-    already on ``device`` (through pinned host memory on CUDA); otherwise
-    the (chunk, C, H, W) frames decoded on the host."""
+                packed=False, device=torch.device("cpu"), mesh=None):
+    """Yield (ChunkSlice, chunk) for this rank's block of each chunk
+    (:func:`~upsp_tpu_torch.parallel.launcher.chunk_plan`; one device
+    takes every frame of the chunk); ``chunk`` is None where the block
+    holds no frame.  A callable ``frames_array`` is called as
+    ``source(start, count)`` for each block (a tensor on the device or a
+    numpy array).  File input is read by background prefetchers of the
+    rank's frames only: with ``packed`` the chunk is the (count, C,
+    nbytes) uint8 packed bytes, already on ``device`` (through pinned host
+    memory on CUDA); otherwise the (count, C, H, W) frames decoded on the
+    host."""
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    plan = chunk_plan(n_frames, frames_per_chunk, world, rank, world)
     if callable(frames_array):
-        for s in range(0, n_frames, frames_per_chunk):
-            yield s, frames_array(s, min(frames_per_chunk, n_frames - s))
+        for c in plan:
+            yield c, (frames_array(c.local_start, c.local_valid)
+                      if c.local_valid else None)
         return
     if frames_array is not None:
-        for s in range(0, n_frames, frames_per_chunk):
-            yield s, frames_array[s : s + frames_per_chunk]
+        for c in plan:
+            yield c, (frames_array[c.local_start : c.local_start + c.local_valid]
+                      if c.local_valid else None)
         return
     prefetchers = [
-        iter(FramePrefetcher(r, n_frames, start=start0,
-                             frames_per_chunk=frames_per_chunk, packed=packed))
+        iter(IntervalPrefetcher(
+            r, [(start0 + c.local_start, c.local_valid) for c in plan],
+            packed=packed))
         for r in readers
     ]
     staging = _PinnedStaging(device) if packed and device.type == "cuda" else None
-    s = 0
-    while s < n_frames:
+    for c in plan:
         per_cam = [next(p) for p in prefetchers]
-        if staging is not None:
-            chunk = staging.to_device(per_cam)
+        if not c.local_valid:
+            yield c, None
+        elif staging is not None:
+            yield c, staging.to_device(per_cam)
         elif packed:
-            chunk = torch.from_numpy(np.stack(per_cam, axis=1)).to(device)
+            yield c, torch.from_numpy(np.stack(per_cam, axis=1)).to(device)
         else:
-            chunk = np.stack(per_cam, axis=1)
-        yield s, chunk
-        s += chunk.shape[0]
+            yield c, np.stack(per_cam, axis=1)
+
+
+def _run_block(fn, chunk, n_nodes, n_cams, device, with_telemetry=True):
+    """This rank's block through the chunk program: (rows, N) intensities
+    [and (rows, C, 5) telemetry]; no rows for an empty block."""
+    if chunk is None:
+        out = torch.zeros((0, n_nodes), device=device)
+        return (out, torch.zeros((0, n_cams, 5), device=device)) if with_telemetry else out
+    return fn(np.ascontiguousarray(chunk) if isinstance(chunk, np.ndarray) else chunk)
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows added up to ``rows``."""
+    if t.shape[0] == rows:
+        return t
+    pad = t.new_zeros((rows - t.shape[0],) + tuple(t.shape[1:]))
+    return torch.cat([t, pad])
+
+
+def _gather_chunk(mesh, t: torch.Tensor, c) -> Optional[np.ndarray]:
+    """The chunk's valid rows from every rank's block (this rank's ``t``),
+    on rank 0's host; None on the other ranks."""
+    whole = M.gather(mesh, _pad_rows(t, c.local_rows), "cpu")
+    return None if whole is None else whole[: c.valid].numpy()
+
+
+def _exchange_chunk(mesh, out: torch.Tensor, c, n_pad: int,
+                    it_local: torch.Tensor) -> None:
+    """The frames->nodes exchange of one chunk: this rank's nodes of every
+    rank's block, into columns ``[c.start, c.start + c.valid)`` of its
+    (N_pad/D, F) node block ``it_local``; the pad rows are cut."""
+    block = out.new_zeros((c.local_rows, n_pad))
+    block[: out.shape[0], : out.shape[1]] = out
+    it_local[:, c.start : c.start + c.valid] = (
+        M.global_transpose(mesh, block)[:, : c.valid])
 
 
 def run_datapoint(
@@ -283,6 +360,7 @@ def run_datapoint(
     resume: bool = False,
     write_outputs: bool = True,
     warm_start="fft",
+    mesh=None,
 ) -> DatapointOutputs:
     """Process one datapoint end to end on ``device``; outputs go to
     ``cfg.out_dir`` when set.
@@ -309,11 +387,28 @@ def run_datapoint(
     ``stage_times``, when a dict, receives the wall seconds of phase 0,
     phase 1 (ingest included; ``phase1_setup`` is its set-up part, before
     the first frame), phase 2 and the output writes, each ended by a
-    device synchronise.
+    device synchronise (and on a mesh by a barrier, whose waits go under
+    ``"barrier"``).
+
+    ``mesh``: None (one device), "auto" or a
+    :class:`~upsp_tpu_torch.parallel.mesh.Mesh` (:func:`_resolve_mesh`).
+    On a mesh of two or more ranks every rank calls this: it runs on the
+    mesh's device, phase 1 on its block of each chunk; each chunk is
+    exchanged frames->nodes on the devices into the rank's node block,
+    and gathered to rank 0 alone.  Phase 2 runs on each rank's nodes
+    (:func:`~upsp_tpu_torch.pipeline.phase2.run_phase2_sharded`) and is
+    gathered to rank 0, which writes the files and returns the whole
+    outputs; the other ranks return the state and the coverage, and None
+    for the rest.  Host memory: rank 0 holds what one device's run holds,
+    each other rank none of the (F, N) arrays; each card holds its 1/D of
+    the node-major matrix.
     """
     device = resolve_device(device)
-    mark = _stage_marker(device, stage_times)
-    t0 = time.perf_counter()
+    mesh = _resolve_mesh(mesh, device)
+    if mesh is not None:
+        device = mesh.device
+    rank0 = mesh is None or mesh.rank == 0
+    clock = _stage_clock(device, stage_times, mesh)
     frames_array, readers, n_frames, start0, first_frames, bit_depths = (
         _open_inputs(cfg, frames_array))
     use_packed, packed_kw = packed_ingest_config(readers, frames_array,
@@ -327,14 +422,14 @@ def run_datapoint(
     state = run_phase0(cfg, first_frames, bit_depths, device=device)
     camset = _camera_settings(readers, cfg, state)
     diag_dir = cfg.add_out_dir or cfg.out_dir
-    if write_outputs and diag_dir:
+    if write_outputs and diag_dir and rank0:
         try:
             from upsp_tpu_torch.pipeline.diagnostics import write_phase0_diagnostics
 
             write_phase0_diagnostics(state, diag_dir)
         except ImportError:
             log.warning("opencv unavailable; skipped diagnostic images")
-    t0 = mark("phase0", t0)
+    clock.point("phase0")
     if checkout:
         _close(readers)
         return DatapointOutputs(state, None, None, None, None, None, n_frames)
@@ -345,34 +440,59 @@ def run_datapoint(
         if (os.path.exists(ipath)
                 and os.path.getsize(ipath) == n_frames * n_nodes * 4):
             log.info("resume: reusing existing intensity file, skipping phase 1")
-            intensity = read_flat(ipath).reshape(n_frames, n_nodes)
             _close(readers)
-            t0 = mark("phase1", t0)
-            return _finish_from_intensity(cfg, state, intensity, camset=camset,
-                                          mark=mark, t0=t0,
-                                          write_outputs=write_outputs)
+            if mesh is None:
+                intensity = read_flat(ipath).reshape(n_frames, n_nodes)
+                clock.point("phase1")
+                return _finish_from_intensity(cfg, state, intensity, camset=camset,
+                                              clock=clock,
+                                              write_outputs=write_outputs)
+            intensity = (read_flat(ipath).reshape(n_frames, n_nodes)
+                         if rank0 else None)
+            it_local = _node_block_from_file(mesh, ipath, n_frames, n_nodes)
+            clock.point("phase1")
+            return _finish_sharded(cfg, state, it_local, intensity, camset,
+                                   clock, write_outputs, mesh)
         log.info("resume requested but no consistent intensity file; running")
 
     fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
                               compute_dtype=compute_dtype, warm_start=warm_start,
                               **packed_kw)
-    mark("phase1_setup", t0)  # part of phase 1: parameters, templates
-    intensity = np.empty((n_frames, n_nodes), np.float32)
-    reg_telemetry = None
-    for start, chunk in _chunk_iter(frames_array, readers, n_frames, start0,
-                                    frames_per_chunk, use_packed, device):
-        out, tele = fn(np.ascontiguousarray(chunk)
-                       if isinstance(chunk, np.ndarray) else chunk)
-        valid = out.shape[0]
-        tele_np = tele.cpu().numpy()
-        if reg_telemetry is None:
-            reg_telemetry = np.empty((n_frames,) + tele_np.shape[1:], np.float32)
-        reg_telemetry[start : start + valid] = tele_np
-        intensity[start : start + valid] = out.cpu().numpy()
-        if start % (frames_per_chunk * 8) == 0:
-            log.info("phase1: processed frame %d / %d", start, n_frames)
+    clock.split("phase1_setup")  # part of phase 1: parameters, templates
+    intensity = np.empty((n_frames, n_nodes), np.float32) if rank0 else None
+    reg_telemetry = it_local = None
+    if mesh is not None:
+        log.info("phase1: frame axis over %d ranks, this rank's block of "
+                 "each chunk on %s", mesh.world, device)
+        n_pad = M.padded(n_nodes, mesh.world)
+        it_local = torch.zeros((n_pad // mesh.world, n_frames), device=device)
+        egress = 0
+    for c, chunk in _chunk_iter(frames_array, readers, n_frames, start0,
+                                frames_per_chunk, use_packed, device, mesh):
+        out, tele = _run_block(fn, chunk, n_nodes, state.n_cameras, device)
+        if mesh is None:
+            rows, tele_np = out.cpu().numpy(), tele.cpu().numpy()
+        else:
+            _exchange_chunk(mesh, out, c, n_pad, it_local)
+            egress += 4 * c.local_rows * n_pad * (mesh.world - 1) // mesh.world
+            rows, tele_np = _gather_chunk(mesh, out, c), _gather_chunk(mesh, tele, c)
+        if rank0:
+            if reg_telemetry is None:
+                reg_telemetry = np.empty((n_frames,) + tele_np.shape[1:],
+                                         np.float32)
+            reg_telemetry[c.start : c.start + c.valid] = tele_np
+            intensity[c.start : c.start + c.valid] = rows
+        if c.start % (frames_per_chunk * 8) == 0:
+            log.info("phase1: processed frame %d / %d", c.start, n_frames)
+    if mesh is not None:
+        # each rank holds (F/D, N) of each chunk and keeps its (F/D, N/D)
+        # diagonal; the rest leaves it (upsp_tpu/pipeline/phase2.py:236-244)
+        log.info("phase1: frames->nodes exchange over %d ranks (%s): %.2f MB "
+                 "egress from rank %d", mesh.world, mesh.backend, egress / 1e6,
+                 mesh.rank)
     if readers:
-        log.info("phase1: decoded %d frames across %d cameras",
+        log.info("phase1: rank %d decoded %d frames across %d cameras",
+                 0 if mesh is None else mesh.rank,
                  sum(r.frames_decoded for r in readers), len(readers))
     _close(readers)
 
@@ -385,15 +505,18 @@ def run_datapoint(
             rho.min(), rho.mean(), conv_semantics, conv.mean(), conv.max(),
             np.abs(reg_telemetry[..., 2:4]).max(),
         )
-        if write_outputs and cfg.out_dir:
+        if write_outputs and cfg.out_dir and rank0:
             from upsp_tpu_torch.pipeline.diagnostics import write_registration_meta
 
             os.makedirs(cfg.out_dir, exist_ok=True)
             FlatFileSet(cfg.out_dir).write("registration", reg_telemetry)
             write_registration_meta(cfg.out_dir, conv_semantics)
-    t0 = mark("phase1", t0)
+    clock.point("phase1")
+    if mesh is not None:
+        return _finish_sharded(cfg, state, it_local, intensity, camset, clock,
+                               write_outputs, mesh)
     return _finish_from_intensity(cfg, state, intensity, camset=camset,
-                                  mark=mark, t0=t0, write_outputs=write_outputs)
+                                  clock=clock, write_outputs=write_outputs)
 
 
 def run_datapoint_streaming(
@@ -407,6 +530,7 @@ def run_datapoint_streaming(
     compute_dtype: str = "float32",
     stage_times: Optional[dict] = None,
     warm_start="fft",
+    mesh=None,
 ) -> DatapointOutputs:
     """Out-of-core datapoint processing on ``device``, for datapoints
     larger than host or device memory.
@@ -431,6 +555,9 @@ def run_datapoint_streaming(
     :func:`run_datapoint`, with ``disk_transpose`` between phase 1 and
     phase 2.  Returns no (F, N) array: ``intensity`` and the phase-2
     ``pressure_transpose`` are None.
+
+    ``mesh``: as in :func:`run_datapoint`; on two or more ranks the run
+    goes on in :func:`_streaming_multiprocess`.
     """
     from upsp_tpu_torch import native
 
@@ -444,65 +571,59 @@ def run_datapoint_streaming(
             "run_datapoint for an intensity-only run"
         )
     device = resolve_device(device)
-    mark = _stage_marker(device, stage_times)
-    t0 = time.perf_counter()
+    mesh = _resolve_mesh(mesh, device)
+    if mesh is not None:
+        device = mesh.device
+    clock = _stage_clock(device, stage_times, mesh)
     frames_array, readers, n_frames, start0, first_frames, bit_depths = (
         _open_inputs(cfg, frames_array))
     try:
         state = run_phase0(cfg, first_frames, bit_depths, device=device)
         camset = _camera_settings(readers, cfg, state)
-        t0 = mark("phase0", t0)
+        clock.point("phase0")
         n_nodes = state.n_nodes
         use_packed, packed_kw = packed_ingest_config(readers, frames_array,
                                                      device_unpack)
         fn = make_chunk_processor(state, packed=use_packed,
                                   compute_dtype=compute_dtype,
                                   warm_start=warm_start, **packed_kw)
-        mark("phase1_setup", t0)
+        clock.split("phase1_setup")
         ffs = FlatFileSet(cfg.out_dir)
+        chunks = _chunk_iter(frames_array, readers, n_frames, start0,
+                             frames_per_chunk, use_packed, device, mesh)
+        if mesh is not None:
+            return _streaming_multiprocess(cfg, state, camset, chunks, fn,
+                                           n_frames, node_block, write_hdf5,
+                                           ffs, mesh, clock)
         sum_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
         sumsq_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
         ratio0_src = None
         host = _HostBuffer()
         with native.AsyncWriter(ffs.path("intensity")) as writer:
-            for start, chunk in _chunk_iter(frames_array, readers, n_frames,
-                                            start0, frames_per_chunk,
-                                            use_packed, device):
-                out = fn(np.ascontiguousarray(chunk)
-                         if isinstance(chunk, np.ndarray) else chunk)
-                writer.submit(start * n_nodes * 4, host.fetch(out))
+            for c, chunk in chunks:
+                out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
+                                 with_telemetry=False)
+                writer.submit(c.start * n_nodes * 4, host.fetch(out))
                 sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
                 sumsq_i += out.double().square_().sum(dim=0)
-                if start == 0:
+                if c.start == 0:
                     ratio0_src = out[0].clone()
-                if start % (frames_per_chunk * 8) == 0:
-                    log.info("phase1: processed frame %d / %d", start, n_frames)
+                if c.start % (frames_per_chunk * 8) == 0:
+                    log.info("phase1: processed frame %d / %d", c.start, n_frames)
     finally:
         _close(readers)
     del fn  # phase 1's device state
-    nan_mask = torch.isnan(ratio0_src)
-    nan = torch.tensor(float("nan"), dtype=torch.float64, device=device)
-    sol_avg_t = torch.where(nan_mask, nan, sum_i / n_frames).float()
-    sol_avg = sol_avg_t.cpu().numpy()
-    sol_rms = torch.where(nan_mask, nan, torch.sqrt(sumsq_i / n_frames)).float(
-    ).cpu().numpy()
+    sol_avg_t, sol_avg, sol_rms, ratio0 = _frame_statistics(
+        sum_i, sumsq_i, ratio0_src, n_frames)
     cov_t = proj_coverage(state.projections, *state.image_hw)[state.superseded_by]
     cov = cov_t.cpu().numpy()
-    with np.errstate(invalid="ignore", divide="ignore"):
-        ratio0 = sol_avg / ratio0_src.cpu().numpy() - 1.0
-    t0 = mark("phase1", t0)
+    clock.point("phase1")
 
     native.transpose_f32(ffs.path("intensity"), ffs.path("intensity_transpose"),
                          n_frames, n_nodes)
-    t0 = mark("disk_transpose", t0)
+    clock.point("disk_transpose")
 
-    cond = read_wtd(cfg.sds)
-    cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
-    const = make_phase2_constants(PaintCalibration.read(cfg.paint_cal), cond,
-                                  device)
-    det = make_detrender(n_frames, cfg.degree, device)
-    steady = load_steady_cp(cfg, n_nodes, state.model)
-    mtemp = compute_model_temperature(cfg, cond, n_nodes, state.model)
+    cond, const, det, steady, mtemp = _phase2_inputs(cfg, state, n_frames, device)
     steady_t = torch.as_tensor(steady, device=device)
     mtemp_t = torch.as_tensor(mtemp, device=device)
     steady_out = _steady_for_output(steady)
@@ -535,7 +656,7 @@ def run_datapoint_streaming(
     finally:
         if h5w is not None:
             h5w.close()
-    t0 = mark("phase2", t0)
+    clock.point("phase2")
 
     ffs.write_standard_outputs(
         state.model,
@@ -544,7 +665,156 @@ def run_datapoint_streaming(
         {"avg": avg_all, "rms": rms_all, "gain": gain_all,
          "steady_state": steady_out, "model_temp": mtemp},
     )
-    mark("outputs", t0)
+    clock.point("outputs")
+    return DatapointOutputs(
+        state=state, intensity=None, intensity_avg=sol_avg,
+        intensity_rms=sol_rms, coverage=cov,
+        phase2=Phase2Outputs(pressure_transpose=None, rms=rms_all,
+                             avg=avg_all, gain=gain_all, steady_state=steady,
+                             model_temp=mtemp),
+        n_frames=n_frames,
+    )
+
+
+def _frame_statistics(sum_i, sumsq_i, ratio0_src, n_frames):
+    """(avg on the device, avg, rms, intensity_ratio_0) from the f64 sums
+    and frame 0's row; NaN where frame 0 is NaN."""
+    nan_mask = torch.isnan(ratio0_src)
+    nan = torch.tensor(float("nan"), dtype=torch.float64, device=sum_i.device)
+    sol_avg_t = torch.where(nan_mask, nan, sum_i / n_frames).float()
+    sol_avg = sol_avg_t.cpu().numpy()
+    sol_rms = torch.where(nan_mask, nan, torch.sqrt(sumsq_i / n_frames)).float(
+    ).cpu().numpy()
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ratio0 = sol_avg / ratio0_src.cpu().numpy() - 1.0
+    return sol_avg_t, sol_avg, sol_rms, ratio0
+
+
+def _phase2_inputs(cfg, state, n_frames, device):
+    """(tunnel conditions, constants, detrender, steady Cp, model
+    temperature) of a streaming run's phase 2."""
+    cond = read_wtd(cfg.sds)
+    cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
+    const = make_phase2_constants(PaintCalibration.read(cfg.paint_cal), cond,
+                                  device)
+    det = make_detrender(n_frames, cfg.degree, device)
+    steady = load_steady_cp(cfg, state.n_nodes, state.model)
+    mtemp = compute_model_temperature(cfg, cond, state.n_nodes, state.model)
+    return cond, const, det, steady, mtemp
+
+
+def _ensure_file_size(path: str, nbytes: int) -> None:
+    """Create or resize a file to exactly ``nbytes``: a target that several
+    ranks write at their own offsets."""
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT, 0o644)
+    try:
+        if os.fstat(fd).st_size != nbytes:
+            os.ftruncate(fd, nbytes)
+    finally:
+        os.close(fd)
+
+
+def _streaming_multiprocess(cfg, state, camset, chunks, fn, n_frames,
+                            node_block, write_hdf5, ffs, mesh, clock
+                            ) -> DatapointOutputs:
+    """Out of core over the ranks of ``mesh`` (upsp_tpu/pipeline/run.py:
+    846-1092).  Each rank writes its rows of each chunk into ``intensity``
+    at their offsets and sums its f64 partials; the sums are summed over
+    the ranks and frame 0's row broadcast from rank 0.  Once every rank's
+    rows are on disk, each rank transposes its node columns of
+    ``intensity`` into its rows of ``intensity_transpose`` (whole
+    destination rows, :func:`upsp_tpu_torch.native.transpose_f32_numpy`),
+    so the (F, N) matrix is never whole on any device or host, and the
+    disk is the frames->nodes exchange, as in the reference's
+    disk-intermediate mode.  Phase 2 converts each rank's node slice by
+    blocks of ``node_block`` and writes it at its offsets in
+    ``pressure_transpose``; rank 0 writes the ``.h5`` file from it and the
+    per-node files.  The output directory is shared by the ranks."""
+    from upsp_tpu_torch import native
+
+    device = mesh.device
+    n_nodes = state.n_nodes
+    n_pad = M.padded(n_nodes, mesh.world)
+    n0, n1 = M.node_sharding(mesh, n_nodes)
+    n1 = min(n1, n_nodes)
+    if mesh.rank == 0:
+        for name in ("intensity", "intensity_transpose", "pressure_transpose"):
+            _ensure_file_size(ffs.path(name), n_nodes * n_frames * 4)
+    M.barrier(mesh)  # every file sized before any rank writes
+    sum_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
+    sumsq_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
+    ratio0_src = torch.zeros(n_nodes, dtype=torch.float32, device=device)
+    host = _HostBuffer()
+    with native.AsyncWriter(ffs.path("intensity")) as writer:
+        for c, chunk in chunks:
+            if chunk is None:
+                continue
+            out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
+                             with_telemetry=False)
+            writer.submit(c.local_start * n_nodes * 4, host.fetch(out))
+            sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
+            sumsq_i += out.double().square_().sum(dim=0)
+            if c.local_start == 0:
+                ratio0_src = out[0].clone()
+    clock.point("phase1")  # every rank's rows of intensity are on disk
+    sum_i = M.all_reduce(mesh, sum_i)
+    sumsq_i = M.all_reduce(mesh, sumsq_i)
+    ratio0_src = M.broadcast(mesh, ratio0_src, src=0)
+    sol_avg_t, sol_avg, sol_rms, ratio0 = _frame_statistics(
+        sum_i, sumsq_i, ratio0_src, n_frames)
+    cov_t = proj_coverage(state.projections, *state.image_hw)[state.superseded_by]
+    cov = cov_t.cpu().numpy()
+    tpath = ffs.path("intensity_transpose")
+    if n1 > n0:
+        native.transpose_f32_numpy(ffs.path("intensity"), tpath, n_frames,
+                                   n_nodes, columns=(n0, n1))
+    clock.point("disk_transpose")
+
+    cond, const, det, steady, mtemp = _phase2_inputs(cfg, state, n_frames, device)
+    steady_t = torch.as_tensor(steady, device=device)
+    mtemp_t = torch.as_tensor(mtemp, device=device)
+    lr_n = n_pad // mesh.world
+    local = {k: torch.full((lr_n,), float("nan"), device=device)
+             for k in ("rms", "avg", "gain")}
+    with native.AsyncWriter(ffs.path("pressure_transpose")) as pwriter:
+        for b0 in range(n0, n1, node_block):
+            nw = min(node_block, n1 - b0)
+            block = read_flat(tpath, count=nw * n_frames,
+                              offset_values=b0 * n_frames).reshape(nw, n_frames)
+            nodes = slice(b0, b0 + nw)
+            out2 = phase2_convert(
+                torch.from_numpy(block).to(device), sol_avg_t[nodes],
+                cov_t[nodes], steady_t[nodes], mtemp_t[nodes], const, det,
+            )
+            pwriter.submit(b0 * n_frames * 4, host.fetch(out2.pressure_transpose))
+            for k in local:
+                local[k][b0 - n0 : b0 - n0 + nw] = getattr(out2, k)
+    # rank-major node slices: the gather is the global node order
+    rms_all, avg_all, gain_all = (
+        M.fetch_global(mesh, local[k], "cpu")[:n_nodes].numpy()
+        for k in ("rms", "avg", "gain"))
+    steady_out = _steady_for_output(steady)
+    clock.point("phase2")  # every rank's pressure_transpose is on disk
+
+    if mesh.rank == 0:
+        h5w = _open_hdf5(cfg, state, n_frames, cond, camset) if write_hdf5 else None
+        if h5w is not None:
+            with h5w:
+                for b0 in range(0, n_nodes, node_block):
+                    nw = min(node_block, n_nodes - b0)
+                    h5w.write_frames_block(read_flat(
+                        ffs.path("pressure_transpose"), count=nw * n_frames,
+                        offset_values=b0 * n_frames).reshape(nw, n_frames),
+                        node_start=b0)
+                _write_node_datasets(h5w, rms_all, avg_all, cov, steady_out, mtemp)
+        ffs.write_standard_outputs(
+            state.model,
+            {"intensity_avg": sol_avg, "intensity_rms": sol_rms,
+             "intensity_ratio_0": ratio0, "coverage": cov},
+            {"avg": avg_all, "rms": rms_all, "gain": gain_all,
+             "steady_state": steady_out, "model_temp": mtemp},
+        )
+    clock.point("outputs")
     return DatapointOutputs(
         state=state, intensity=None, intensity_avg=sol_avg,
         intensity_rms=sol_rms, coverage=cov,
@@ -562,8 +832,7 @@ def _steady_for_output(steady: np.ndarray) -> np.ndarray:
 
 
 def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
-                           mark=None, t0=None,
-                           write_outputs=True) -> DatapointOutputs:
+                           clock=None, write_outputs=True) -> DatapointOutputs:
     """Statistics + coverage + phase 2 + outputs, from a (F, N) intensity."""
     n_frames = intensity.shape[0]
     with np.errstate(invalid="ignore"):
@@ -585,24 +854,96 @@ def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
     else:
         cond = read_wtd(cfg.sds)
         cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
+        pcal = PaintCalibration.read(cfg.paint_cal)
         dev = state.device
         phase2 = run_phase2(
             cfg,
             torch.as_tensor(np.ascontiguousarray(intensity.T), device=dev),
             torch.as_tensor(sol_avg, device=dev),
             torch.as_tensor(cov, device=dev),
-            cond, PaintCalibration.read(cfg.paint_cal), model=state.model,
+            cond, pcal, model=state.model,
         )
         phase2 = Phase2Outputs(*(
             None if v is None else v.cpu().numpy() for v in phase2
         ))
-    if mark is not None:
-        t0 = mark("phase2", t0)
+    if clock is not None:
+        clock.point("phase2")
     if write_outputs and cfg.out_dir:
         _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
                        phase2, camset)
-    if mark is not None:
-        mark("outputs", t0)
+    if clock is not None:
+        clock.point("outputs")
+    return DatapointOutputs(
+        state=state, intensity=intensity, intensity_avg=sol_avg,
+        intensity_rms=sol_rms, coverage=cov, phase2=phase2, n_frames=n_frames,
+    )
+
+
+def _node_block_from_file(mesh, path: str, n_frames: int, n_nodes: int
+                          ) -> torch.Tensor:
+    """This rank's (N_pad/D, F) node block of an (F, N) ``intensity``
+    file, on its device; node pads are zero."""
+    n0, n1 = M.node_sharding(mesh, n_nodes)
+    rows = M.padded(n_nodes, mesh.world) // mesh.world
+    it_local = torch.zeros((rows, n_frames), device=mesh.device)
+    if n0 < n_nodes:
+        cols = np.memmap(path, "<f4", mode="r", shape=(n_frames, n_nodes))
+        it_local[: min(n1, n_nodes) - n0] = torch.from_numpy(
+            np.ascontiguousarray(cols[:, n0:n1].T))
+    return it_local
+
+
+def _node_statistics(it_local: torch.Tensor, block: int = 65536):
+    """(avg, rms) over the frames of each row of a node-major block, as f32
+    from f64 sums (psp_process.cpp:1725-1730); NaN where a frame is NaN.
+    ``block`` rows at a time, so the f64 copy stays small."""
+    n_frames = it_local.shape[1]
+    avg = torch.empty(it_local.shape[0], device=it_local.device)
+    rms = torch.empty_like(avg)
+    for b in range(0, it_local.shape[0], block):
+        x = it_local[b : b + block].double()
+        avg[b : b + block] = x.sum(1) / n_frames
+        rms[b : b + block] = torch.sqrt(x.square_().sum(1) / n_frames)
+    return avg, rms
+
+
+def _finish_sharded(cfg, state, it_local: torch.Tensor,
+                    intensity: Optional[np.ndarray], camset, clock,
+                    write_outputs, mesh) -> DatapointOutputs:
+    """Statistics + coverage + phase 2 over the ranks of ``mesh``, from
+    this rank's (N_pad/D, F) node block; ``intensity`` is the (F, N)
+    matrix on rank 0 (None elsewhere), which gathers every node's results
+    and writes the files."""
+    n_nodes, n_frames = state.n_nodes, it_local.shape[1]
+    rank0 = mesh.rank == 0
+    avg_loc, rms_loc = _node_statistics(it_local)
+    cov = proj_coverage(state.projections, *state.image_hw)[
+        state.superseded_by].cpu().numpy()
+    sol_avg, sol_rms = (M.gather(mesh, t, "cpu") for t in (avg_loc, rms_loc))
+    phase2 = None
+    if not (cfg.sds and cfg.paint_cal):
+        log.warning("phase 2 skipped: missing %s — intensity outputs only",
+                    "sds (wtd)" if not cfg.sds else "paint_cal")
+    else:
+        cond = read_wtd(cfg.sds)
+        cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
+        phase2 = run_phase2_sharded(cfg, it_local, avg_loc, cov, cond,
+                                    PaintCalibration.read(cfg.paint_cal), mesh,
+                                    model=state.model)
+    clock.point("phase2")
+    if not rank0:
+        clock.point("outputs")
+        return DatapointOutputs(state, None, None, None, cov, None, n_frames)
+    sol_avg, sol_rms = sol_avg[:n_nodes].numpy(), sol_rms[:n_nodes].numpy()
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ratio0 = sol_avg / intensity[0] - 1.0
+    if phase2 is not None:
+        phase2 = Phase2Outputs(*(None if v is None else v.cpu().numpy()
+                                 for v in phase2))
+    if write_outputs and cfg.out_dir:
+        _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
+                       phase2, camset)
+    clock.point("outputs")
     return DatapointOutputs(
         state=state, intensity=intensity, intensity_avg=sol_avg,
         intensity_rms=sol_rms, coverage=cov, phase2=phase2, n_frames=n_frames,
