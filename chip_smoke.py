@@ -61,10 +61,22 @@ From the root of a checkout, on a machine with a CUDA device:
        starts, the while loop), into an output directory of its own, with
        its frames/s, the histogram of its iteration counts and its
        largest translation difference from (b);
-   last, (k): a one-rank NCCL group in this process, the exchange, the
+   then (k): a one-rank NCCL group in this process, the exchange, the
    gathers, the f64 reduction and the barrier on a 64 x 1,048,576 block
    against torch, the exchange timed (the only NCCL code a one-card
    machine runs);
+   last, (l): external calibration on the card, in this process:
+   scripts/upsp-external-calibration-torch --joint_ba on (b)'s rig (4 x
+   1200x1800 first frames of a faint-texture datapoint, the plate grid of
+   1,048,576 nodes, 24 targets) from camera-tunnel poses perturbed as
+   tests/test_external_calibrate.py perturbs them: every pose recovered
+   (rmat within 5e-3, tvec within 3e-2), reprojection rms < 1 px, device
+   memory allocated and, by an audit of every op, no float tensor made
+   on the CPU but copies and views; its stage seconds; then
+   ``ops.raycast.node_visibility`` of every node from each camera centre
+   on the device walk and on the native walk, timed, their disagreements
+   bounded by the grazing rays the jittered retries recovered, and the
+   device walk at each look interval of L_CHECK_EVERY;
 5. checks each path's outputs (all flat files, the registration sidecar,
    output.h5 where h5py is installed, finite values on visible nodes, the
    kernels the path must launch, and for (d) that no f32 ECC kernel ran)
@@ -204,6 +216,25 @@ RANKS = 2
 RANK_TIMEOUT_S = 300
 # path (k): the NCCL exchange of one rank, on a (frames, nodes) f32 block
 K_SHAPE = (64, 1 << 20)
+# path (l): external calibration of (b)'s rig (4 x 1200x1800, the plate grid
+# of 1,048,576 nodes) from one first frame a camera, faint texture
+# (``write_datapoint(texture_scale=)``: at full contrast the texture moves
+# the dots' fitted centres by ~1 px)
+CAL_SCRIPT = os.path.join(REPO, "scripts", "upsp-external-calibration-torch")
+L_TARGETS = 24
+L_CHECK_EVERY = (1, 4, 16, 64)  # the device walk's look intervals, timed again
+L_SPEC = dict(n_cameras=FULL_C, image_hw=(FULL_H, FULL_W), n_frames=1, n_distinct=1,
+              grid_shape=(1024, 1024), n_targets=L_TARGETS, seed=0,
+              texture_scale=0.1)
+L_RMAT_TOL, L_TVEC_TOL, L_RMS_PX = 5e-3, 3e-2, 1.0  # tests/test_external_calibrate.py
+# ops whose CPU outputs are host data on its way to or from the card (copies,
+# tensors made from numpy, views of them): the calibration may make float
+# tensors of one or more dimensions on the CPU with these and no other op.
+# (0-d tensors on the CPU are Python constants and their zero tangents in
+# torch.func's forward mode; integer ones its shape bookkeeping, e.g.
+# jacfwd's basis offsets.)
+HOST_OPS = ("aten._to_copy", "aten.copy_", "aten.lift_fresh", "aten.lift_fresh_copy",
+            "aten.detach", "aten.alias", "aten.to", "aten.clone")
 DEVICE = "cuda"
 # the redesigned kernels' ``ms`` before their redesign (PERF.md section 6:
 # this script on an NVIDIA H100 80GB HBM3 at 700.00 W; K3/K4 as first
@@ -757,13 +788,14 @@ def kernel_phase_ingest(rows):
 
 
 def run_cli(argv):
+    """Run the script ``argv[0]`` in this process with ``argv``."""
     saved = sys.argv
     sys.argv = argv
     try:
-        runpy.run_path(SCRIPT, run_name="__main__")
+        runpy.run_path(argv[0], run_name="__main__")
     except SystemExit as e:
         if e.code not in (0, None):
-            raise SmokeFailure(f"upsp-process-torch exited with {e.code}")
+            raise SmokeFailure(f"{os.path.basename(argv[0])} exited with {e.code}")
     finally:
         sys.argv = saved
 
@@ -1392,6 +1424,182 @@ def two_rank_path(dp, b_counts, e_dp=None):
     return counts, ranks
 
 
+def op_audit():
+    """A ``TorchDispatchMode`` that counts the ops by the device of the
+    tensors they make; ``host_ops()`` lists the ops outside ``HOST_OPS`` (and
+    not views) that made a float CPU tensor of one or more dimensions, with
+    the call site of the first."""
+    import collections
+    import traceback
+
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Audit(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = collections.Counter()
+            self.sites = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func.overloadpacket)
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor):
+                    view = (func.is_view or name in HOST_OPS or t.dim() == 0
+                            or not t.is_floating_point())
+                    self.counts[(name, t.device.type, view)] += 1
+                    if t.device.type == "cpu" and not view and name not in self.sites:
+                        self.sites[name] = " < ".join(
+                            f"{os.path.basename(f.filename)}:{f.lineno}"
+                            for f in traceback.extract_stack()[-8:-1][::-1])
+            return out
+
+        def on(self, device_type, host_ok=None):
+            return {k[0]: n for k, n in self.counts.items() if k[1] == device_type
+                    and (host_ok is None or k[2] == host_ok)}
+
+        def host_ops(self):
+            return {k: (n, self.sites.get(k)) for k, n in
+                    self.on("cpu", host_ok=False).items()}
+
+    return Audit()
+
+
+def calibration_path():
+    """Path (l): ``scripts/upsp-external-calibration-torch --joint_ba`` on
+    the card, in this process, on (b)'s rig with L_TARGETS targets: each
+    camera's JSON pose perturbed by 0.25 deg about x and (0.02, -0.01, 0.02)
+    is the wind-off start, and the solve must recover the JSON's pose
+    (rmat within L_RMAT_TOL, tvec within L_TVEC_TOL) with a reprojection rms
+    below L_RMS_PX.  Every op is audited: device memory is allocated and no
+    op but copies, tensors made from host data and views makes a float CPU
+    tensor (of one or more dimensions).
+    Then the device walk against the native walk: ``node_visibility`` of
+    every grid node from each camera centre, timed.  Returns (the launch
+    counts of the run, its summary)."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.geometry.grids import load_model
+    from upsp_tpu_torch.io.camera_json import read_camera_json
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.ops import raycast as R
+    from upsp_tpu_torch.pipeline.phase0 import native_library
+    from upsp_tpu_torch.pipeline.synthetic import (
+        target_positions, write_calibration_inputs, write_datapoint)
+
+    n_nodes = L_SPEC["grid_shape"][0] * L_SPEC["grid_shape"][1]
+    h, w = L_SPEC["image_hw"]
+    print(f"  -- path l: external calibration, {L_SPEC['n_cameras']} x {h}x{w}, "
+          f"{n_nodes:,} nodes, {L_TARGETS} targets, --joint_ba", flush=True)
+    root = os.path.join(WORK, "l")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    n_tgts = len(target_positions(L_TARGETS, L_SPEC["seed"]))
+    check(n_tgts == L_TARGETS, f"the plate holds {n_tgts} targets at "
+          f"target_positions' spacing ({L_TARGETS} asked)")
+    dp = write_datapoint(root, **L_SPEC)
+    ci = write_calibration_inputs(root, dp["frames"])
+    print(f"  datapoint and calibration inputs written in "
+          f"{time.perf_counter() - t0:.2f} s (max_dist {ci['max_dist']} px)", flush=True)
+    out, timings = os.path.join(root, "out"), os.path.join(root, "timings.json")
+    argv = [CAL_SCRIPT, "--tgts", f"{root}/plate.tgts", "--grd", f"{root}/plate.grid",
+            "--wtd", f"{root}/t.wtd", "--cfg", ci["cfg"], "--cal_dir", ci["cal_dir"],
+            "--img", *ci["imgs"], "--out_dir", out, "--joint_ba", "--device", DEVICE,
+            "--timings", timings]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    audit = op_audit()
+    t0 = time.perf_counter()
+    with audit:
+        run_cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(peak > 0, f"the calibration allocated device memory (peak "
+          f"{peak / 2**20:.1f} MiB)")
+    on_card = sum(audit.on("cuda").values())
+    host = audit.host_ops()
+    check(on_card > 0 and not host, f"{on_card:,} op outputs on the card; no float "
+          f"tensor on the CPU but copies, host data and views ({host or 'none'}; "
+          f"those {sum(audit.on('cpu', host_ok=True).values()):,})")
+    with open(timings) as fh:
+        t = json.load(fh)
+    check(t["device"].startswith(DEVICE) and t["ba_device"].startswith(DEVICE),
+          f"the solve and the BA problem on {t['device']} / {t['ba_device']} "
+          f"({t['walk']} occlusion walk)")
+    errs = []
+    for c, cam in enumerate(ci["cams"]):
+        want = read_camera_json(cam, (h, w))
+        got = read_camera_json(os.path.join(out, f"cam{c + 1:02d}-to-model.json"), (h, w))
+        errs.append((float(np.abs(got.rmat - want.rmat).max()),
+                     float(np.abs(got.tvec - want.tvec).max())))
+    check(all(r < L_RMAT_TOL and v < L_TVEC_TOL for r, v in errs),
+          "every camera's pose recovered: max |rmat - true| " + ", ".join(
+              f"{r:.2e}" for r, _ in errs) + f" < {L_RMAT_TOL}; max |tvec - true| "
+          + ", ".join(f"{v:.2e}" for _, v in errs) + f" < {L_TVEC_TOL}")
+    check(max(t["rms"]) < L_RMS_PX and t["ba_rms"] < L_RMS_PX,
+          "reprojection rms " + ", ".join(f"{r:.4f}" for r in t["rms"])
+          + f" px, joint BA {t['ba_rms']:.4f} px over {t['ba_observations']} "
+          f"observations, all < {L_RMS_PX} (inliers {t['inliers']})")
+    st = t["stages"]
+    print(f"  path l {wall:.2f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
+          + f"; peak device memory {peak / 2**20:.1f} MiB", flush=True)
+
+    # the device walk against the native walk, every node from each centre
+    model = load_model(f"{root}/plate.grid")
+    flat = native_library().build_bvh(model.vertices, model.triangles)
+    bvh = R.bvh_to_device(flat, device=DEVICE)
+    tris = torch.from_numpy(model.triangles.astype(np.int64)).to(DEVICE)
+    verts = torch.from_numpy(model.vertices).to(DEVICE)
+    nodes = torch.arange(verts.shape[0], device=DEVICE)
+    walk = {"device_s": [], "native_s": [], "differ": [], "grazing": [],
+            "primary_differ": []}
+    for c, cam in enumerate(ci["cams"]):
+        true = read_camera_json(cam, (h, w))
+        centre = torch.from_numpy(-(true.rmat.T @ true.tvec)).float().to(DEVICE)
+        res = {}
+        for name, fn in (("device", None), ("native", R.native_intersector(flat))):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vis, _ = R.node_visibility(bvh, tris, verts, nodes, centre, stats=stats,
+                                       intersect=fn)
+            torch.cuda.synchronize()
+            walk[f"{name}_s"].append(time.perf_counter() - t0)
+            res[name] = (vis, stats["primary"], stats["rays"])
+        (dv, dp_, dr), (nv, np_, nr) = res["device"], res["native"]
+        differ = dv != nv
+        recovered = min(int((dv & ~dp_).sum()), int((nv & ~np_).sum()))
+        n_diff = int(differ.sum())
+        walk["differ"].append(n_diff)
+        walk["grazing"].append(recovered)
+        walk["primary_differ"].append(int((dp_ != np_).sum()))
+        if c == 0:  # the device walk's look interval, on camera 1's rays
+            for k in L_CHECK_EVERY:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                vk, _ = R.node_visibility(bvh, tris, verts, nodes, centre, check_every=k)
+                torch.cuda.synchronize()
+                walk[f"check_every_{k}_s"] = time.perf_counter() - t0
+                check(torch.equal(vk, dv), f"device walk with a look every {k} steps: "
+                      f"the same visibility, {walk[f'check_every_{k}_s']:.3f} s")
+        check(not bool((differ & dp_ & np_).any()) and n_diff <= recovered,
+              f"camera {c + 1}: the walks disagree on {n_diff} of {n_nodes:,} nodes "
+              f"(their unjittered rays on {walk['primary_differ'][-1]:,}), each one "
+              f"whose unjittered ray grazed in a walk, at most the {recovered} the "
+              f"retries recovered (device {int(dv.sum()):,} visible, "
+              f"{dr:,} rays, {walk['device_s'][-1]:.3f} s; native "
+              f"{int(nv.sum()):,}, {nr:,} rays, {walk['native_s'][-1]:.3f} s)")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, dict(wall=wall, stages=st, peak=peak, rms=t["rms"],
+                        ba_rms=t["ba_rms"], errs=errs, walk=walk)
+
+
 def nccl_path():
     """Path (k): a one-rank NCCL group in this process (the only NCCL code
     a one-card machine can run): ``global_transpose``, ``fetch_global``,
@@ -1575,6 +1783,11 @@ def main() -> int:
         t0 = time.perf_counter()
         k_ms = nccl_path()
         phase_s["path k"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["l"], l_res = calibration_path()
+        phase_s["path l"] = time.perf_counter() - t0
+        check(not any(by_path["l"].values()), "path l launched no K1-K9 kernel "
+              "(calibration reaches no TPU kernel)")
         for r in rows:
             if r["name"] in KERNEL_PHASE_ONLY:
                 r.update(launches_by_path={}, launches=0, kernel_phase_only=True)
@@ -1591,6 +1804,18 @@ def main() -> int:
         shutil.rmtree(WORK, ignore_errors=True)
     print(f"path (k): NCCL global_transpose of one rank, {K_SHAPE[0]} x {K_SHAPE[1]} "
           f"f32: {k_ms:.4f} ms", flush=True)
+    lw = l_res["walk"]
+    print(f"path (l): external calibration {l_res['wall']:.2f} s; stages "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in l_res["stages"].items())
+          + f"; rms {max(l_res['rms']):.4f} px (BA {l_res['ba_rms']:.4f}); "
+          f"node_visibility of {L_SPEC['grid_shape'][0] * L_SPEC['grid_shape'][1]:,} "
+          f"nodes a camera: device walk " + ", ".join(f"{x:.3f}" for x in lw["device_s"])
+          + " s, native walk " + ", ".join(f"{x:.3f}" for x in lw["native_s"])
+          + f" s; disagreements {lw['differ']} (unjittered rays "
+          f"{lw['primary_differ']}; bound: retried nodes recovered "
+          f"{lw['grazing']}); camera 1's device walk with a look every k steps: "
+          + ", ".join(f"k={k} {lw[f'check_every_{k}_s']:.3f} s" for k in L_CHECK_EVERY),
+          flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check; "
           f"by phase: " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items()),
           flush=True)

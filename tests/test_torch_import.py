@@ -1,7 +1,7 @@
 """The port imports torch and never jax, nor anything of the JAX package,
 and its CLI drives a datapoint.
 
-By source: no file of the port, nor its CLI, nor ``chip_smoke.py`` names an
+By source: no file of the port, nor its CLIs, nor ``chip_smoke.py`` names an
 import root ``jax``, ``jaxlib`` or ``upsp_tpu``.  At run time: each case
 runs in a fresh interpreter (this pytest process has both loaded already)
 and finds no ``jax`` and no ``upsp_tpu`` module in ``sys.modules`` after a
@@ -22,7 +22,8 @@ PORT_SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "upsp_tpu_torch", "**", "*.py"),
                        recursive=True)
-) + ["scripts/upsp-process-torch", "chip_smoke.py"]
+) + ["scripts/upsp-process-torch", "scripts/upsp-external-calibration-torch",
+     "chip_smoke.py"]
 
 # no module of jax nor of the JAX package may be loaded
 _NO_JAX = r"""
@@ -96,6 +97,24 @@ def _run(args, timeout=240):
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run(args, capture_output=True, text=True, env=env,
                           cwd=REPO, timeout=timeout)
+
+
+# external calibration's modules (and what they import)
+_CALIBRATION = r"""
+import importlib, sys
+for m in ("camera.external", "camera.ba", "camera.pnp", "camera.visibility",
+          "camera.target_bumping", "camera.internal", "camera.matching",
+          "camera.tunnel", "ops.raycast", "ops.localization", "ops.detection"):
+    importlib.import_module("upsp_tpu_torch." + m)
+""" + _NO_JAX + """
+print("OK")
+"""
+
+
+def test_calibration_modules_load_no_jax():
+    r = _run([sys.executable, "-c", _CALIBRATION])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
 
 
 def test_slice_runs_without_jax():

@@ -223,6 +223,19 @@ def test_frame_programs_and_statistics(linear):
     np.testing.assert_allclose(rms, j_rms, rtol=1e-6)
 
 
+@pytest.mark.parametrize("kw,reason", [
+    (dict(ecc_band=3), r"not ported, by design: it is MXU and banded-warp machinery"
+                       r".*ROADMAP.md queue 1, item 2"),
+    (dict(vmap_cameras=True), r"dense 'jnp' Gauss-Newton step without the pre-shift "
+                              r"\(upsp_tpu/pipeline/phase1.py:751-758\).*ROADMAP.md "
+                              r"queue 1, item 2"),
+])
+def test_refusal_reasons(linear, kw, reason):
+    """Each refusal names its real reason and its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match=reason):
+        P1.make_chunk_processor(linear[2], **kw)
+
+
 def test_unported_options_raise(linear):
     _, _, ts = linear
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,7 +2,9 @@
 
 ``upsp_tpu_torch`` imports nothing of ``upsp_tpu``, so the modules it needs
 that need no jax (``io``, ``geometry``, ``native``, ``pipeline.config``,
-``pipeline.interpolate``, ``processing.context``) are copied into it.  Each
+``pipeline.interpolate``, ``processing.context``, ``camera.tunnel``,
+``camera.matching``, ``camera.internal``, ``ops.detection`` and
+``ops.image.scale_image{,_max_inlier}``) are copied into it.  Each
 case feeds one seeded input to a copy and to its original and requires the
 same result: equal arrays (NaN at the same places), equal fields, equal
 bytes on disk.
@@ -326,10 +328,134 @@ def _hdf5(dp, tmp):
     assert_same(out["t"], out["j"])
 
 
+def _tunnel(_dp, _tmp):
+    from upsp_tpu.camera import tunnel as j_tunnel
+    from upsp_tpu_torch.camera import tunnel as t_tunnel
+
+    rng = np.random.default_rng(12)
+    wtd = {"ALPHA": 3.5, "BETA": -1.25, "PHI": 12.0, "STRUTZ": 0.75}
+    cfg = {"tunnel-cor_to_tgts_tvec": rng.normal(0, 1, (3, 1))}
+    rmat = j_tunnel.rot(7.0, "x") @ j_tunnel.rot(-3.0, "z")
+    tvec = rng.normal(0, 5, (3, 1))
+    assert_same(t_tunnel.tf_camera_tgts_thru_tunnel(rmat, tvec, wtd, cfg),
+                j_tunnel.tf_camera_tgts_thru_tunnel(rmat, tvec, wtd, cfg))
+    assert_same(t_tunnel.tunnel_transform(1.0, 2.0, 3.0, 4.0, [1.0, 2.0, 3.0]),
+                j_tunnel.tunnel_transform(1.0, 2.0, 3.0, 4.0, [1.0, 2.0, 3.0]))
+
+
+def _matching(_dp, _tmp):
+    from upsp_tpu.camera import matching as j_matching
+    from upsp_tpu_torch.camera import matching as t_matching
+
+    rng = np.random.default_rng(13)
+    xyz = rng.uniform(0, 10, (30, 3))
+    xyz[7] = xyz[6] + 0.05  # a crowded pair
+
+    def project(p):
+        return np.asarray(p)[:, :2] * 20.0
+
+    kinds = ("dot", "kulite")
+    tgts = [{"tvec": x.reshape(3, 1), "target_type": kinds[k % 2]}
+            for k, x in enumerate(xyz)]
+    imgs = [{"center": project(x[None])[0] + rng.normal(0, 1.5, 2),
+             "target_type": kinds[k % 2]} for k, x in enumerate(xyz[:25])]
+    cfg = {"max_dist": 4.0, "min_dist": 6.0}
+    def run(mod):
+        return (mod.project_targets(project, tgts),
+                mod.match_obj_and_img_pts(project, tgts, imgs, 4.0),
+                mod.match_targets(project, tgts, imgs, 4.0),
+                mod.filter_dist_filter(project, tgts, imgs[:20], 20, 3.0, 5.0),
+                mod.filter_matches(project, tgts[:25], imgs, 25, cfg))
+
+    got = run(t_matching)
+    assert 0 < got[3][2] < 20  # the filters keep some pairs and drop some
+    assert_same(got, run(j_matching))
+
+
+def _internal(_dp, tmp):
+    from upsp_tpu.camera import internal as j_internal
+    from upsp_tpu_torch.camera import internal as t_internal
+
+    rng = np.random.default_rng(14)
+    par = {k: {"val": float(v)} for k, v in
+           dict(f=1500.0, cx=640.5, cy=400.25, k1=-0.1, k2=0.02, p1=1e-3, p2=-2e-3,
+                k3=0.004).items()}
+    board = rng.uniform([100, 80], [1100, 700], (200, 2))
+    calibio = {"calibration": {"cameras": [{"model": {"ptr_wrapper": {"data": {
+        "CameraModelCRT": {"CameraModelBase": {"imageSize": {"height": 800,
+                                                             "width": 1280}}},
+        "parameters": par}}}}]},
+        "detections": [{"featurePoints": {"data": [
+            {"imagePoint": {"x": float(x), "y": float(y)}} for x, y in board]}}]}
+    path = str(tmp / "calibio.json")
+    with open(path, "w") as fh:
+        json.dump(calibio, fh)
+    assert_same(t_internal.incal_from_calibio(path), j_internal.incal_from_calibio(path))
+    assert_same(t_internal.calibio_board_points(path),
+                j_internal.calibio_board_points(path))
+    for mod, d in ((t_internal, "t"), (j_internal, "j")):
+        (tmp / d).mkdir()
+        mod.write_incal_from_calibio(path, "cam01", [10.0, 6.4], str(tmp / d))
+    assert (tmp / "t" / "cam01.json").read_bytes() == (tmp / "j" / "cam01.json").read_bytes()
+    q = rng.uniform([-50, -50], [1330, 850], (500, 2))
+    for alpha in (0.01, 0.005):
+        tb = t_internal.incal_calibration_bounds(board, alpha)
+        jb = j_internal.incal_calibration_bounds(board, alpha)
+        assert_same(tb.keep, jb.keep)
+        assert_same(t_internal.points_inside_incal(tb, q, (800, 1280)),
+                    j_internal.points_inside_incal(jb, q, (800, 1280)))
+    assert_same(t_internal.points_inside_incal(None, q, (800, 1280)),
+                j_internal.points_inside_incal(None, q, (800, 1280)))
+
+
+def _detection(_dp, _tmp):
+    from upsp_tpu.ops import detection as j_detection
+    from upsp_tpu_torch.ops import detection as t_detection
+
+    rng = np.random.default_rng(15)
+    h, w = 120, 160
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.full((h, w), 200.0) + rng.normal(0, 3, (h, w))
+    tgts = []
+    for k, (x, y) in enumerate([(40.3, 30.7), (100.6, 60.2), (130.1, 95.5),
+                                (4.0, 60.0)]):
+        img -= 150 * ((xx - x) ** 2 + (yy - y) ** 2 < 3.5**2)
+        tgts.append({"tvec": np.array([[x / 20], [y / 20], [0.0]]),
+                     "norm": np.array([[0.0], [0.1 * k], [1.0]]), "size": 0.35,
+                     "target_type": "dot"})
+    img = np.clip(img, 0, 255).astype(np.uint8)
+
+    def project(p):
+        return np.asarray(p)[:, :2] * 20.0 + 0.3
+
+    cfg = {"max_dist": 6, "dot_pad": 4, "crosscorr_coeff": 0.6}
+    got = t_detection.detect_targets(img, tgts, project, cfg)
+    assert got[2] == 3  # the dot at the image edge is not detected
+    assert_same(got, j_detection.detect_targets(img, tgts, project, cfg))
+    poly = t_detection.circle_polygon_3d(tgts[1]["tvec"], tgts[1]["norm"], 0.35)
+    assert_same(poly, j_detection.circle_polygon_3d(tgts[1]["tvec"], tgts[1]["norm"], 0.35))
+    assert_same(t_detection.rasterize_template(project(poly)),
+                j_detection.rasterize_template(project(poly)))
+    crop = img[20:45, 28:55]
+    tmpl = t_detection.rasterize_template(project(poly))[0]
+    assert_same(t_detection.ncc_scores(crop, tmpl), j_detection.ncc_scores(crop, tmpl))
+
+
+def _scale_image(_dp, _tmp):
+    from upsp_tpu.ops import image as j_image
+    from upsp_tpu_torch.ops import image as t_image
+
+    img = np.random.default_rng(16).integers(0, 3000, (50, 70)).astype(np.uint16)
+    img[3, 4] = img[10, 11] = 4095  # saturated outliers
+    assert_same(t_image.scale_image(img, 2500.0), j_image.scale_image(img, 2500.0))
+    assert_same(t_image.scale_image_max_inlier(img), j_image.scale_image_max_inlier(img))
+
+
 CASES = {f.__name__[1:]: f for f in (
     _deck, _flat_files, _read_flat, _pack_unpack, _videos, _load_model, _idw,
     _targets_cameras_conditions, _comps, _native_bvh, _python_bvh,
-    _tree_context, _hdf5, _transpose, _async_writer,
+    _tree_context, _hdf5, _transpose, _async_writer, _tunnel, _matching,
+    _internal, _detection, _scale_image,
 )}
 
 

@@ -5,8 +5,10 @@ reference.  The layout mirrors the JAX package, so each module names its
 counterpart:
 
 - :mod:`upsp_tpu_torch.ops`       — per-frame image ops; ``ecc_kernels``
-  binds the hand-written Hopper kernels (``csrc/ecc.cu``) and their twins
-- :mod:`upsp_tpu_torch.camera`    — pinhole + Brown distortion camera model
+  binds the hand-written Hopper kernels (``csrc/ecc.cu``) and their twins;
+  the device BVH walk (``raycast``), target detection and localization
+- :mod:`upsp_tpu_torch.camera`    — pinhole + Brown distortion camera model,
+  visibility, and external calibration (RANSAC PnP, bundle adjustment)
 - :mod:`upsp_tpu_torch.pipeline`  — phase 0/1/2 and the datapoint driver
 - :mod:`upsp_tpu_torch.state`     — the JAX phase-0 state as port tensors
 - :mod:`upsp_tpu_torch.io`, :mod:`upsp_tpu_torch.geometry` — file formats
@@ -14,8 +16,9 @@ counterpart:
 
 The modules of ``upsp_tpu`` that need no jax and that the port uses
 (``io``, ``geometry``, ``native``, ``pipeline.config``,
-``pipeline.interpolate``, ``processing.context``) are copied here at the
-same relative paths.  This package imports ``torch`` and never ``jax``,
+``pipeline.interpolate``, ``processing.context``, ``camera.tunnel``,
+``camera.matching``, ``camera.internal``, ``ops.detection``) are copied
+here at the same relative paths.  This package imports ``torch`` and never ``jax``,
 nor anything of ``upsp_tpu``.
 """
 

@@ -1,11 +1,16 @@
-"""Pinhole + Brown-distortion camera model (host-side torch).
+"""Pinhole + Brown-distortion camera model (torch).
 
-Port of ``upsp_tpu/camera/model.py`` (``CameraParams`` :27,
-``make_camera_params`` :47, ``distort_normalized`` :111, ``project_points``
-:141, ``cam_center`` :191).  Phase 0 runs it on the host: the parameters
-keep the dtype they were made with (float32 in phase 0, as in the JAX
-package), and ``project_points`` computes in the wider of the parameter
-and point dtypes, so float64 points project in float64.
+Port of ``upsp_tpu/camera/model.py``.  Phase 0 runs it on the host: the
+parameters keep the dtype they were made with (float32 in phase 0, as in
+the JAX package), and ``project_points`` computes in the wider of the
+parameter and point dtypes, so float64 points project in float64.
+Calibration (``camera/pnp.py``, ``camera/ba.py``) makes its parameters in
+float64 on its device, as the JAX package does under x64.
+
+Every function works on the device of its tensors, makes no host sync and
+composes with ``torch.func`` (``jacfwd``, ``vmap``): Jacobians come from
+``torch.func.jacfwd`` in cv2's ordering ``[drvec(3), dtvec(3), df(2),
+dc(2), ddist(5)]``, as the JAX package takes them from ``jax.jacfwd``.
 
 Conventions: ``x_cam = R @ X + t``; ``u = fx * x' + cx`` with (x', y') the
 distorted normalised coordinates; camera centre ``-R^T t``.
@@ -52,12 +57,14 @@ def rmat_to_rvec(rmat: np.ndarray) -> np.ndarray:
 
 
 def make_camera_params(rmat, tvec, camera_matrix, dist_coeffs,
-                       dtype=torch.float64) -> CameraParams:
-    """CameraParams from OpenCV-style matrices."""
+                       dtype=torch.float64, device=None) -> CameraParams:
+    """CameraParams from OpenCV-style matrices, on ``device`` (the CPU by
+    default)."""
     cm = np.asarray(camera_matrix)
 
     def t(v):
-        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype)
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                               device=device)
 
     return CameraParams(
         rvec=t(rmat_to_rvec(np.asarray(rmat))),
@@ -67,22 +74,28 @@ def make_camera_params(rmat, tvec, camera_matrix, dist_coeffs,
     )
 
 
+def _skew(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    x, y, z = v.unbind(-1)
+    o = torch.zeros_like(x)
+    return torch.stack([torch.stack([o, -z, y], -1),
+                        torch.stack([z, o, -x], -1),
+                        torch.stack([-y, x, o], -1)], -2)
+
+
 def rodrigues(rvec: torch.Tensor) -> torch.Tensor:
-    """Rotation vector -> rotation matrix (first order near theta = 0)."""
-    theta = torch.linalg.norm(rvec)
-    eye = torch.eye(3, dtype=rvec.dtype)
-    if float(theta) <= 1e-12:
-        k0 = torch.zeros((3, 3), dtype=rvec.dtype)
-        k0[0, 1], k0[0, 2] = -rvec[2], rvec[1]
-        k0[1, 0], k0[1, 2] = rvec[2], -rvec[0]
-        k0[2, 0], k0[2, 1] = -rvec[1], rvec[0]
-        return eye + k0
-    k = rvec / theta
-    K = torch.zeros((3, 3), dtype=rvec.dtype)
-    K[0, 1], K[0, 2] = -k[2], k[1]
-    K[1, 0], K[1, 2] = k[2], -k[0]
-    K[2, 0], K[2, 1] = -k[1], k[0]
-    return eye + torch.sin(theta) * K + (1.0 - torch.cos(theta)) * (K @ K)
+    """Rotation vector(s) (..., 3) -> rotation matrices (..., 3, 3), first
+    order at theta <= 1e-12 (both branches computed, as in the JAX
+    package, so there is no host sync)."""
+    theta = torch.linalg.norm(rvec, dim=-1)
+    big = theta > 1e-12
+    safe = torch.where(big, theta, torch.ones_like(theta))
+    K = _skew(rvec / safe[..., None])
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    s = torch.sin(theta)[..., None, None]
+    c = torch.cos(theta)[..., None, None]
+    R = eye + s * K + (1.0 - c) * (K @ K)
+    return torch.where(big[..., None, None], R, eye + _skew(rvec))
 
 
 def distort_normalized(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
@@ -94,6 +107,23 @@ def distort_normalized(xy: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
     xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
     yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
     return torch.stack([xd, yd], dim=-1)
+
+
+def undistort_normalized(xy_dist: torch.Tensor, dist: torch.Tensor,
+                         iters: int = 8) -> torch.Tensor:
+    """Invert Brown distortion by fixed-point iteration (like
+    cv2.undistortPoints)."""
+    k1, k2, p1, p2, k3 = dist.unbind()
+    xy = xy_dist
+    for _ in range(iters):
+        x, y = xy[..., 0], xy[..., 1]
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        xy = torch.stack([(xy_dist[..., 0] - dx) / radial,
+                          (xy_dist[..., 1] - dy) / radial], dim=-1)
+    return xy
 
 
 def project_points(params: CameraParams, points) -> torch.Tensor:
@@ -109,6 +139,75 @@ def project_points(params: CameraParams, points) -> torch.Tensor:
     return torch.stack([u, v], dim=-1)
 
 
+def _project_flat(flat_params: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Projection parameterised by cv2's Jacobian ordering (15 params)."""
+    return project_points(unflatten_params(flat_params), points)
+
+
+def unflatten_params(flat: torch.Tensor) -> CameraParams:
+    """The inverse of :func:`flatten_params`."""
+    return CameraParams(rvec=flat[0:3], tvec=flat[3:6], fx=flat[6], fy=flat[7],
+                        cx=flat[8], cy=flat[9], dist=flat[10:15])
+
+
+def flatten_params(params: CameraParams) -> torch.Tensor:
+    return torch.cat([params.rvec, params.tvec,
+                      torch.stack([params.fx, params.fy, params.cx, params.cy]),
+                      params.dist])
+
+
+def project_points_jac(params: CameraParams, points, full: bool = False):
+    """Projection and its Jacobian in cv2.projectPoints' ordering: (projs
+    (N, 2), jacs (N, 2, 6) or (N, 2, 15) with ``full``)."""
+    points = torch.as_tensor(points)
+    flat = flatten_params(params)
+    projs = _project_flat(flat, points)
+    jac = torch.func.jacfwd(_project_flat)(flat, points)  # (N, 2, 15)
+    return projs, (jac if full else jac[..., :6])
+
+
 def cam_center(params: CameraParams) -> torch.Tensor:
     """Camera centre in the object frame: -R^T t."""
     return -(rodrigues(params.rvec).T @ params.tvec)
+
+
+def pixel_rays(params: CameraParams, pixels) -> torch.Tensor:
+    """Unit rays (object frame) through pixels (..., 2), from the camera
+    centre."""
+    pixels = torch.as_tensor(pixels)
+    xn = (pixels[..., 0] - params.cx) / params.fx
+    yn = (pixels[..., 1] - params.cy) / params.fy
+    xy = undistort_normalized(torch.stack([xn, yn], dim=-1), params.dist)
+    d_cam = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+    d_obj = d_cam @ rodrigues(params.rvec)  # R^T @ d per ray
+    return d_obj / torch.linalg.norm(d_obj, dim=-1, keepdim=True)
+
+
+def reprojection_error(params: CameraParams, points, pixels):
+    """RMS and max reprojection error in pixels."""
+    err = torch.linalg.norm(project_points(params, points) - torch.as_tensor(pixels),
+                            dim=-1)
+    return torch.sqrt(torch.mean(err**2)), torch.max(err)
+
+
+# ---------------------------------------------------------------------------
+# host-side mirrors of photogrammetry.py (numpy)
+
+
+def rot(angle_deg: float, axis: str) -> np.ndarray:
+    """Single-axis rotation matrix, angle in degrees (host-side)."""
+    a = np.deg2rad(angle_deg)
+    c, s = np.cos(a), np.sin(a)
+    if axis == "x":
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    if axis == "y":
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    if axis == "z":
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    raise ValueError("axis must be x, y or z")
+
+
+def inv_transform(R: np.ndarray, t: np.ndarray):
+    """Inverse of a rigid transform: (R^T, -R^T t)."""
+    Rt = np.asarray(R).T
+    return Rt, -(Rt @ np.asarray(t).reshape(3, 1))

@@ -4,7 +4,8 @@ Port of ``upsp_tpu/ops/image.py``.  The per-frame functions take batched
 (..., H, W) tensors on any device and are plain PyTorch; ``fix_hot_pixels``
 is also the plain twin of the hot-pixel kernel K6
 (``ops/ecc_kernels.fix_hot_pixels_kernel``), which the frame program uses.
-The histogram-threshold helpers are host numpy, as in the JAX package.
+The histogram-threshold helpers and ``scale_image{,_max_inlier}`` are host
+numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -201,3 +202,24 @@ def patch_threshold_from_frame(img: np.ndarray, bit_depth: int = 12) -> int:
     """histc -> first-min valley -> +5 offset (psp_process.cpp:2157-2158)."""
     edges, counts = intensity_histc(img, depth=bit_depth, bins=256)
     return int(edges[first_min_threshold(counts, 5)] + 5)
+
+
+def scale_image(img: np.ndarray, scale: float) -> np.ndarray:
+    """Clip to `scale`, normalize to [0,1], round to uint8 [0,255]
+    (numpy, as ``upsp_tpu/ops/image.py:243``)."""
+    img_temp = np.minimum(np.asarray(img), scale).astype(np.float64) / scale
+    return np.rint(img_temp * 255).astype(np.uint8)
+
+
+def scale_image_max_inlier(img: np.ndarray) -> np.ndarray:
+    """Normalize so the max *inlier* intensity maps to 255 (uint8).
+
+    Max inlier = largest sorted intensity[i] with
+    ``0.9 * intensity[i] <= intensity[round(i * 0.999)]`` — robust to a few
+    saturated pixels (numpy, as ``upsp_tpu/ops/image.py:249``).
+    """
+    img_flat = np.sort(np.asarray(img).ravel())
+    i = len(img_flat) - 1
+    while i > 0 and 0.9 * img_flat[i] > img_flat[min(int(np.rint(i * 0.999)), i - 1)]:
+        i -= 1
+    return scale_image(img, scale=float(img_flat[i]))

@@ -373,12 +373,15 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     """
     if ecc_band is not None:
         raise NotImplementedError(
-            "ecc_band (the banded XLA warp oracle) is not ported: the port's "
-            "K2 has no band limit (ROADMAP.md queue 1, item 4)")
+            "ecc_band (the banded XLA warp oracle) is not ported, by design: it "
+            "is MXU and banded-warp machinery, and the port's K2 has no band "
+            "limit (ROADMAP.md queue 1, item 2)")
     if vmap_cameras:
         raise NotImplementedError(
-            "vmap_cameras is not ported yet: it needs K1 and K3 to take one "
-            "template per image (ROADMAP.md queue 1, item 4)")
+            "vmap_cameras is not ported yet: the JAX package runs it on the "
+            "dense 'jnp' Gauss-Newton step without the pre-shift "
+            "(upsp_tpu/pipeline/phase1.py:751-758), which the port's plain "
+            "dense step can carry (ROADMAP.md queue 1, item 2)")
     cfg = state.config
     cdtype = _as_compute_dtype(compute_dtype)
     route = ecc_route(ecc_impl)

@@ -191,6 +191,7 @@ def write_datapoint(
     shifts: Optional[np.ndarray] = None,
     video_format: str = "mraw12",
     hot_pixels: bool = False,
+    texture_scale: float = 1.0,
 ) -> dict:
     """Write a datapoint under ``root``; returns {"deck", "shifts", "frames"
     (the (F, C, H, W) uint16 stack as the videos decode), "out_dir"}.
@@ -199,7 +200,11 @@ def write_datapoint(
     "cine10" (10-bit packed ``.cine``: each frame is quantised to the
     10-bit code whose cine 10->12-bit LUT value is nearest, so ``frames``
     holds the LUT values).  ``hot_pixels`` saturates pixels of frames 1-3
-    (:func:`_add_hot_pixels`).
+    (:func:`_add_hot_pixels`).  ``texture_scale`` scales the texture's
+    contrast (the same seed draws the same texture): calibration frames
+    take a faint one, since at full contrast the texture under a dot moves
+    the super-Gaussian fit of its centre by about 1 px (0.9-2.7 px rms at
+    pads 4-8, measured on the CPU).
 
     ``shifts`` (n_distinct, 2) gives the per-frame (dx, dy) jitter
     explicitly; by default it is uniform in +-``max_shift_px`` with frame 0
@@ -252,7 +257,7 @@ def write_datapoint(
         # overhead pinhole: u = W/2 + fx (x - cx)/Z, v = H/2 - fx (y - cy)/Z
         dots_px = [(w / 2 + fx * (x - cx) / CAM_Z, h / 2 - fx * (y - CAM_Y) / CAM_Z)
                    for x, y in targets]
-        spec = scene_spectrum(rng, image_hw)
+        spec = texture_scale * scene_spectrum(rng, image_hw)
         spec_dots = np.fft.rfft2(_dots(image_hw, dots_px, 0.5 * diam * fx / CAM_Z))
         distinct = np.empty((n_distinct, h, w), np.uint16)
         for f, (dx, dy) in enumerate(shifts):
@@ -309,3 +314,69 @@ def write_datapoint(
     with open(deck, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     return {"deck": deck, "shifts": shifts, "frames": stack, "out_dir": out_dir}
+
+
+# the wind-off poses of a calibration case: the true pose turned about x
+# (deg), then moved, as tests/test_external_calibrate.py:65-67 perturbs it
+CAL_ROT_DEG = 0.25
+CAL_SHIFT = (0.02, -0.01, 0.02)
+CAL_DOT_PAD = 5  # px, the test config's dot_pad (dots are ~7 px across)
+
+
+def write_calibration_inputs(root: str, frames: np.ndarray) -> dict:
+    """The inputs of ``upsp-external-calibration`` for a datapoint that
+    :func:`write_datapoint` wrote under ``root``: each camera's first frame
+    of ``frames`` (its (F, C, H, W) stack) as a 16-bit PNG, a test config
+    and a camera-tunnel directory.
+
+    The camera-tunnel poses are the camera JSONs' poses turned by
+    ``CAL_ROT_DEG`` about x, then moved by ``CAL_SHIFT``; the datapoint's wtd has zero
+    angles and STRUTZ and the config a zero centre of rotation, so the
+    wind-on starting pose is that perturbed pose, and a calibration should
+    recover the camera JSONs'.  ``max_dist`` (px) covers 1.5x the largest
+    shift of a target's projection that the perturbation makes, plus 4.
+    Returns {"cfg", "cal_dir", "imgs", "cams": the true camera JSON paths,
+    "max_dist"}.
+    """
+    import cv2
+    import torch
+
+    from upsp_tpu_torch.camera.model import make_camera_params, project_points, rot
+    from upsp_tpu_torch.io.camera_json import read_camera_json
+    from upsp_tpu_torch.io.tgts import read_tgts
+
+    n_cameras, h, w = frames.shape[1:]
+    xyz = torch.from_numpy(np.stack([t.xyz for t in read_tgts(
+        os.path.join(root, "plate.tgts"))]).astype(np.float64))
+    shift = 0.0
+    for c in range(n_cameras):
+        cal = read_camera_json(os.path.join(root, f"cam{c + 1:02d}.json"), (h, w))
+        uv = [project_points(make_camera_params(r, t, cal.camera_matrix,
+                                                cal.dist_coeffs), xyz)
+              for r, t in ((cal.rmat, cal.tvec), (rot(CAL_ROT_DEG, "x") @ cal.rmat,
+                                                  cal.tvec + np.asarray(CAL_SHIFT)))]
+        shift = max(shift, float(torch.linalg.norm(uv[1] - uv[0], dim=1).max()))
+    max_dist = int(np.ceil(1.5 * shift)) + 4
+    cfg = {"max_dist": max_dist, "min_dist": max_dist, "dot_pad": CAL_DOT_PAD,
+           "kulite_pad": CAL_DOT_PAD, "oblique_angle": 70.0, "crosscorr_coeff": 0.7,
+           "tunnel-cor_to_tgts_tvec": [0.0, 0.0, 0.0]}
+    cfg_path = os.path.join(root, "test_config.json")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh, indent=1)
+    cal_dir = os.path.join(root, "camera-tunnel")
+    os.makedirs(cal_dir, exist_ok=True)
+    imgs, cams = [], []
+    for c in range(n_cameras):
+        cam_path = os.path.join(root, f"cam{c + 1:02d}.json")
+        with open(cam_path) as fh:
+            cal = json.load(fh)
+        cal["rmat"] = (rot(CAL_ROT_DEG, "x") @ np.asarray(cal["rmat"])).tolist()
+        cal["tvec"] = (np.asarray(cal["tvec"]) + np.asarray(CAL_SHIFT)).tolist()
+        with open(os.path.join(cal_dir, f"camera{c + 1:02d}.json"), "w") as fh:
+            json.dump(cal, fh)
+        img = os.path.join(root, f"cam{c + 1:02d}_first_frame.png")
+        cv2.imwrite(img, frames[0, c])
+        imgs.append(img)
+        cams.append(cam_path)
+    return {"cfg": cfg_path, "cal_dir": cal_dir, "imgs": imgs, "cams": cams,
+            "max_dist": max_dist}
