@@ -39,6 +39,27 @@ From the root of a checkout, on a machine with a CUDA device:
    frames/s that (b)'s first run at 1200x1800 does not bias; every path
    uses polynomial patches, gaussian 3, best view and, but (g) and (h),
    the fft warm start;
+   right after (b), on its files and outputs, in this process:
+   (m) ``run_phase0(walk="device")`` against ``walk="native"``, each
+       timed: visible masks that differ only on grazing rays (as (l)
+       bounds its walks), pixel_index, u and v equal up to the f32
+       projection's rounding, equal patch operators and skip masks; then
+       ``keyframe_mapping`` of all 1,048,576 nodes of each camera on the
+       card against a float64 CPU evaluation on 4,096 of them, and
+       ``remap_error_bound`` at a pose step of 1e-3;
+   (n) one 64-frame chunk on the card through
+       ``make_chunk_processor(vmap_cameras=True)`` against the per-camera
+       loop on the dense step without the pre-shift (rtol 1e-4 / atol
+       1e-2, translations within 1e-3 px), the batched run launching K1,
+       K2, K5, K6 and not K3, K4, K9; the frames/s of both and of the
+       default loop printed;
+   (o) ``scripts/upsp-integrate-forces-torch`` on (b)'s
+       pressure_transpose with 8 x 8 panels over the plate (a PLOT3D grid
+       this script writes): fomo against a float64 numpy product of the
+       same operator, panels.csv with 64 rows;
+   (p) ``surface_psd`` of the same block (nperseg 32, 10 nodes set to
+       NaN) against scipy.signal.welch in float64 on 1,000 nodes, NaN
+       nodes NaN, its seconds and peak device memory;
    between (b) and (d), two out-of-core runs (``run_datapoint_streaming``):
    (e) (b)'s files through ``upsp-process-torch --streaming`` in f32,
        with its disk transpose (numpy, fewer rows than a native block)
@@ -233,6 +254,19 @@ L_RMAT_TOL, L_TVEC_TOL, L_RMS_PX = 5e-3, 3e-2, 1.0  # tests/test_external_calibr
 # (0-d tensors on the CPU are Python constants and their zero tangents in
 # torch.func's forward mode; integer ones its shape bookkeeping, e.g.
 # jacfwd's basis offsets.)
+# path (m): phase 0 on the device walk against the native walk, (b)'s files.
+# The device walk projects in f32 (as the JAX package's device route), the
+# native one in f64: at 1800 px an f32 position is good to a few 1e-4 px
+M_HALF_PX = 2e-3  # a pixel_index may move only this close to a half pixel
+M_UV_PX = 2e-3  # u, v agree within this (px)
+M_SAMPLE = 4096  # nodes of the f64 CPU keyframe evaluation
+M_KEY_TOL = 1e-4  # relative, plus 1e-2 of it times the largest magnitude
+M_POSE_STEP = 1e-3  # remap_error_bound's step on each pose component
+# path (o): forces on an O_PANELS x O_PANELS panel grid over the plate
+FORCES_SCRIPT = os.path.join(REPO, "scripts", "upsp-integrate-forces-torch")
+O_PANELS = 8
+# path (p): surface PSD
+P_NPERSEG, P_NAN_ROWS, P_SAMPLE = 32, 10, 1000
 HOST_OPS = ("aten._to_copy", "aten.copy_", "aten.lift_fresh", "aten.lift_fresh_copy",
             "aten.detach", "aten.alias", "aten.to", "aten.clone")
 DEVICE = "cuda"
@@ -1645,6 +1679,315 @@ def nccl_path():
     return ms
 
 
+def _grazing_bound(bvh, flat, tris, verts, center, differ):
+    """(l)'s bound on the nodes where the device and the native walk
+    disagree: none whose unjittered ray saw it on both walks, and no more
+    than the nodes the jittered retries recovered on either.  Returns (ok,
+    the recovered count)."""
+    import torch
+
+    from upsp_tpu_torch.ops import raycast as R
+
+    nodes = torch.arange(verts.shape[0], device=verts.device)
+    res = []
+    for fn in (None, R.native_intersector(flat)):
+        stats = {}
+        vis, _ = R.node_visibility(bvh, tris, verts, nodes, center, stats=stats,
+                                   intersect=fn)
+        res.append((vis, stats["primary"]))
+    (dv, dp_), (nv, np_) = res
+    recovered = min(int((dv & ~dp_).sum()), int((nv & ~np_).sum()))
+    return (not bool((differ & dp_ & np_).any())
+            and int(differ.sum()) <= recovered), recovered
+
+
+def device_phase0_path(dp):
+    """Path (m): ``run_phase0(walk="device")`` against ``walk="native"`` on
+    (b)'s files, each timed: per camera the visible masks may differ only
+    as (l)'s walks may (``_grazing_bound``), ``pixel_index`` only where
+    the f32 and the f64 projection round to other pixels (the f64 position
+    within M_HALF_PX of a half pixel), ``u``/``v`` within M_UV_PX px, the
+    patch operators exactly and ``skipped`` outside the disagreeing nodes.
+    Then ``keyframe_mapping`` of every node of each camera on the card
+    against a float64 CPU evaluation on M_SAMPLE nodes (M_KEY_TOL), and
+    ``remap_error_bound`` at a pose step of M_POSE_STEP.  Returns (the
+    launch counts of the two phase-0 runs, a summary with the native
+    state and the video frame rate)."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.camera.model import CameraParams, cam_center, project_points
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.ops.node_pixel_mapping import keyframe_mapping, remap_error_bound
+    from upsp_tpu_torch.pipeline.config import read_input_deck
+    from upsp_tpu_torch.pipeline.phase0 import run_phase0
+    from upsp_tpu_torch.pipeline.run import open_videos
+
+    print("  -- path m: phase 0 on the device walk against the native walk, "
+          "(b)'s files", flush=True)
+    cfg = read_input_deck(dp["deck"])
+    readers, _, _ = open_videos(cfg)
+    try:
+        first = [r.read_frame(0) for r in readers]
+        bits = [r.bit_depth for r in readers]
+        fs = float(readers[0].frame_rate)
+    finally:
+        for r in readers:
+            r.close()
+    cuda_lib.reset_launch_counts()
+    sec, st = {}, {}
+    for walk in ("device", "native"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st[walk] = run_phase0(cfg, first, bits, device=DEVICE, walk=walk)
+        torch.cuda.synchronize()
+        sec[walk] = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    dev, nat = st["device"], st["native"]
+    check(dev.bvh_dev is not None and dev.bvh_dev.leaf_v0.is_cuda and nat.bvh_dev is None,
+          f"phase 0: device walk {sec['device']:.3f} s (BVH on {dev.bvh_dev.leaf_v0.device}), "
+          f"native walk {sec['native']:.3f} s")
+    model = nat.model
+    h, w = nat.image_hw
+    tris = torch.from_numpy(model.triangles.astype(np.int64)).to(DEVICE)
+    verts = torch.from_numpy(model.vertices).to(DEVICE)
+    verts64 = torch.from_numpy(model.vertices.astype(np.float64))
+    differ_any = torch.zeros(model.size, dtype=torch.bool, device=DEVICE)
+    res = dict(differ=[], recovered=[], moved=[], key_err=[], remap_px=[])
+    for c, (pd, pn) in enumerate(zip(dev.projections, nat.projections)):
+        differ = pd.visible != pn.visible
+        differ_any |= differ
+        center = cam_center(nat.cam_params[c]).to(DEVICE)
+        ok, recovered = _grazing_bound(dev.bvh_dev, nat.bvh, tris, verts, center, differ)
+        both = (pd.visible & pn.visible).cpu().numpy()
+        moved = both & (pd.pixel_index != pn.pixel_index).cpu().numpy()
+        pix = project_points(nat.cam_params[c], verts64).numpy()
+        half = np.abs(pix - np.floor(pix) - 0.5).min(axis=1)
+        d_uv = max(float((torch.abs(pd.u - pn.u) * w).cpu().numpy()[both].max()),
+                   float((torch.abs(pd.v - pn.v) * h).cpu().numpy()[both].max()))
+        n_diff = int(differ.sum())
+        res["differ"].append(n_diff)
+        res["recovered"].append(recovered)
+        res["moved"].append(int(moved.sum()))
+        check(ok and bool((half[moved] < M_HALF_PX).all()) and d_uv < M_UV_PX,
+              f"camera {c + 1}: visible differs on {n_diff} of {model.size:,} nodes "
+              f"(the retries recovered {recovered}; none seen by both unjittered rays), "
+              f"pixel_index on {int(moved.sum())} seen by both, each within "
+              f"{M_HALF_PX} px of a half pixel; u, v within {d_uv:.2e} px")
+    for a, b in zip(dev.patch_ops, nat.patch_ops):
+        check((a is None) == (b is None) and (a is None or all(
+            torch.equal(x, y) for x, y in zip(a[:3], b[:3]))), "patch operators equal")
+    keep = ~differ_any
+    check(torch.equal(dev.skipped[keep], nat.skipped[keep]),
+          f"skipped equal outside the {int(differ_any.sum())} disagreeing nodes")
+    # keyframe mapping of every node on the card, f64 on the CPU on a sample
+    rng = np.random.default_rng(3)
+    sample = np.sort(rng.choice(model.size, M_SAMPLE, replace=False))
+    t0 = time.perf_counter()
+    for c, params in enumerate(nat.cam_params):
+        km = keyframe_mapping(params, verts)
+        step = km.pose + M_POSE_STEP
+        bound = remap_error_bound(km, step)
+        torch.cuda.synchronize()
+        p64 = CameraParams(*(t.to(torch.float64) for t in params))
+        want = keyframe_mapping(p64, verts64[sample])
+        errs = []
+        for k in ("uv", "jac"):
+            g = getattr(km, k)[torch.from_numpy(sample).to(DEVICE)].double().cpu()
+            wk = getattr(want, k)
+            tol = M_KEY_TOL * wk.abs() + 1e-2 * M_KEY_TOL * wk.abs().max()
+            check(bool(((g - wk).abs() <= tol).all()),
+                  f"camera {c + 1}: keyframe {k} {tuple(getattr(km, k).shape)} on "
+                  f"{km.uv.device} matches the f64 CPU evaluation on {M_SAMPLE} nodes "
+                  f"(max rel {float(((g - wk).abs() / wk.abs().clamp_min(1e-30)).max()):.2e};"
+                  f" tol {M_KEY_TOL} relative + {1e-2 * M_KEY_TOL} of the largest)")
+            errs.append(float(((g - wk).abs() / (wk.abs().max())).max()))
+        res["key_err"].append(max(errs))
+        b = bound.cpu().numpy()
+        res["remap_px"].append((float(b.min()), float(np.median(b)), float(b.max())))
+    res.update(sec=sec, key_s=time.perf_counter() - t0, state=nat, fs=fs)
+    print(f"  path m: phase 0 device walk {sec['device']:.3f} s, native walk "
+          f"{sec['native']:.3f} s; visible differs on {res['differ']} nodes a camera "
+          f"(retries recovered {res['recovered']}), pixel_index on {res['moved']}; "
+          f"keyframe mapping of {model.size:,} nodes x {len(nat.cam_params)} cameras "
+          f"{res['key_s']:.3f} s (worst error {max(res['key_err']):.2e} of the largest); "
+          f"remap_error_bound at a pose step of {M_POSE_STEP} (min, median, max px): "
+          + ", ".join(f"({a:.3f}, {m:.3f}, {x:.3f})" for a, m, x in res["remap_px"]),
+          flush=True)
+    del st, dev
+    return counts, res
+
+
+def camera_batch_path(dp, state):
+    """Path (n): one 64-frame chunk of (b) on the card through
+    ``make_chunk_processor(vmap_cameras=True)`` against the per-camera loop
+    with the dense step and no pre-shift (the form it stands for): NaN at
+    the same nodes, intensities within rtol 1e-4 / atol 1e-2 and telemetry
+    columns 2-3 within 1e-3 px (tests/test_phase1_cams.py's bounds).  The
+    batched run alone must launch K1, K2, K5 and K6 and not K3, K4 or K9.
+    Prints the frames/s of both and of the default loop route (each called
+    once on 8 frames first).  Returns (the batched run's launch counts, a
+    summary)."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.pipeline.phase1 import make_chunk_processor
+
+    print("  -- path n: the cameras batched (vmap_cameras) on one 64-frame chunk of "
+          "(b), on the card", flush=True)
+    # 12-bit codes: int16 holds them, so the chunk crosses at two bytes a pixel
+    chunk = torch.from_numpy(dp["frames"].view(np.int16)).to(DEVICE).float()
+    n = chunk.shape[0]
+    forms = {
+        "batched": dict(vmap_cameras=True),
+        "loop, dense step": dict(vmap_cameras=False, ecc_impl="jnp", pre_shift=False),
+        "loop, default": dict(),
+    }
+    out, fps = {}, {}
+    for name, kw in forms.items():
+        fn = make_chunk_processor(state, with_telemetry=True, **kw)
+        fn(chunk[:8])
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        sol, tele = fn(chunk)
+        torch.cuda.synchronize()
+        fps[name] = n / (time.perf_counter() - t0)
+        if name == "batched":
+            counts = cuda_lib.launch_counts()
+        out[name] = (sol.cpu().numpy(), tele.cpu().numpy())
+        del sol, tele
+    print(f"  launches of the batched run: {counts}", flush=True)
+    for k in ("blur", "warp", "gather", "hot"):
+        check(counts[k] > 0, f"kernel {k} launched by the batched run")
+    for k in ("moments", "warp_filter", "gn_fused"):
+        check(counts[k] == 0 and counts[f"{k}_bf16"] == 0,
+              f"kernel {k} not launched by the batched run")
+    (sv, tv), (sl, tl) = out["batched"], out["loop, dense step"]
+    v = np.isfinite(sl)
+    d = np.abs(sv[v] - sl[v])
+    viol = int((d > 1e-2 + 1e-4 * np.abs(sl[v])).sum())
+    d_t = float(np.abs(tv[..., 2:4] - tl[..., 2:4]).max())
+    check(np.isnan(sv).sum() == np.isnan(sl).sum() and viol == 0 and d_t < 1e-3,
+          f"batched against the loop: NaN counts {int(np.isnan(sv).sum())} / "
+          f"{int(np.isnan(sl).sum())}, intensities max abs {d.max():.3g} ({viol} beyond "
+          f"rtol 1e-4 + atol 1e-2), translations max abs {d_t:.2e} px (< 1e-3)")
+    print(f"  path n: frames/s on the card (printed, not a claim): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in fps.items()), flush=True)
+    del chunk
+    return counts, dict(fps=fps, d_t=d_t, d_max=float(d.max()))
+
+
+def forces_path(dp):
+    """Path (o): ``scripts/upsp-integrate-forces-torch`` on (b)'s
+    ``pressure_transpose`` (1,048,576 x 64) with an O_PANELS x O_PANELS
+    surface panel grid over the plate, which this script writes as PLOT3D:
+    ``fomo`` within 1e-4 of the float64 numpy product of the same operator
+    (relative to the sum of the products' magnitudes, |op| @ |cp|, which is
+    |fomo| where nothing cancels), ``panels.csv`` with a row a panel.
+    Returns (its launch counts, a summary)."""
+    import numpy as np
+
+    from upsp_tpu_torch.geometry.grids import load_model
+    from upsp_tpu_torch.io.plot3d import write_p3d_grid
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.ops.integration import integration_matrices
+    from upsp_tpu_torch.ops.panels import panel_node_map, panels_from_grid
+    from upsp_tpu_torch.pipeline.synthetic import PLATE, make_plate_grid
+
+    print(f"  -- path o: forces and moments of {O_PANELS} x {O_PANELS} panels from "
+          f"(b)'s pressure_transpose", flush=True)
+    root = os.path.join(WORK, "o")
+    os.makedirs(root, exist_ok=True)
+    panel_grid = make_plate_grid(O_PANELS + 1, O_PANELS + 1, *PLATE)
+    write_p3d_grid(os.path.join(root, "panels.g"), panel_grid)
+    grid = os.path.join(os.path.dirname(dp["deck"]), "plate.grid")
+    pt_path = os.path.join(dp["out_dir"], "pressure_transpose")
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_cli([FORCES_SCRIPT, "--grid", grid, "--panel-grid",
+             os.path.join(root, "panels.g"), "--pressure", pt_path, "--out",
+             os.path.join(root, "out"), "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    model = load_model(grid)
+    n_frames = os.path.getsize(pt_path) // 4 // model.size
+    fomo = np.fromfile(os.path.join(root, "out", "fomo"), "<f4")
+    with open(os.path.join(root, "out", "panels.csv")) as fh:
+        rows = fh.read().strip().splitlines()[1:]
+    n_panels = O_PANELS * O_PANELS
+    check(fomo.size == n_panels * 6 * n_frames and len(rows) == n_panels,
+          f"fomo ({n_panels}, 6, {n_frames}) and panels.csv with {len(rows)} rows, in "
+          f"{wall:.3f} s")
+    t0 = time.perf_counter()
+    panels = panels_from_grid(panel_grid)
+    op = integration_matrices(model, panel_node_map(model, panels),
+                              n_panels=panels.size).reshape(n_panels * 6, model.size)
+    cp = np.nan_to_num(np.fromfile(pt_path, "<f4").reshape(model.size, n_frames)
+                       .astype(np.float64))
+    op64 = op.astype(np.float64)
+    want = op64 @ cp
+    scale = np.abs(op64) @ np.abs(cp)
+    err = np.abs(fomo.reshape(n_panels * 6, n_frames) - want)
+    check(bool((err <= 1e-4 * scale).all()) and np.abs(want).max() > 0,
+          f"fomo matches the f64 numpy product (max error {float((err / np.maximum(scale, 1e-30)).max()):.2e} "
+          f"of |op| @ |cp|, bound 1e-4; the check took {time.perf_counter() - t0:.2f} s)")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, dict(wall=wall, n_frames=n_frames)
+
+
+def psd_path(dp, fs):
+    """Path (p): ``surface_psd`` of (b)'s pressure_transpose on the card
+    (nperseg P_NPERSEG, P_NAN_ROWS nodes set to NaN), against
+    ``scipy.signal.welch`` in float64 on P_SAMPLE finite nodes: within
+    1e-4 relative plus 1e-6 of the node's largest bin; NaN nodes all NaN,
+    the others finite.  Prints its seconds and the peak device memory it
+    added.  Returns (its launch counts, a summary)."""
+    import numpy as np
+    import scipy.signal
+    import torch
+
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.ops.psd import surface_psd
+
+    print(f"  -- path p: surface PSD of (b)'s pressure_transpose, nperseg {P_NPERSEG}",
+          flush=True)
+    pt = np.fromfile(os.path.join(dp["out_dir"], "pressure_transpose"), "<f4")
+    n_nodes = FULL["grid_shape"][0] * FULL["grid_shape"][1]
+    pt = pt.reshape(n_nodes, -1)
+    rng = np.random.default_rng(5)
+    nan_rows = rng.choice(n_nodes, P_NAN_ROWS, replace=False)
+    pt[nan_rows] = np.nan
+    x = torch.from_numpy(pt).to(DEVICE)
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f, p = surface_psd(x, fs, nperseg=P_NPERSEG)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = cuda_lib.launch_counts()
+    p = p.cpu().numpy()
+    bad = ~np.isfinite(pt).all(axis=1)
+    check(np.isnan(p[bad]).all() and np.isfinite(p[~bad]).all(),
+          f"{int(bad.sum())} NaN nodes all NaN, the other {int((~bad).sum()):,} finite")
+    good = np.nonzero(~bad)[0]
+    sample = np.sort(rng.choice(good, P_SAMPLE, replace=False))
+    sf, sp = scipy.signal.welch(pt[sample].astype(np.float64), fs=fs, nperseg=P_NPERSEG,
+                                detrend="linear", window="hann")
+    err = np.abs(p[sample] - sp)
+    tol = 1e-4 * np.abs(sp) + 1e-6 * np.abs(sp).max(axis=1, keepdims=True)
+    check(bool((err <= tol).all()) and np.allclose(f.cpu().numpy(), sf, rtol=1e-6),
+          f"PSD ({n_nodes:,}, {p.shape[1]}) in {sec:.3f} s matches scipy's welch on "
+          f"{P_SAMPLE} nodes (max rel {float((err / np.abs(sp).clip(1e-30)).max()):.2e}); "
+          f"peak device memory {peak / 2**20:.1f} MiB")
+    del x
+    return counts, dict(sec=sec, peak=peak)
+
+
 def full_config_paths(by_path, phase_s):
     """Paths (b) and (d) on one full-config datapoint, written once: (b) in
     f32, (d) in bf16 with its batch also held against (b)'s; (g) on its
@@ -1660,6 +2003,20 @@ def full_config_paths(by_path, phase_s):
     try:
         (lb, dtype_b, exp_b), (ld, dtype_d, exp_d) = FULL_PATHS
         by_path["b"], ref = datapoint_path(lb, dp, FULL, FULL_BATCH, exp_b, dtype_b)
+        t0 = time.perf_counter()
+        by_path["m"], m_res = device_phase0_path(dp)
+        phase_s["path m"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["n"], n_res = camera_batch_path(dp, m_res.pop("state"))
+        phase_s["path n"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["o"], o_res = forces_path(dp)
+        phase_s["path o"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["p"], p_res = psd_path(dp, m_res["fs"])
+        phase_s["path p"] = time.perf_counter() - t0
+        for p in "mop":
+            check(not any(by_path[p].values()), f"path {p} launched no K1-K9 kernel")
         t0 = time.perf_counter()
         by_path["e"], e_stages, b_out, e_dp = streaming_cli_path(dp, n_nodes)
         phase_s["path e"] = time.perf_counter() - t0
@@ -1779,7 +2136,8 @@ def main() -> int:
         phase_s["path h"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         full_config_paths(by_path, phase_s)
-        phase_s["paths b, e, i, j, f, g, d, b', d'"] = time.perf_counter() - t0
+        phase_s["paths b, m, n, o, p, e, i, j, f, g, d, b', d'"] = (
+            time.perf_counter() - t0)
         t0 = time.perf_counter()
         k_ms = nccl_path()
         phase_s["path k"] = time.perf_counter() - t0

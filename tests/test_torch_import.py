@@ -23,7 +23,7 @@ PORT_SOURCES = sorted(
     for p in glob.glob(os.path.join(REPO, "upsp_tpu_torch", "**", "*.py"),
                        recursive=True)
 ) + ["scripts/upsp-process-torch", "scripts/upsp-external-calibration-torch",
-     "chip_smoke.py"]
+     "scripts/upsp-integrate-forces-torch", "chip_smoke.py"]
 
 # no module of jax nor of the JAX package may be loaded
 _NO_JAX = r"""
@@ -109,6 +109,41 @@ for m in ("camera.external", "camera.ba", "camera.pnp", "camera.visibility",
 """ + _NO_JAX + """
 print("OK")
 """
+
+
+# the forces CLI on a tiny datapoint's grid and pressure, in this
+# interpreter, then the module check (the device-side phase-0, PSD and
+# keyframe modules are imported too)
+_FORCES = r"""
+import os, runpy, sys, tempfile
+import numpy as np
+import upsp_tpu_torch.ops.node_pixel_mapping, upsp_tpu_torch.ops.psd
+from upsp_tpu_torch.io.plot3d import write_p3d_grid
+from upsp_tpu_torch.pipeline.synthetic import make_plate_grid, make_synthetic_state
+root = tempfile.mkdtemp()
+write_p3d_grid(os.path.join(root, "plate.grid"), make_plate_grid(21, 17))
+write_p3d_grid(os.path.join(root, "panels.g"), make_plate_grid(3, 3))
+np.random.default_rng(0).normal(-0.3, 0.1, (21 * 17, 5)).astype("<f4").tofile(
+    os.path.join(root, "pt"))
+sys.argv = [sys.argv[1], "--grid", os.path.join(root, "plate.grid"), "--panel-grid",
+            os.path.join(root, "panels.g"), "--pressure", os.path.join(root, "pt"),
+            "--out", os.path.join(root, "out"), "--device", "cpu"]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+assert np.fromfile(os.path.join(root, "out", "fomo"), "<f4").shape == (4 * 6 * 5,)
+make_synthetic_state(n_cameras=2, image_hw=(32, 48), grid_shape=(9, 7), device="cpu")
+""" + _NO_JAX + """
+print("OK")
+"""
+
+
+def test_forces_cli_runs_without_jax():
+    r = _run([sys.executable, "-c", _FORCES,
+              os.path.join(REPO, "scripts", "upsp-integrate-forces-torch")])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
 
 
 def test_calibration_modules_load_no_jax():

@@ -226,12 +226,18 @@ def test_frame_programs_and_statistics(linear):
 @pytest.mark.parametrize("kw,reason", [
     (dict(ecc_band=3), r"not ported, by design: it is MXU and banded-warp machinery"
                        r".*ROADMAP.md queue 1, item 2"),
-    (dict(vmap_cameras=True), r"dense 'jnp' Gauss-Newton step without the pre-shift "
-                              r"\(upsp_tpu/pipeline/phase1.py:751-758\).*ROADMAP.md "
-                              r"queue 1, item 2"),
+    # the camera-batched path runs (tests/test_torch_phase1_cams.py); what it
+    # refuses is the kernel route, whose K3 takes one template (the id is
+    # the case's name from before that path was ported)
+    pytest.param(dict(vmap_cameras=True, ecc_impl="kernels"),
+                 r"dense 'jnp' Gauss-Newton step: K3 takes one template.*"
+                 r"upsp_tpu/ops/pallas_ecc.py:633-634",
+                 id="kw1-dense 'jnp' Gauss-Newton step without the pre-shift "
+                    r"\(upsp_tpu/pipeline/phase1.py:751-758\).*ROADMAP.md queue 1, "
+                    "item 2"),
 ])
 def test_refusal_reasons(linear, kw, reason):
-    """Each refusal names its real reason and its ROADMAP item."""
+    """Each refusal names its real reason and where it comes from."""
     with pytest.raises(NotImplementedError, match=reason):
         P1.make_chunk_processor(linear[2], **kw)
 
@@ -240,7 +246,7 @@ def test_unported_options_raise(linear):
     _, _, ts = linear
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P1.make_chunk_processor(ts, ecc_band=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P1.make_chunk_processor(ts, vmap_cameras=True)
+    with pytest.raises(NotImplementedError, match="one template"):
+        P1.make_chunk_processor(ts, vmap_cameras=True, ecc_impl="kernels")
     with pytest.raises(ValueError, match="warm_start"):
         P1.make_chunk_processor(ts, warm_start="coarse")

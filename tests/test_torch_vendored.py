@@ -3,8 +3,10 @@
 ``upsp_tpu_torch`` imports nothing of ``upsp_tpu``, so the modules it needs
 that need no jax (``io``, ``geometry``, ``native``, ``pipeline.config``,
 ``pipeline.interpolate``, ``processing.context``, ``camera.tunnel``,
-``camera.matching``, ``camera.internal``, ``ops.detection`` and
-``ops.image.scale_image{,_max_inlier}``) are copied into it.  Each
+``camera.matching``, ``camera.internal``, ``ops.detection``,
+``ops.panels`` and ``ops.image.scale_image{,_max_inlier}``, and the numpy
+parts of ``ops.integration`` and ``pipeline.synthetic``) are copied into
+it.  Each
 case feeds one seeded input to a copy and to its original and requires the
 same result: equal arrays (NaN at the same places), equal fields, equal
 bytes on disk.
@@ -441,6 +443,75 @@ def _detection(_dp, _tmp):
     assert_same(t_detection.ncc_scores(crop, tmpl), j_detection.ncc_scores(crop, tmpl))
 
 
+def _panels(dp, tmp):
+    """ops/panels.py on a surface panel grid and a two-layer volume one, and
+    integration_matrices on the node map, by component and by panel."""
+    from upsp_tpu.io.plot3d import StructGrid
+    from upsp_tpu.ops import integration as j_integration
+    from upsp_tpu.ops import panels as j_panels
+    from upsp_tpu_torch.ops import integration as t_integration
+    from upsp_tpu_torch.ops import panels as t_panels
+    from upsp_tpu_torch.pipeline.synthetic import make_plate_grid
+
+    model = j_grids.load_model(j_config.read_input_deck(dp["mraw12"]["deck"]).grid)
+    surf = make_plate_grid(4, 3)
+    vol = StructGrid()
+    vol.sz = [np.array([4, 3, 2], np.int32)]
+    vol.x = np.tile(surf.x, 2)
+    vol.y = np.tile(surf.y, 2)
+    vol.z = np.concatenate([surf.z - 0.2, surf.z + 0.3]).astype(np.float32)
+    vol.zones = np.zeros(24, np.int32)
+    for grid in (surf, vol):
+        tp, jp = t_panels.panels_from_grid(grid, 1.5), j_panels.panels_from_grid(grid, 1.5)
+        assert_same(tp, jp)
+        pn = t_panels.panel_node_map(model, tp)
+        assert_same(pn, j_panels.panel_node_map(model, jp))
+        assert (pn >= 0).mean() > 0.5
+        mask = np.arange(model.size) % 5 != 0
+        assert_same(t_panels.panel_coverage(model, pn, tp.size, mask),
+                    j_panels.panel_coverage(model, pn, jp.size, mask))
+        assert_same(t_panels.assign_triangles_to_panels(model, tp),
+                    j_panels.assign_triangles_to_panels(model, jp))
+        assert_same(t_panels.split_model(model, tp), j_panels.split_model(model, jp))
+        assert_same(t_integration.integration_matrices(model, pn, (1.0, 2.0, 0.0), tp.size),
+                    j_integration.integration_matrices(model, pn, (1.0, 2.0, 0.0), jp.size))
+    assert_same(t_integration.integration_matrices(model),
+                j_integration.integration_matrices(model))
+
+
+def _synthetic_builders(_dp, _tmp):
+    """make_plate_grid, make_synthetic_state, make_reference_frame and
+    make_frame_batch give the JAX package's arrays, in both overlap modes."""
+    from upsp_tpu.pipeline import synthetic as j_syn
+    from upsp_tpu_torch.pipeline import synthetic as t_syn
+
+    assert_same(t_syn.make_plate_grid(7, 5, 3.0, 2.0), j_syn.make_plate_grid(7, 5, 3.0, 2.0))
+    assert_same(t_syn.make_reference_frame((40, 56), 3), j_syn.make_reference_frame((40, 56), 3))
+    assert_same(t_syn._subpixel_shift(np.arange(48.0).reshape(6, 8), -1.3, 0.6),
+                j_syn._subpixel_shift(np.arange(48.0).reshape(6, 8), -1.3, 0.6))
+    for kw in (dict(n_cameras=3, overlap="best_view", seed=2),
+               dict(n_cameras=2, overlap="average_view", registration="none")):
+        kw.update(image_hw=(48, 64), grid_shape=(14, 11), n_patch_dots=4)
+        t, j = t_syn.make_synthetic_state(device="cpu", **kw), j_syn.make_synthetic_state(**kw)
+        assert_same(t.model, j.model)
+        assert_same(t.config, j.config)
+        assert t.image_hw == j.image_hw and t.bvh is None and t.bvh_dev is None
+        for name in ("skipped", "ref_frames", "superseded_by"):
+            assert_same(getattr(t, name).numpy(),
+                        np.asarray(getattr(j, name)).astype(getattr(t, name).numpy().dtype))
+        for tp, jp in zip(t.projections, j.projections):
+            for a, b in zip(tp, jp):
+                assert_same(a.numpy(), np.asarray(b).astype(a.numpy().dtype))
+        for top, jop in zip(t.patch_ops, j.patch_ops):
+            for a, b in zip(top[:3], jop[:3]):
+                assert_same(a.numpy(), np.asarray(b).astype(a.numpy().dtype))
+            assert top.n_clusters == jop.n_clusters
+        for tc, jc in zip(t.cam_params, j.cam_params):
+            for a, b in zip(tc, jc):
+                assert_same(a.numpy(), np.asarray(b))
+        assert_same(t_syn.make_frame_batch(t, 3, seed=4), j_syn.make_frame_batch(j, 3, seed=4))
+
+
 def _scale_image(_dp, _tmp):
     from upsp_tpu.ops import image as j_image
     from upsp_tpu_torch.ops import image as t_image
@@ -455,7 +526,7 @@ CASES = {f.__name__[1:]: f for f in (
     _deck, _flat_files, _read_flat, _pack_unpack, _videos, _load_model, _idw,
     _targets_cameras_conditions, _comps, _native_bvh, _python_bvh,
     _tree_context, _hdf5, _transpose, _async_writer, _tunnel, _matching,
-    _internal, _detection, _scale_image,
+    _internal, _detection, _scale_image, _panels, _synthetic_builders,
 )}
 
 

@@ -26,18 +26,6 @@ from upsp_tpu_torch.ops.raycast import BVHArrays, bvh_intersect, bvh_to_device
 
 log = logging.getLogger(__name__)
 
-def _native_or_none():
-    """``upsp_tpu_torch.native`` with its library (built with make when
-    missing), or None when it cannot be built."""
-    from upsp_tpu_torch.pipeline.phase0 import native_library
-
-    try:
-        return native_library()
-    except RuntimeError as e:
-        log.warning("%s", e)
-        return None
-
-
 class VisibilityChecker:
     """Occlusion/orientation visibility oracle over a surface model.
 
@@ -60,7 +48,9 @@ class VisibilityChecker:
         self.oblique_angle = float(oblique_angle)
         self.epsilon = float(epsilon)
         self.update_oblique_angle(oblique_angle)
-        self._native = _native_or_none()
+        from upsp_tpu_torch.pipeline.phase0 import native_or_none
+
+        self._native = native_or_none()
         # native when the library is loaded, numpy otherwise (as the JAX
         # package builds it)
         from upsp_tpu_torch.native import build_bvh

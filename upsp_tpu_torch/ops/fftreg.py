@@ -120,17 +120,20 @@ def prepare_template(ref: torch.Tensor, decimate: int = 1,
 
 
 def correlate(tmpl: CorrelationTemplate, imgs: torch.Tensor) -> torch.Tensor:
-    """(B, 2) float32 [tx, ty] in full-resolution pixels for (B, H, W)
+    """(..., 2) float32 [tx, ty] in full-resolution pixels for (..., H, W)
     frames of the template's size: sampling a frame at (x + tx, y + ty)
-    reproduces the template."""
+    reproduces the template.  A template whose spectrum is stacked, (C, h,
+    w//2+1) (the cameras' templates of one size share the window, prior
+    and pooling), correlates (B, C, H, W) frames, camera c against its
+    own."""
     h, w = tmpl.hw
+    lead = imgs.shape[:-2]
     small = pow2_center_crop(decimate_image(imgs, tmpl.decimate, tmpl.pools))
     img_f = torch.fft.rfft2(small * tmpl.window)
     cross = tmpl.spectrum * torch.conj(img_f)
     cross = cross / (cross.abs() + 1e-8)
-    surf = torch.fft.irfft2(cross, s=(h, w)) * tmpl.prior  # (B, h, w)
-    b = surf.shape[0]
-    flat = surf.reshape(b, -1)
+    surf = torch.fft.irfft2(cross, s=(h, w)) * tmpl.prior  # (..., h, w)
+    flat = surf.reshape(-1, h * w)
     idx = torch.argmax(flat, dim=1)
     py = idx // w
     px = idx % w
@@ -147,7 +150,8 @@ def correlate(tmpl: CorrelationTemplate, imgs: torch.Tensor) -> torch.Tensor:
     fx = px.to(torch.float32) + ox
     dy = torch.where(fy > h / 2, fy - h, fy)
     dx = torch.where(fx > w / 2, fx - w, fx)
-    return (torch.stack([-dx, -dy], dim=1) * tmpl.decimate).to(torch.float32)
+    t = (torch.stack([-dx, -dy], dim=1) * tmpl.decimate).to(torch.float32)
+    return t.reshape(lead + (2,))
 
 
 def translation_warp(t: torch.Tensor) -> torch.Tensor:

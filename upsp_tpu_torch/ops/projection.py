@@ -2,9 +2,11 @@
 
 Port of ``upsp_tpu/ops/projection.py``.  Each camera carries, per node, a
 flat pixel index and a weight; a frame projects by one gather and a
-multiply.  Visibility is built on the host with the native BVH walker
-(``upsp_tpu_torch.native``, built from ``cpp/``), as the JAX package does when
-that library is present.
+multiply.  Visibility is built one of two ways, as in the JAX package:
+:func:`build_node_projection_host` walks the BVH with the native walker
+(``upsp_tpu_torch.native``, built from ``cpp/``) and projects in f64 on the
+host; :func:`build_node_projection` runs on the device of its tensors,
+projects in their dtype and walks ``ops/raycast.py``'s device BVH.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from upsp_tpu_torch.camera.model import CameraParams, cam_center, project_points
+from upsp_tpu_torch.ops.raycast import BVHArrays, node_visibility, oblique_cos_filter
 
 
 class NodeProjection(NamedTuple):
@@ -28,6 +31,50 @@ class NodeProjection(NamedTuple):
 
     def to(self, device) -> "NodeProjection":
         return NodeProjection(*(t.to(device) for t in self))
+
+
+def build_node_projection(
+    params: CameraParams, bvh: BVHArrays, triangles: torch.Tensor,
+    vertices: torch.Tensor, normals: torch.Tensor, is_datanode: torch.Tensor,
+    oblique_angle_deg: float, height: int, width: int, max_leaf: int = 4,
+    n_jitter: int = 6, jitter: float = 1e-4,
+) -> NodeProjection:
+    """:func:`build_node_projection_host`'s semantics on the device of
+    ``vertices`` (``upsp_tpu/ops/projection.py:39-115``): the projection in
+    the wider of the camera's and the vertices' dtypes, the in-frame test,
+    the oblique cull and the data-node mask, then the owning-triangle test
+    (6 jittered retries) on ``bvh``'s device walk.  ``visible`` is the AND
+    of the four, so rays are cast only for the nodes that pass the other
+    three (the JAX package casts every node's; the result is the same)."""
+    dev = vertices.device
+    n = vertices.shape[0]
+    params = CameraParams(*(t.to(dev) for t in params))
+    center = cam_center(params).to(vertices.dtype)
+    pix = project_points(params, vertices)
+    in_frame = (
+        (pix[:, 0] >= 0) & (pix[:, 0] < width)
+        & (pix[:, 1] >= 0) & (pix[:, 1] < height)
+    )
+    d = vertices - center
+    dirs = d / torch.linalg.norm(d, dim=1, keepdim=True).clamp_min(1e-30)
+    forward = oblique_cos_filter(normals, dirs.to(normals.dtype), oblique_angle_deg)
+    (cand,) = torch.nonzero(is_datanode.to(torch.bool) & in_frame & forward,
+                            as_tuple=True)
+    visible = torch.zeros(n, dtype=torch.bool, device=dev)
+    if cand.numel():
+        visible[cand], _ = node_visibility(bvh, triangles, vertices, cand, center,
+                                           max_leaf=max_leaf, n_jitter=n_jitter,
+                                           jitter=jitter)
+    col = torch.round(pix[:, 0]).clamp(0, width - 1).to(torch.int64)
+    row = torch.round(pix[:, 1]).clamp(0, height - 1).to(torch.int64)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return NodeProjection(
+        pixel_index=torch.where(visible, row * width + col, torch.zeros_like(col)),
+        weight=visible.to(torch.float32),
+        u=torch.where(visible, (pix[:, 0] / width).to(torch.float32), zero),
+        v=torch.where(visible, (pix[:, 1] / height).to(torch.float32), zero),
+        visible=visible,
+    )
 
 
 def build_node_projection_host(
@@ -114,7 +161,8 @@ def adjust_projection_for_weights(
     multi = vis.sum(dim=0) > 1
     if overlap == "best_view":
         best = torch.argmax(angles, dim=0)
-        w = (torch.arange(C)[:, None] == best[None, :]).to(torch.float32)
+        w = (torch.arange(C, device=best.device)[:, None] == best[None, :]).to(
+            torch.float32)
     elif overlap in ("average_views", "average_view"):
         pos = torch.where(vis, angles, torch.zeros_like(angles))
         w = (pos / pos.sum(dim=0).clamp_min(1e-30)).to(torch.float32)
@@ -136,6 +184,23 @@ def project_frame(frames: torch.Tensor, proj: NodeProjection) -> torch.Tensor:
     """(B, H, W) frames of one camera -> (B, N) weighted node values."""
     b = frames.shape[0]
     return frames.reshape(b, -1)[:, proj.pixel_index] * proj.weight
+
+
+def project_frames_multicam(frames: torch.Tensor,
+                            projections: Sequence[NodeProjection],
+                            skipped: torch.Tensor) -> torch.Tensor:
+    """Combine cameras: the sum of their weighted gathers, NaN at skipped
+    nodes.  ``frames``: (C, H, W) processed images -> (N,), or a batch
+    (B, C, H, W) -> (B, N)."""
+    x = frames if frames.dim() == 4 else frames[None]
+    total = sum(project_frame(x[:, c], p) for c, p in enumerate(projections))
+    total = torch.where(skipped, torch.full_like(total, float("nan")), total)
+    return total if frames.dim() == 4 else total[0]
+
+
+def projections_to_arrays(projections: Sequence[NodeProjection]) -> NodeProjection:
+    """Stack per-camera projections into one of (C, N) tensors."""
+    return NodeProjection(*(torch.stack(f) for f in zip(*projections)))
 
 
 def coverage(projections: Sequence[NodeProjection], height: int,

@@ -1,7 +1,7 @@
 """Per-frame ECC affine registration, batched over frames.
 
-Port of ``upsp_tpu/ops/registration.py``: one template, (B, H, W)
-inputs, (B, 2, 3) warps.  :func:`ecc_affine` solves in one of two forms:
+Port of ``upsp_tpu/ops/registration.py``: one template (or, on the dense
+route, one a lane), (B, H, W) inputs, (B, 2, 3) warps.  :func:`ecc_affine` solves in one of two forms:
 
 - the while loop (``unroll=False``, the default): the reference's
   criteria, at most ``max_iters`` (50) Gauss-Newton steps and a stop once
@@ -371,9 +371,16 @@ def _ecc_core(ref, inp, warp, max_iters, epsilon, gauss_size, unroll,
     )
     tmpl = (
         tmpl_blurred if tmpl_blurred is not None
-        else ecc_blur(ref.to(im_dtype)[None], gauss_size)[0]
+        else ecc_blur(ref.to(im_dtype).reshape((-1,) + ref.shape[-2:]),
+                      gauss_size).reshape(ref.shape)
     ).contiguous()
     img = ecc_blur(inp.to(im_dtype).contiguous(), gauss_size)
+    if tmpl.dim() == 3 and ecc_route(impl) == "kernels":
+        # as the JAX package's Pallas moments refuse batched templates
+        # (upsp_tpu/ops/pallas_ecc.py:633-634)
+        raise NotImplementedError(
+            "a template per lane needs the dense 'jnp' step: K3 reads one "
+            "template for the whole batch")
     if ecc_route(impl) == "jnp":
         def step(im, wp, rho, vs):
             return _dense_step(im, tmpl, wp, rho, vs)
@@ -406,7 +413,9 @@ def ecc_affine(
     tmpl_shift: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Align (B, H, W) ``inp`` to the (H, W) template ``ref`` by ECC
-    maximisation, from ``warp_init`` (B, 2, 3) or identity.
+    maximisation, from ``warp_init`` (B, 2, 3) or identity.  ``ref`` may
+    also be (B, H, W), a template per lane, on the dense route only (the
+    kernel route raises ``NotImplementedError``).
 
     Returns (warps (B, 2, 3), rho (B,), conv (B,)): ``conv`` is the
     iteration count (int32) of the while loop, or with ``unroll`` the final

@@ -1,9 +1,19 @@
 """Phase 0: one-time setup — model, BVH, camera cals, projections, patches.
 
-Port of ``upsp_tpu/pipeline/phase0.py`` on the native-BVH path: visibility
-rays walk the BVH through ``upsp_tpu_torch.native`` (built from ``cpp/``), the
-camera model and projections are host torch/numpy, and the finished state
-holds its per-frame tensors on ``device``.
+Port of ``upsp_tpu/pipeline/phase0.py``, with its two routes for the
+visibility rays (``run_phase0(walk=)``):
+
+- native: the rays walk the BVH through ``upsp_tpu_torch.native`` (built
+  from ``cpp/``); the camera model and projections are host torch/numpy
+  (f64 projection), and the finished state is moved to ``device``;
+- device: the BVH goes to ``device`` (``ops/raycast.bvh_to_device``) and
+  the projections, the walks, the weights and the skip mask are computed
+  there (``projection.build_node_projection``, f32 projection, as the JAX
+  package's device route); the host builds the grid, the BVH and the patch
+  clusters, as there.
+
+"auto" (the default) is the JAX package's rule: native when the library
+loads or builds, the device walk otherwise.  The route taken is logged.
 """
 
 from __future__ import annotations
@@ -39,9 +49,11 @@ from upsp_tpu_torch.ops.patching import (
 from upsp_tpu_torch.ops.projection import (
     NodeProjection,
     adjust_projection_for_weights,
+    build_node_projection,
     build_node_projection_host,
     identify_skipped_nodes,
 )
+from upsp_tpu_torch.ops.raycast import BVHArrays, bvh_intersect, bvh_to_device
 
 log = logging.getLogger("upsp_tpu")
 
@@ -70,6 +82,8 @@ class Phase0State:
     # the derived phase-1 parameters, when handed over from elsewhere
     # (state.from_jax_state); otherwise pipeline.phase1 derives them
     params: Any = None
+    # the device BVH of the device walk (None on the native walk)
+    bvh_dev: Optional[BVHArrays] = None
 
     @property
     def n_nodes(self) -> int:
@@ -89,6 +103,8 @@ class Phase0State:
             superseded_by=self.superseded_by.to(device),
             device=device,
             params=None,
+            bvh_dev=None if self.bvh_dev is None else BVHArrays(
+                *(t.to(device) for t in self.bvh_dev)),
         )
 
     @property
@@ -117,15 +133,27 @@ def native_library():
     return native
 
 
+def native_or_none():
+    """:func:`native_library`, or None (the reason logged) when the library
+    cannot be built."""
+    try:
+        return native_library()
+    except RuntimeError as e:
+        log.warning("%s", e)
+        return None
+
+
 def visible_targets(
     targets: Sequence[Target], params: CameraParams, model: SurfaceModel,
     oblique_angle_deg: float, image_hw: Tuple[int, int], flat_bvh,
+    bvh_dev: Optional[BVHArrays] = None,
 ) -> List[Target]:
     """getTargets parity: in-frame, unoccluded, facing within the oblique
-    limit; the normal is the nearest node's (psp_process.cpp:92-106)."""
+    limit; the normal is the nearest node's (psp_process.cpp:92-106).  The
+    rays take ``bvh_dev``'s device walk when it is given, else the native
+    walk over ``flat_bvh``."""
     if not targets:
         return []
-    native = native_library()
     H, W = image_hw
     xyz, _, _ = targets_as_arrays(targets)
     uv = project_points(params, torch.from_numpy(xyz)).numpy()
@@ -134,10 +162,15 @@ def visible_targets(
     d = xyz - center
     dist = np.linalg.norm(d, axis=1)
     dirs = d / dist[:, None]
-    t, _, hit = native.bvh_intersect(
-        flat_bvh, np.broadcast_to(center, xyz.shape).astype(np.float32),
-        dirs.astype(np.float32),
-    )
+    origins = np.broadcast_to(center, xyz.shape).astype(np.float32)
+    if bvh_dev is None:
+        t, _, hit = native_library().bvh_intersect(flat_bvh, origins,
+                                                   dirs.astype(np.float32))
+    else:
+        dev = bvh_dev.leaf_v0.device
+        t, _, hit = bvh_intersect(bvh_dev, torch.from_numpy(origins).to(dev),
+                                  torch.from_numpy(dirs.astype(np.float32)).to(dev))
+        t, hit = t.cpu().numpy(), hit.cpu().numpy()
     occluded = hit & (t < dist - 1e-3)
     hit_pos = np.where(hit[:, None], center + dirs * t[:, None], xyz)
     normals = model.normals[model.nearest_node(hit_pos)]
@@ -184,16 +217,18 @@ def target_image_diameters(targets: Sequence[Target], params: CameraParams,
 def build_patcher_for_camera(
     cfg: ProcessingConfig, params: CameraParams, model: SurfaceModel,
     first_frame: np.ndarray, targets_file: str, image_hw: Tuple[int, int],
-    bit_depth: int, flat_bvh,
+    bit_depth: int, flat_bvh, bvh_dev: Optional[BVHArrays] = None,
 ):
     """InitializeImagePatches parity: visible targets + fiducials ->
     clusters -> boundary threshold -> composed patch operator.  Returns
-    (PatchOperator | None, diagnostics | None)."""
+    (PatchOperator | None, diagnostics | None).  ``bvh_dev``: the device
+    walk's BVH (:func:`visible_targets`)."""
     all_t = read_tgts(targets_file) + read_tgts(targets_file, section="*Fiducials")
     if not all_t:
         return None, None
     oblique = min(cfg.oblique_angle + 5.0, 90.0)
-    vis = visible_targets(all_t, params, model, oblique, image_hw, flat_bvh)
+    vis = visible_targets(all_t, params, model, oblique, image_hw, flat_bvh,
+                          bvh_dev)
     if not vis:
         return None, None
     diams = target_image_diameters(vis, params, model, image_hw) * cfg.target_diam_sf
@@ -231,13 +266,21 @@ def _apply_normals_file(model: SurfaceModel, path: str) -> None:
 def run_phase0(
     cfg: ProcessingConfig, first_frames: Sequence[np.ndarray],
     bit_depths: Optional[Sequence[int]] = None, device="cuda",
-    model: Optional[SurfaceModel] = None, max_leaf: int = 4,
+    model: Optional[SurfaceModel] = None, max_leaf: int = 4, walk: str = "auto",
 ) -> Phase0State:
     """Build the phase-0 state from the config and per-camera first frames,
     its tensors on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU).  ``walk``: "native", "device" or "auto" (the module docstring);
+    "native" raises when the library cannot be built."""
     device = torch.device(device)
-    native = native_library()
+    if walk not in ("auto", "native", "device"):
+        raise ValueError(f"walk must be auto|native|device, got {walk!r}")
+    if walk == "native":
+        native_library()
+    elif walk == "auto":
+        walk = "device" if native_or_none() is None else "native"
+    log.warning("phase 0: visibility rays take the %s walk%s", walk,
+                f" on {device}" if walk == "device" else "")
     if model is None:
         model = load_model(cfg.grid, tolerance=cfg.grid_tol)
     if cfg.x_max is not None:
@@ -259,8 +302,24 @@ def run_phase0(
         "UPSP_BVH_METHOD",
         "sah" if model.triangles.shape[0] >= 2_000_000 else "median",
     )
-    bvh = native.build_bvh(model.vertices, model.triangles, leaf_size=max_leaf,
-                           method=bvh_method)
+    # native when the library is loaded, numpy otherwise (as the JAX
+    # package builds it)
+    from upsp_tpu_torch.native import build_bvh
+
+    bvh = build_bvh(model.vertices, model.triangles, leaf_size=max_leaf,
+                    method=bvh_method)
+    if walk == "device":
+        bvh_dev = bvh_to_device(bvh, device=device)
+        mesh = dict(
+            triangles=torch.from_numpy(np.asarray(model.triangles, np.int64)).to(device),
+            vertices=torch.from_numpy(np.asarray(model.vertices)).to(device),
+            normals=torch.from_numpy(np.asarray(model.normals)).to(device),
+            is_datanode=torch.from_numpy(np.asarray(model.is_datanode, bool)).to(device),
+        )
+    else:
+        bvh_dev = None
+        mesh = dict(triangles=model.triangles, vertices=model.vertices,
+                    normals=model.normals, is_datanode=model.is_datanode)
 
     cam_params: List[CameraParams] = []
     raw_projs: List[NodeProjection] = []
@@ -271,30 +330,37 @@ def run_phase0(
         params = make_camera_params(cal.rmat, cal.tvec, cal.camera_matrix,
                                     cal.dist_coeffs, dtype=torch.float32)
         cam_params.append(params)
-        raw_projs.append(build_node_projection_host(
-            params, bvh, model.triangles, model.vertices, model.normals,
-            model.is_datanode, cfg.oblique_angle, H, W,
-        ))
+        if walk == "device":
+            raw_projs.append(build_node_projection(
+                params, bvh_dev, oblique_angle_deg=cfg.oblique_angle, height=H,
+                width=W, max_leaf=max_leaf, **mesh))
+        else:
+            raw_projs.append(build_node_projection_host(
+                params, bvh, oblique_angle_deg=cfg.oblique_angle, height=H,
+                width=W, **mesh))
         if cfg.target_patcher == "polynomial" and cam.targets:
             op, diag = build_patcher_for_camera(
                 cfg, params, model, first_frames[c], cam.targets, image_hw,
-                bit_depths[c], bvh,
+                bit_depths[c], bvh, bvh_dev,
             )
         else:
             op, diag = None, None
         patch_ops.append(op)
         patch_diags.append(diag)
 
+    # the weights, the skip mask and the templates where the projections
+    # are: on the device walk's device, on the host for the native walk
+    where = device if walk == "device" else torch.device("cpu")
     projs = adjust_projection_for_weights(
-        raw_projs, [cam_center(p) for p in cam_params],
-        torch.from_numpy(np.asarray(model.vertices)),
-        torch.from_numpy(np.asarray(model.normals)), overlap=cfg.overlap,
+        raw_projs, [cam_center(p).to(where) for p in cam_params],
+        torch.from_numpy(np.asarray(model.vertices)).to(where),
+        torch.from_numpy(np.asarray(model.normals)).to(where), overlap=cfg.overlap,
     )
     skipped = identify_skipped_nodes(projs)
     # the ECC template is the hot-pixel-FIXED first frame (phase 1 repairs
     # every input frame, so template and input see the same pixels)
     ref_frames = torch.stack([
-        fix_hot_pixels(torch.tensor(np.asarray(f, np.float32)))
+        fix_hot_pixels(torch.tensor(np.asarray(f, np.float32), device=where))
         for f in first_frames
     ])
     return Phase0State(
@@ -312,4 +378,5 @@ def run_phase0(
         config=cfg,
         patch_diags=patch_diags,
         device=device,
+        bvh_dev=bvh_dev,
     )

@@ -22,9 +22,13 @@ reference's semantics).  Scan and identity solve with the while loop
 (``ops/registration.ecc_affine``), identity batched over frames with
 per-lane stopping.  With ``pixel_interpolation = nearest`` the final warp
 is the nearest-neighbour ``warp_affine``, then patches and the filter, so
-K4 does not run.  Not ported: the camera-vmapped variant
-(``vmap_cameras``) and the banded XLA oracle (``ecc_band``); both raise
-``NotImplementedError`` (ROADMAP.md queue 1).
+K4 does not run.
+
+``vmap_cameras`` (opt-in, fft or no-registration mode) runs a batch's C
+cameras as one: a (B, C, H, W) batch becomes B·C lanes, each with its
+camera's template, through :func:`process_frames_cams_batched` (the JAX
+package's ``_process_frame_cams_batched``).  Not ported, by design: the
+banded XLA oracle (``ecc_band``), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -283,6 +287,92 @@ def process_frames_core(
     return sol, torch.stack(warps, dim=1), torch.stack(teles, dim=1)
 
 
+def process_frames_cams_batched(
+    frames: torch.Tensor,  # (B, C, H, W) float32 frames
+    params: Phase1Params,
+    registration: str,
+    patch: bool,
+    filter_type: str,
+    filter_size: int,
+    interpolation: str = "linear",
+    warp_init: Optional[torch.Tensor] = None,  # (B, C, 2, 3)
+    valid_shift: Optional[torch.Tensor] = None,
+    fix_hot: bool = True,
+    ecc_templates: Optional[List[torch.Tensor]] = None,  # blurred, per cam
+    ecc_shifts: Optional[List[torch.Tensor]] = None,  # the kernel route's
+    compute_dtype: torch.dtype = torch.float32,
+    ecc_unroll_iters: Optional[int] = ECC_ITERS,
+    ecc_coarse_iters: int = 0,
+    ecc_epsilon: Optional[float] = None,  # the while loop's; unused here
+    ecc_max_iters: Optional[int] = None,  # the while loop's; unused here
+    ecc_impl: str = "jnp",
+):
+    """:func:`process_frames_core` with the cameras batched
+    (``upsp_tpu/pipeline/phase1.py:362-472``): the B·C images of a batch
+    are lanes b·C + c, hot pixels (K6) and the ECC solve run over all of
+    them, each lane against its camera's template on the dense step (K1
+    blurs them; K3 takes one template, so ``ecc_impl`` "kernels" raises),
+    then the final warp (K2, or the nearest ``warp_affine``), each
+    camera's patches, the filter, and the combined projection (K5 on the
+    best-view path).  Fixed-step ECC only, without the pre-shift
+    (``valid_shift`` raises); telemetry column 4 is 0, as the JAX
+    package's dense path writes it.  Returns what
+    :func:`process_frames_core` returns."""
+    if valid_shift is not None:
+        raise NotImplementedError(
+            "valid_shift (the integer pre-shift) is not supported with the "
+            "cameras batched; use the per-camera loop")
+    if registration == "pixel" and ecc_unroll_iters is None:
+        raise NotImplementedError(
+            "the while-loop ECC does not batch the cameras; use the per-camera "
+            "loop")
+    del ecc_shifts, ecc_epsilon, ecc_max_iters
+    b, n_cams, h, w = frames.shape
+    lanes = b * n_cams
+    dev = frames.device
+    imgs = frames.to(torch.float32).reshape(lanes, h, w).contiguous()
+    if fix_hot:
+        imgs = fix_hot_pixels_kernel(imgs)
+    imgs = imgs.to(compute_dtype).contiguous()
+    if registration == "pixel":
+        ref = params.ref_frames.repeat(b, 1, 1)  # lane b·C + c: camera c
+        tmpl = (None if ecc_templates is None
+                else torch.stack(ecc_templates).repeat(b, 1, 1))
+        warps, rho, conv = ecc_affine(
+            ref, imgs,
+            warp_init=None if warp_init is None else warp_init.reshape(lanes, 2, 3),
+            max_iters=ecc_unroll_iters, unroll=True, coarse_iters=ecc_coarse_iters,
+            gauss_size=ECC_GAUSS_SIZE, impl=ecc_impl, tmpl_blurred=tmpl,
+        )
+        tele = torch.stack([rho, conv.to(torch.float32), warps[:, 0, 2],
+                            warps[:, 1, 2], torch.zeros_like(rho)], dim=1)
+        if interpolation == "nearest":
+            imgs = warp_affine(imgs, warps, "nearest")
+        else:
+            imgs = warp_affine_banded(imgs, warps)
+    else:
+        tele = torch.tensor([[1.0, 0.0, 0.0, 0.0, 0.0]], device=dev).expand(lanes, 5)
+        warps = translation_warp(torch.zeros((lanes, 2), device=dev))
+    imgs = imgs.reshape(b, n_cams, h, w)
+    if patch and any(op is not None for op in params.patch_ops):
+        imgs = torch.stack([
+            imgs[:, c] if op is None else apply_patches(imgs[:, c].contiguous(), op)
+            for c, op in enumerate(params.patch_ops)
+        ], dim=1)
+    imgs = apply_filter(imgs.reshape(lanes, h, w), filter_type, filter_size)
+    imgs = imgs.reshape(b, n_cams, h, w).contiguous()
+    if params.gather is not None:
+        # K5 (skip mask and supersession in it) from the (B, C·H·W) stack
+        sol = project_gather(imgs.reshape(b, n_cams * h * w), params.gather)
+    else:
+        sol = sum(project_frame(imgs[:, c], params.projections[c])
+                  for c in range(n_cams))
+        sol = torch.where(params.skipped, torch.full_like(sol, float("nan")), sol)
+        sol = sol[:, params.superseded_by]
+    return (sol, warps.reshape(b, n_cams, 2, 3),
+            tele.reshape(b, n_cams, 5).contiguous())
+
+
 def process_frame(frames, params: Phase1Params, registration: str = "pixel",
                   patch: bool = True, filter_type: str = "gaussian",
                   filter_size: int = 3, interpolation: str = "linear",
@@ -362,8 +452,16 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     ``ops/registration``.
 
     ``compute_dtype``: "float32" or "bfloat16", the images' dtype between
-    stages (raises ``ValueError`` on anything else).  ``ecc_band`` and
-    ``vmap_cameras`` are not ported and raise ``NotImplementedError``.
+    stages (raises ``ValueError`` on anything else).
+
+    ``vmap_cameras`` (default off): with two or more cameras in fft mode
+    or without registration, each batch's cameras run as one
+    (:func:`process_frames_cams_batched`), with the JAX package's rules
+    (phase1.py:746-758): no pre-shift, ``ecc_impl`` "auto" takes the dense
+    "jnp" step and "kernels" raises ``NotImplementedError``, the phase
+    correlation runs over the cameras at once.  In the other modes it is
+    ignored, as there.  ``ecc_band`` is not ported, by design, and raises
+    ``NotImplementedError``.
 
     ``mesh`` (:class:`~upsp_tpu_torch.parallel.mesh.Mesh` of two or more
     ranks): the chunk, whose frame count the caller pads to a multiple of
@@ -376,12 +474,6 @@ def make_chunk_processor(state, with_telemetry: bool = False,
             "ecc_band (the banded XLA warp oracle) is not ported, by design: it "
             "is MXU and banded-warp machinery, and the port's K2 has no band "
             "limit (ROADMAP.md queue 1, item 2)")
-    if vmap_cameras:
-        raise NotImplementedError(
-            "vmap_cameras is not ported yet: the JAX package runs it on the "
-            "dense 'jnp' Gauss-Newton step without the pre-shift "
-            "(upsp_tpu/pipeline/phase1.py:751-758), which the port's plain "
-            "dense step can carry (ROADMAP.md queue 1, item 2)")
     cfg = state.config
     cdtype = _as_compute_dtype(compute_dtype)
     route = ecc_route(ecc_impl)
@@ -397,6 +489,16 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     if pre_shift is None:
         pre_shift = route == "kernels"
     pre_shift = pre_shift and mode == "fft"
+    vmap_cameras = bool(vmap_cameras) and n_cams > 1 and (mode == "fft" or not pixel)
+    if vmap_cameras:
+        if ecc_impl == "kernels":
+            raise NotImplementedError(
+                "vmap_cameras runs the dense 'jnp' Gauss-Newton step: K3 takes one "
+                "template for the batch, and the lanes carry one each (as the JAX "
+                "package's Pallas moments refuse batched templates, "
+                "upsp_tpu/ops/pallas_ecc.py:633-634)")
+        ecc_impl, pre_shift = "jnp", False
+    core = process_frames_cams_batched if vmap_cameras else process_frames_core
     static = dict(
         registration=cfg.registration,
         patch=(cfg.target_patcher == "polynomial"),
@@ -425,6 +527,8 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     if mode == "fft":
         dec = default_decimate(*state.image_hw)
         corr_tmpls = [prepare_template(p.ref_frames[c], dec) for c in range(n_cams)]
+        corr_stack = corr_tmpls[0]._replace(
+            spectrum=torch.stack([t.spectrum for t in corr_tmpls]))
 
     unpack = (make_unpacker(packed_bits, lut, state.image_hw, state.device)
               if packed else None)
@@ -432,11 +536,14 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     def fft_batch(frames: torch.Tensor):
         b = frames.shape[0]
         if not pre_shift:
-            tvecs = torch.stack(
-                [correlate(corr_tmpls[c], frames[:, c]) for c in range(n_cams)],
-                dim=1)  # (B, C, 2), on the raw frames
+            if vmap_cameras:  # one batched FFT over the cameras
+                tvecs = correlate(corr_stack, frames)
+            else:
+                tvecs = torch.stack(
+                    [correlate(corr_tmpls[c], frames[:, c]) for c in range(n_cams)],
+                    dim=1)  # (B, C, 2), on the raw frames
             init = translation_warp(tvecs.reshape(-1, 2)).reshape(b, n_cams, 2, 3)
-            return process_frames_core(frames, p, warp_init=init, **static)
+            return core(frames, p, warp_init=init, **static)
         # hot-pixel repair first, then split the translation estimate:
         # integer part shifted off, sub-pixel residual solved by ECC; all
         # on the f32 frame, cast to the compute dtype after
@@ -483,7 +590,7 @@ def make_chunk_processor(state, with_telemetry: bool = False,
                 if mode == "fft":
                     sol, _, tele = fft_batch(frames)
                 else:
-                    sol, _, tele = process_frames_core(frames, p, **static)
+                    sol, _, tele = core(frames, p, **static)
                 sols.append(sol)
                 teles.append(tele)
         sols = torch.cat(sols)
@@ -503,6 +610,19 @@ def make_chunk_processor(state, with_telemetry: bool = False,
         return process(chunk[start:stop])
 
     return process_block
+
+
+def make_packed_chunk_processor(state, with_telemetry: bool = False,
+                                packed_bits: int = 12, lut=None, mesh=None,
+                                warm_start=True, **kw):
+    """Fused ingest (``upsp_tpu/pipeline/phase1.py:993-1017``): the chunk
+    program of (F, C, nbytes) uint8 packed camera bytes, unpacked on the
+    device (K7/K8) before the frame program; :func:`make_chunk_processor`
+    with ``packed=True`` (``warm_start`` defaults to the JAX wrapper's
+    scan starts; ``kw``: the other options)."""
+    return make_chunk_processor(state, with_telemetry=with_telemetry, packed=True,
+                                packed_bits=packed_bits, lut=lut, mesh=mesh,
+                                warm_start=warm_start, **kw)
 
 
 def process_frames(state, frames, batched: bool = True) -> torch.Tensor:

@@ -13,6 +13,13 @@ real content in every spectral bin) with darkened fiducial dots, shifted
 by a sub-pixel translation through a Fourier phase ramp; ``n_distinct``
 frames are synthesised and tiled to ``n_frames``.  Optionally a few
 frames carry hot pixels (see :func:`_add_hot_pixels`).
+
+It also holds the JAX package's in-memory builders
+(``upsp_tpu/pipeline/synthetic.py:29-210``): :func:`make_synthetic_state`,
+a phase-0 state with analytic projections and no file or BVH work, its
+:func:`make_reference_frame` templates and :func:`make_frame_batch`'s
+sub-pixel-shifted frames.  They are numpy, seeded as there, and give the
+same arrays; the state's tensors are on ``device``.
 """
 
 from __future__ import annotations
@@ -78,12 +85,14 @@ def _dots(image_hw, centers_px, radius_px) -> np.ndarray:
     return mask
 
 
-def _plate_grid(grid_shape):
+def make_plate_grid(imax: int, jmax: int, lx: float = PLATE[0],
+                    ly: float = PLATE[1]):
+    """An imax x jmax flat-plate PLOT3D surface grid over [0, lx] x [0, ly]
+    at z = 0."""
     from upsp_tpu_torch.io.plot3d import StructGrid
 
-    imax, jmax = grid_shape
-    gy, gx = np.meshgrid(np.linspace(0, PLATE[1], jmax),
-                         np.linspace(0, PLATE[0], imax), indexing="ij")
+    gy, gx = np.meshgrid(np.linspace(0, ly, jmax), np.linspace(0, lx, imax),
+                         indexing="ij")
     g = StructGrid()
     g.sz = [np.array([imax, jmax, 1], np.int32)]
     g.x = gx.ravel().astype(np.float32)
@@ -221,7 +230,7 @@ def write_datapoint(
     h, w = image_hw
     rng = np.random.default_rng(seed)
     fx = camera_focal(image_hw)
-    write_p3d_grid(os.path.join(root, "plate.grid"), _plate_grid(grid_shape))
+    write_p3d_grid(os.path.join(root, "plate.grid"), make_plate_grid(*grid_shape))
 
     targets = target_positions(n_targets, seed)
     diam = 7.0 * CAM_Z / fx  # ~7 px in the image
@@ -380,3 +389,159 @@ def write_calibration_inputs(root: str, frames: np.ndarray) -> dict:
         cams.append(cam_path)
     return {"cfg": cfg_path, "cal_dir": cal_dir, "imgs": imgs, "cams": cams,
             "max_dist": max_dist}
+
+
+# ---------------------------------------------------------------------------
+# in-memory scenes (upsp_tpu/pipeline/synthetic.py)
+
+
+def make_synthetic_state(
+    n_cameras: int = 1,
+    image_hw: Tuple[int, int] = (1024, 1024),
+    grid_shape: Tuple[int, int] = (160, 128),
+    n_patch_dots: int = 12,
+    registration: str = "pixel",
+    filter_type: str = "gaussian",
+    seed: int = 0,
+    overlap: str = "best_view",
+    device="cuda",
+):
+    """A deterministic phase-0 state without file IO or BVH work: the
+    flat plate under ``n_cameras`` overhead pinhole cameras, offset 0.4
+    apart in x, with analytic node->pixel projections, ``n_patch_dots``
+    random patch clusters a camera and :func:`make_reference_frame`
+    templates.  ``overlap`` "best_view" gives each node to the camera whose
+    projection lands nearest its image centre (one positive weight a node:
+    phase 1's combined gather); "average_view" keeps every seeing camera's
+    weight at 1 / n_cameras.  Tensors on ``device``."""
+    import torch
+
+    from upsp_tpu_torch.camera.model import make_camera_params
+    from upsp_tpu_torch.geometry.grids import from_struct_grid
+    from upsp_tpu_torch.ops.patching import build_patch_clusters, build_patch_operator
+    from upsp_tpu_torch.ops.projection import NodeProjection, identify_skipped_nodes
+    from upsp_tpu_torch.pipeline.config import CameraInputs, ProcessingConfig
+    from upsp_tpu_torch.pipeline.phase0 import Phase0State
+
+    H, W = image_hw
+    imax, jmax = grid_shape
+    rng = np.random.default_rng(seed)
+    grid = make_plate_grid(imax, jmax)
+    model = from_struct_grid(grid, tolerance=0.0)
+    cam_z = 20.0
+    fx = min(W, H) * cam_z / 12.0 * 0.86
+    cfg = ProcessingConfig(
+        test_id="synthetic-bench",
+        cameras=[CameraInputs(number=c + 1) for c in range(n_cameras)],
+        registration=registration,
+        filter=filter_type,
+        filter_size=3,
+        target_patcher="polynomial",
+    )
+    cam_params, patch_ops, ref_frames = [], [], []
+    proj = []  # per camera: (pixel_index, weight, u, v, visible), numpy
+    for c in range(n_cameras):
+        cx_world = 5.0 + 0.4 * c
+        rmat = np.array([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]])
+        tvec = np.array([-cx_world, 4.0, cam_z])
+        K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
+        cam_params.append(make_camera_params(rmat, tvec, K, np.zeros(5),
+                                             dtype=torch.float32))
+        u = W / 2 + fx * (grid.x - cx_world) / cam_z
+        v = H / 2 - fx * (grid.y - 4.0) / cam_z
+        visible = (u >= 0) & (u < W) & (v >= 0) & (v < H)
+        col = np.clip(np.rint(u), 0, W - 1).astype(np.int32)
+        row = np.clip(np.rint(v), 0, H - 1).astype(np.int32)
+        proj.append([np.where(visible, row * W + col, 0).astype(np.int64),
+                     (visible / max(n_cameras, 1)).astype(np.float32),
+                     (u / W).astype(np.float32), (v / H).astype(np.float32),
+                     visible])
+        dots = rng.uniform([0.08 * W, 0.08 * H], [0.92 * W, 0.92 * H],
+                           size=(n_patch_dots, 2))
+        diam = rng.uniform(4.0, 8.0, n_patch_dots)
+        patch_ops.append(build_patch_operator(
+            build_patch_clusters(dots, diam, image_hw, 3, 2), image_hw))
+        ref_frames.append(make_reference_frame(image_hw, seed=seed + c))
+    if overlap == "best_view" and n_cameras > 1:
+        uu = np.stack([p[2] for p in proj])
+        vv = np.stack([p[3] for p in proj])
+        vis = np.stack([p[4] for p in proj])
+        offc = np.hypot(uu - 0.5, vv - 0.5)
+        offc[~vis] = np.inf
+        best = offc.argmin(axis=0)
+        any_vis = vis.any(axis=0)
+        for c in range(n_cameras):
+            proj[c][1] = ((best == c) & any_vis).astype(np.float32)
+    cfg.overlap = overlap
+    device = torch.device(device)
+    projections = [
+        NodeProjection(*(torch.from_numpy(np.asarray(a)).to(device) for a in p))
+        for p in proj
+    ]
+    return Phase0State(
+        model=model,
+        bvh=None,
+        cam_params=cam_params,
+        projections=projections,
+        skipped=identify_skipped_nodes(projections),
+        patch_ops=[None if op is None else op.to(device) for op in patch_ops],
+        ref_frames=torch.from_numpy(np.stack(ref_frames)).to(device),
+        superseded_by=torch.as_tensor(np.asarray(model.superseded_by),
+                                      dtype=torch.int64, device=device),
+        image_hw=image_hw,
+        config=cfg,
+        device=device,
+    )
+
+
+def make_reference_frame(image_hw: Tuple[int, int], seed: int = 0) -> np.ndarray:
+    """A textured, well-lit 12-bit frame: a ramp, 24 Gaussian blobs and
+    noise (ECC needs gradients everywhere)."""
+    H, W = image_hw
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    img = 1800 + 0.9 * xx + 0.7 * yy
+    for _ in range(24):
+        cx, cy = rng.uniform(0, W), rng.uniform(0, H)
+        s = rng.uniform(W / 40, W / 8)
+        img += rng.uniform(120, 600) * np.exp(
+            -((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s * s)
+        )
+    img += rng.normal(0, 6.0, (H, W))
+    return np.clip(img, 0, 4095).astype(np.float32)
+
+
+def _subpixel_shift(img: np.ndarray, dx: float, dy: float) -> np.ndarray:
+    """Bilinear sub-pixel translation with edge replication (host numpy)."""
+    H, W = img.shape
+    ix, fx = int(np.floor(dx)), dx - np.floor(dx)
+    iy, fy = int(np.floor(dy)), dy - np.floor(dy)
+    pad = max(abs(ix) + 1, abs(iy) + 1)
+    p = np.pad(img, pad, mode="edge")
+    y0 = pad + iy
+    x0 = pad + ix
+    a = p[y0 : y0 + H, x0 : x0 + W]
+    b = p[y0 : y0 + H, x0 + 1 : x0 + 1 + W]
+    c = p[y0 + 1 : y0 + 1 + H, x0 : x0 + W]
+    d = p[y0 + 1 : y0 + 1 + H, x0 + 1 : x0 + 1 + W]
+    return (
+        a * (1 - fy) * (1 - fx) + b * (1 - fy) * fx + c * fy * (1 - fx)
+        + d * fy * fx
+    ).astype(np.float32)
+
+
+def make_frame_batch(state, n_frames: int, jitter_px: float = 0.6,
+                     seed: int = 1) -> np.ndarray:
+    """(F, C, H, W) float32: each camera's reference frame under a random
+    sub-pixel translation (bilinear, so registration has real work) and a
+    slow gain wobble."""
+    H, W = state.image_hw
+    rng = np.random.default_rng(seed)
+    ref = state.ref_frames.cpu().numpy()  # (C, H, W)
+    frames = np.empty((n_frames, ref.shape[0], H, W), np.float32)
+    for f in range(n_frames):
+        for c in range(ref.shape[0]):
+            dx, dy = rng.normal(0, jitter_px, 2)
+            shifted = _subpixel_shift(ref[c], dx, dy)
+            frames[f, c] = shifted * (1.0 + 0.01 * np.sin(2 * np.pi * f / 37))
+    return frames

@@ -17,6 +17,7 @@ import torch
 from upsp_tpu_torch.camera.model import CameraParams
 from upsp_tpu_torch.ops.patching import PatchNodeCorrection, PatchOperator
 from upsp_tpu_torch.ops.projection import NodeProjection
+from upsp_tpu_torch.ops.raycast import BVHArrays
 from upsp_tpu_torch.pipeline.phase0 import Phase0State
 from upsp_tpu_torch.pipeline.phase1 import Phase1Params, best_view_gather_plan
 
@@ -91,10 +92,27 @@ def _params_from_jax(params, device) -> Phase1Params:
     )
 
 
+def _bvh_dev(bvh, device):
+    """A JAX ``BVHArrays`` (the device walk's BVH) as the port's, or None."""
+    if bvh is None:
+        return None
+    return BVHArrays(
+        bbox_min=_t(bvh.bbox_min, device, np.float32),
+        bbox_max=_t(bvh.bbox_max, device, np.float32),
+        escape=_t(bvh.escape, device, np.int64),
+        leaf_count=_t(bvh.leaf_count, device, np.int32),
+        leaf_v0=_t(bvh.leaf_v0, device, np.float32),
+        leaf_e1=_t(bvh.leaf_e1, device, np.float32),
+        leaf_e2=_t(bvh.leaf_e2, device, np.float32),
+        leaf_tri_id=_t(bvh.leaf_tri_id, device, np.int32),
+    )
+
+
 def from_jax_state(state, device="cpu", params=None) -> Phase0State:
     """A JAX ``Phase0State`` (plus its ``Phase1Params``, if given) as the
     port's phase-0 state on ``device``.  Host-side members (the surface
-    model, the BVH, the config) are shared, not copied."""
+    model, the BVH, the config) are shared, not copied; the device walk's
+    BVH (``bvh_dev``, None on the native walk) is copied to ``device``."""
     dev = torch.device(device)
     return Phase0State(
         model=state.model,
@@ -110,4 +128,5 @@ def from_jax_state(state, device="cpu", params=None) -> Phase0State:
         patch_diags=state.patch_diags,
         device=dev,
         params=None if params is None else _params_from_jax(params, dev),
+        bvh_dev=_bvh_dev(getattr(state, "bvh_dev", None), dev),
     )
