@@ -28,6 +28,16 @@ From the root of a checkout, on a machine with a CUDA device:
    each run (and (e), (f) below) with the kernel launch counts reset just
    before and read just after, packed ingest on and hot pixels injected, in this order:
    (a) 2 cameras x 1024x1024 12-bit .mraw, 64 frames, 81,920 nodes;
+   (r) right after (a), on its files: the processing tree.  A data/user/
+       proc JSON names (a)'s inputs and options,
+       scripts/upsp-make-processing-tree-torch builds the tree, and its
+       03_launchers/step+psp_process runs the datapoint (scripts/ on PATH,
+       behind a wrapper that adds --timings to upsp-process-torch so the
+       run's launch counts can be read): K1-K7 launched, every flat file
+       bit for bit against a direct upsp-process-torch on the tree's deck
+       (as (a)'s deck sets number_frames, which the tree cannot render)
+       and compared with (a)'s; the tree's build time and the datapoint's
+       wall time;
    (c) 2 cameras x 1024x1024 10-bit packed .cine, 32 frames;
    (h) (c)'s configuration with the deck option pixel_interpolation =
        nearest, through --ecc-init scan (the while loop from the previous
@@ -86,7 +96,7 @@ From the root of a checkout, on a machine with a CUDA device:
    gathers, the f64 reduction and the barrier on a 64 x 1,048,576 block
    against torch, the exchange timed (the only NCCL code a one-card
    machine runs);
-   last, (l): external calibration on the card, in this process:
+   then (l): external calibration on the card, in this process:
    scripts/upsp-external-calibration-torch --joint_ba on (b)'s rig (4 x
    1200x1800 first frames of a faint-texture datapoint, the plate grid of
    1,048,576 nodes, 24 targets) from camera-tunnel poses perturbed as
@@ -98,6 +108,13 @@ From the root of a checkout, on a machine with a CUDA device:
    on the device walk and on the native walk, timed, their disagreements
    bounded by the grazing rays the jittered retries recovered, and the
    device walk at each look interval of L_CHECK_EVERY;
+   last, (q): bundle_adjust(mesh=) in f64 on (b)'s rig (4 cameras, (l)'s
+   24 targets) and on 4 cameras x 1,000 points, perturbed as
+   tests/test_torch_ba.py perturbs its rig: mesh=None, a one-rank NCCL
+   group in this process (bit for bit against mesh=None), then two gloo
+   ranks on the one card, each with half of the observations (poses and
+   points within 1e-8, rms within 1e-9 of mesh=None; the ranks equal),
+   each form timed and every solve repeated bit for bit; no K1-K9 kernel;
 5. checks each path's outputs (all flat files, the registration sidecar,
    output.h5 where h5py is installed, finite values on visible nodes, the
    kernels the path must launch, and for (d) that no f32 ECC kernel ran)
@@ -267,6 +284,15 @@ FORCES_SCRIPT = os.path.join(REPO, "scripts", "upsp-integrate-forces-torch")
 O_PANELS = 8
 # path (p): surface PSD
 P_NPERSEG, P_NAN_ROWS, P_SAMPLE = 32, 10, 1000
+# path (q): bundle adjustment across ranks, f64, on (b)'s rig with (l)'s
+# targets and on a wider rig, LM steps as the calibration CLI takes them
+Q_ITERS = 30
+Q_WIDE_POINTS = 1000
+Q_POSE_TOL, Q_RMS_TOL = 1e-8, 1e-9
+Q_OBS = ("cam_idx", "pt_idx", "uv", "weight")  # each rank's block of these
+# path (r): (a)'s files through the processing tree's psp_process launcher
+TREE_SCRIPT = os.path.join(REPO, "scripts", "upsp-make-processing-tree-torch")
+R_DP = "a"  # the datapoint's name in the tree
 HOST_OPS = ("aten._to_copy", "aten.copy_", "aten.lift_fresh", "aten.lift_fresh_copy",
             "aten.detach", "aten.alias", "aten.to", "aten.clone")
 DEVICE = "cuda"
@@ -1988,6 +2014,336 @@ def psd_path(dp, fs):
     return counts, dict(sec=sec, peak=peak)
 
 
+def deck_entries(path):
+    """(section, key, value) of each line of an input deck, in order; a
+    camera's "cine"/"mraw"/"filename" read as its "video"."""
+    out, section = [], None
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            if line.startswith("@"):
+                section = line[1:].split()[0]
+                continue
+            key, _, val = line.partition("=")
+            key = key.strip()
+            if section == "camera" and key in ("cine", "mraw", "filename"):
+                key = "video"
+            out.append((section, key, val.strip()))
+    return out
+
+
+def tree_path(dp):
+    """Path (r): the processing tree on (a)'s files.  A data/user/proc JSON
+    names every input and option of (a)'s deck;
+    ``upsp-make-processing-tree-torch`` builds the tree; ``03_launchers/step+psp_process`` runs with scripts/
+    on PATH, behind a wrapper named ``upsp-process-torch`` that adds
+    ``--timings`` (so the run's launch counts can be read; its process
+    starts with them at 0).  The keys of (a)'s deck are held against the
+    tree's deck: where (a) sets one the tree did not render, the
+    flat files are held bit for bit against a direct ``upsp-process-torch
+    -input_deck`` on the tree's deck, else against (a)'s own; (a)'s are
+    compared in any case, and printed.  The run must launch K1-K7.
+    Returns its launch counts and a summary."""
+    print("  -- path r: (a)'s files through the processing tree "
+          "(upsp-make-processing-tree-torch, then 03_launchers/step+psp_process)",
+          flush=True)
+    from upsp_tpu_torch.io.flatfile import FLAT_FILES
+    from upsp_tpu_torch.ops import cuda_lib
+
+    root = os.path.join(WORK, "r")
+    os.makedirs(root)
+    entries = deck_entries(dp["deck"])
+    data, opts = {"camera_videos": [], "camera_calibrations": []}, {}
+    for section, key, val in entries:
+        if section == "general":
+            data["test_id" if key == "test" else key] = val
+        elif section == "all":
+            data[key] = val
+        elif section == "camera" and key in ("video", "calibration"):
+            data[f"camera_{key}s"].append(val)
+        elif section == "options":
+            opts[key] = val
+    configs = {"data": {"datapoints": {R_DP: data}}, "user": {},
+               "proc": {"processing": {"psp_process": opts}}}
+    for name, cfg in configs.items():
+        with open(os.path.join(root, f"{name}.json"), "w") as fh:
+            json.dump(cfg, fh)
+    tree = os.path.join(root, "tree")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, TREE_SCRIPT, tree] + [
+        a for n in ("data", "user", "proc") for a in (f"--{n}", os.path.join(root, f"{n}.json"))],
+        capture_output=True, text=True, timeout=120)
+    build_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"upsp-make-processing-tree-torch built the tree in "
+          f"{build_s:.2f} s ({r.stdout.strip() or r.stderr[-2000:]})")
+    tree_deck = os.path.join(tree, "04_processing", "psp_process", R_DP, "input_deck.inp")
+    rendered = {(s, k) for s, k, _ in deck_entries(tree_deck)}
+    unrendered = sorted({f"@{s} {k}" for s, k, _ in entries
+                         if s != "output" and (s, k) not in rendered})
+    out = os.path.join(tree, "05_products", "00_data", "psp_process", R_DP)
+    launcher = os.path.join(tree, "03_launchers", "step+psp_process")
+    with open(launcher) as fh:
+        check(f"upsp-process-torch --datapoint \"$dp\" --root" in fh.read(),
+              "the launcher runs upsp-process-torch in tree mode")
+    bin_dir = os.path.join(root, "bin")
+    os.makedirs(bin_dir)
+    timings = os.path.join(root, "timings.json")
+    wrapper = os.path.join(bin_dir, "upsp-process-torch")
+    with open(wrapper, "w") as fh:
+        fh.write(f'#!/bin/sh\nexec "{sys.executable}" "{SCRIPT}" "$@" --timings '
+                 f'"{timings}"\n')
+    os.chmod(wrapper, 0o755)
+    env = dict(os.environ, PATH=os.pathsep.join(
+        [bin_dir, os.path.join(REPO, "scripts"), os.environ.get("PATH", "")]))
+    t0 = time.perf_counter()
+    r = subprocess.run([launcher, R_DP], capture_output=True, text=True, env=env,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode:
+        print(r.stdout[-3000:] + r.stderr[-6000:], flush=True)
+    check(r.returncode == 0, f"step+psp_process ran datapoint {R_DP} in {wall:.2f} s "
+          f"({r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ''})")
+    with open(timings) as fh:
+        t = json.load(fh)
+    counts = t["launches"]
+    print(f"  launches on this path: {counts}", flush=True)
+    for name in FRAME_KERNELS + ("unpack12",):
+        check(counts[name] > 0, f"kernel {name} launched on this path")
+    for name in FLAT_FILES:
+        check(os.path.exists(os.path.join(out, name)), f"output {name}")
+    print(f"  (a)'s deck sets {len(entries)} keys; the tree cannot render: "
+          f"{', '.join(unrendered) or 'none'}", flush=True)
+    same_a = all(open(os.path.join(out, n), "rb").read()
+                 == open(os.path.join(dp["out_dir"], n), "rb").read() for n in FLAT_FILES)
+    print(f"  (r)'s flat files bit for bit against (a)'s: {same_a}", flush=True)
+    if unrendered:
+        tree_out = out + ".launcher"
+        os.rename(out, tree_out)
+        t0 = time.perf_counter()
+        run_cli([SCRIPT, "-input_deck", tree_deck, "--device", DEVICE])
+        direct_s = time.perf_counter() - t0
+        for name in FLAT_FILES:
+            with open(os.path.join(tree_out, name), "rb") as a, \
+                    open(os.path.join(out, name), "rb") as b:
+                check(a.read() == b.read(), f"(r) {name} equals the direct run's on the "
+                      f"tree's deck bit for bit")
+        print(f"  direct upsp-process-torch -input_deck on the tree's deck in this "
+              f"process: {direct_s:.2f} s", flush=True)
+    else:
+        check(same_a, "(r)'s flat files equal (a)'s bit for bit")
+    print_stages("tree launcher (upsp-process-torch --datapoint --root)", wall, t)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, dict(build_s=build_s, wall=wall, unrendered=unrendered, same_a=same_a,
+                        stages=t)
+
+
+# one rank of path (q): its apportioned block of each problem's
+# observations, bundle_adjust over the mesh (the card: gloo, since the
+# ranks share it), twice (the second timed), its result and times saved
+Q_RANK = r"""
+import faulthandler, json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from upsp_tpu_torch.camera.ba import BAProblem, bundle_adjust
+from upsp_tpu_torch.ops import cuda_lib
+from upsp_tpu_torch.parallel.launcher import initialize_distributed
+from upsp_tpu_torch.parallel.mesh import apportion, barrier, make_mesh
+
+root, device, n_iters = sys.argv[1], sys.argv[2], int(sys.argv[3])
+faulthandler.dump_traceback_later(240, exit=True)  # a hang shows where
+initialize_distributed(timeout_s=120)
+mesh = make_mesh(device)
+cuda_lib.reset_launch_counts()
+info = dict(rank=mesh.rank, world=mesh.world, device=str(mesh.device),
+            backend=mesh.backend)
+sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+for name in sys.argv[4:]:
+    z = np.load(f"{root}/{name}.npz")
+    a, n = apportion(z["uv"].shape[0], mesh.world)[mesh.rank]
+    prob = BAProblem(**{k: torch.from_numpy(z[k][a:a + n] if k in OBS else z[k]).to(
+        mesh.device) for k in BAProblem._fields})
+    ms = []
+    for _ in range(2):
+        barrier(mesh)
+        t0 = time.perf_counter()
+        res = bundle_adjust(prob, n_iters=n_iters, mesh=mesh)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    np.savez(f"{root}/{name}.rank{mesh.rank}.npz", poses=res.poses.cpu().numpy(),
+             points=res.points.cpu().numpy(), rms=res.rms.cpu().numpy())
+    info[name] = dict(ms=ms, n_obs=n, n_iters=res.n_iters)
+info["launches"] = cuda_lib.launch_counts()
+with open(f"{root}/rank{mesh.rank}.json", "w") as fh:
+    json.dump(info, fh)
+dist.destroy_process_group()
+""".replace("OBS", repr(Q_OBS))
+
+
+def ba_problems():
+    """Path (q)'s two problems, f64 on the CPU: (b)'s rig (FULL_C overhead
+    cameras of write_datapoint at 1200x1800 over the plate) with (l)'s
+    L_TARGETS targets, and the same cameras over Q_WIDE_POINTS points; the
+    noise and perturbations of tests/test_torch_ba.py (0.05 px, poses
+    turned 0.15 deg about x and -0.1 deg about y and moved (0.03, -0.02,
+    0.05), points moved by 0.004, one observation unseen and one weighted
+    out, prior 0.01)."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.camera.ba import build_problem
+    from upsp_tpu_torch.camera.model import make_camera_params, project_points, rot
+    from upsp_tpu_torch.pipeline.synthetic import (
+        CAM_X, CAM_Y, CAM_Z, PLATE, camera_focal, target_positions)
+
+    h, w = FULL_H, FULL_W
+    fx = camera_focal((h, w))
+    K = np.array([[fx, 0.0, w / 2], [0.0, fx, h / 2], [0.0, 0.0, 1.0]])
+    dist = np.zeros(5)
+    rng = np.random.default_rng(57)
+    xy = target_positions(L_TARGETS, L_SPEC["seed"])
+    rig = np.concatenate([xy, np.zeros((len(xy), 1))], 1)
+    wide = np.stack([rng.uniform(0, PLATE[0], Q_WIDE_POINTS),
+                     rng.uniform(0, PLATE[1], Q_WIDE_POINTS),
+                     rng.normal(0, 0.05, Q_WIDE_POINTS)], 1)
+    out = {}
+    for name, pts in (("rig", rig), ("wide", wide)):
+        cams, obs = [], []
+        for c in range(FULL_C):
+            rmat = np.diag([1.0, -1.0, -1.0])
+            tvec = np.array([-CAM_X[c], CAM_Y, CAM_Z])
+            uv = project_points(make_camera_params(rmat, tvec, K, dist),
+                                torch.from_numpy(pts)).numpy()
+            uv = uv + rng.normal(0, 0.05, uv.shape)
+            obs += [(c, k, uv[k]) for k in range(len(pts)) if (c, k) != (1, 7)]
+            cams.append(make_camera_params(rot(0.15, "x") @ rot(-0.1, "y") @ rmat,
+                                           tvec + np.array([0.03, -0.02, 0.05]), K, dist))
+        prob = build_problem(cams, pts + rng.normal(0, 0.004, pts.shape), obs,
+                             prior_sigma=0.01, device="cpu")
+        out[name] = prob._replace(weight=prob.weight.index_fill(0, torch.tensor([5]), 0.0))
+    return out
+
+
+def ba_mesh_path():
+    """Path (q): ``bundle_adjust(mesh=)`` on the card in f64, on the two
+    problems of :func:`ba_problems`.  In this process: ``mesh=None``, then
+    a one-rank NCCL group (as path (k) makes one), which must equal
+    ``mesh=None`` bit for bit.  Then RANKS gloo ranks on the one card
+    (``run_local_ranks``, under RANK_TIMEOUT_S), each holding its
+    ``mesh.apportion`` block of the observations: every rank's poses and
+    points within Q_POSE_TOL and rms within Q_RMS_TOL of ``mesh=None``,
+    and all ranks equal bit for bit.  Each form is timed (host clock after
+    a synchronize, the second of two solves); no K1-K9 kernel may launch.
+    Returns the in-process launch counts and the times."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from upsp_tpu_torch.camera.ba import bundle_adjust
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.parallel.launcher import (
+        free_port, initialize_distributed, run_local_ranks)
+    from upsp_tpu_torch.parallel.mesh import make_mesh
+
+    print(f"  -- path q: bundle_adjust(mesh=) in f64 on {DEVICE}: (b)'s rig with "
+          f"{L_TARGETS} targets and {FULL_C} cameras x {Q_WIDE_POINTS} points, "
+          f"{Q_ITERS} LM steps", flush=True)
+    probs = ba_problems()
+    root = os.path.join(WORK, "q")
+    os.makedirs(root)
+    for name, prob in probs.items():
+        np.savez(os.path.join(root, f"{name}.npz"),
+                 **{k: getattr(prob, k).numpy() for k in prob._fields})
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, k), getattr(b, k))
+                   for k in ("poses", "points", "rms"))
+
+    def timed(prob, mesh=None):
+        """Two solves (the second timed), which must agree bit for bit."""
+        ms, out = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(bundle_adjust(prob, n_iters=Q_ITERS, mesh=mesh))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        check(same(*out), "the solve repeats bit for bit")
+        return out[1], ms
+
+    cuda_lib.reset_launch_counts()
+    single, res = {}, {}
+    on_card = {n: p._replace(**{k: getattr(p, k).to(DEVICE) for k in p._fields})
+               for n, p in probs.items()}
+    for name, prob in on_card.items():
+        single[name], ms = timed(prob)
+        W = prob.poses.shape[0] * prob.points.shape[0] * 18
+        res[name] = dict(none_ms=ms, n_obs=prob.uv.shape[0], W=W,
+                         rms=float(single[name].rms), n_iters=single[name].n_iters)
+        check(bool(torch.isfinite(single[name].poses).all()) and float(single[name].rms) < 1.0,
+              f"{name}: mesh=None on {DEVICE}, O = {prob.uv.shape[0]}, W "
+              f"{W:,} f64, rms {float(single[name].rms):.4f} px, {single[name].n_iters} "
+              f"LM steps, {ms[1]:.1f} ms (first {ms[0]:.1f} ms)")
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=120)
+    try:
+        mesh = make_mesh(DEVICE)
+        want = "nccl" if DEVICE == "cuda" else "gloo"
+        check(mesh.backend == want and mesh.group is not None,
+              f"a one-rank {want} group on {mesh.device}")
+        for name, prob in on_card.items():
+            got, ms = timed(prob, mesh)
+            res[name]["one_rank_ms"] = ms
+            check(same(got, single[name]), f"{name}: bundle_adjust(mesh=) on one "
+                  f"{want} rank equals mesh=None bit for bit ({ms[1]:.1f} ms)")
+    finally:
+        dist.destroy_process_group()
+    counts = cuda_lib.launch_counts()
+    log = os.path.join(root, "ranks.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        rcs = run_local_ranks([sys.executable, "-c", Q_RANK, root, DEVICE, str(Q_ITERS),
+                               *probs], RANKS, timeout_s=RANK_TIMEOUT_S,
+                              env=dict(os.environ, PYTHONPATH=REPO),
+                              stdout=fh, stderr=subprocess.STDOUT)
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        with open(log) as fh:
+            print(fh.read()[-6000:], flush=True)
+    check(rcs == [0] * RANKS, f"{RANKS} ranks exited 0 ({rcs}) in {wall:.2f} s")
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+        t = ranks[-1]
+        check((t["rank"], t["world"], t["backend"]) == (r, RANKS, "gloo")
+              and t["device"].startswith(DEVICE) and not any(t["launches"].values()),
+              f"rank {r} of {RANKS} on {t['device']} through gloo, no K1-K9 launched")
+    for name in probs:
+        results = [dict(np.load(os.path.join(root, f"{name}.rank{r}.npz")))
+                   for r in range(RANKS)]
+        s = single[name]
+        d_pose = max(float(np.abs(results[0][k] - getattr(s, k).cpu().numpy()).max())
+                     for k in ("poses", "points"))
+        d_rms = abs(float(results[0]["rms"]) - float(s.rms))
+        check(d_pose <= Q_POSE_TOL and d_rms <= Q_RMS_TOL,
+              f"{name}: {RANKS} gloo ranks ({', '.join(str(t[name]['n_obs']) for t in ranks)}"
+              f" observations) against mesh=None: poses and points within {d_pose:.2e} "
+              f"<= {Q_POSE_TOL}, rms within {d_rms:.2e} <= {Q_RMS_TOL}")
+        check(all(np.array_equal(x[k], results[0][k]) for x in results[1:]
+                  for k in ("poses", "points", "rms")),
+              f"{name}: every rank returns the same result bit for bit")
+        res[name]["ranks_ms"] = [t[name]["ms"] for t in ranks]
+        print(f"  {name}: {res[name]['n_iters']} LM steps; mesh=None "
+              f"{res[name]['none_ms'][1]:.1f} ms, one NCCL rank "
+              f"{res[name]['one_rank_ms'][1]:.1f} ms, {RANKS} gloo ranks on one card "
+              + " / ".join(f"{t[name]['ms'][1]:.1f}" for t in ranks) + " ms (first "
+              + " / ".join(f"{t[name]['ms'][0]:.1f}" for t in ranks) + " ms)", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return counts, dict(res, ranks_wall=wall)
+
+
 def full_config_paths(by_path, phase_s):
     """Paths (b) and (d) on one full-config datapoint, written once: (b) in
     f32, (d) in bf16 with its batch also held against (b)'s; (g) on its
@@ -2124,8 +2480,12 @@ def main() -> int:
             p = label.split(":")[0]
             dp = write_path_datapoint(p, spec)
             by_path[p], _ = datapoint_path(label, dp, spec, batch, expect, "float32")
-            shutil.rmtree(os.path.join(WORK, p), ignore_errors=True)
             phase_s[f"path {p}"] = time.perf_counter() - t0
+            if p == "a":  # the processing tree, on (a)'s files and outputs
+                t0 = time.perf_counter()
+                by_path["r"], r_res = tree_path(dp)
+                phase_s["path r"] = time.perf_counter() - t0
+            shutil.rmtree(os.path.join(WORK, p), ignore_errors=True)
         t0 = time.perf_counter()
         label, spec, batch, expect = H_PATH
         dp = write_path_datapoint("h", spec)
@@ -2146,6 +2506,11 @@ def main() -> int:
         phase_s["path l"] = time.perf_counter() - t0
         check(not any(by_path["l"].values()), "path l launched no K1-K9 kernel "
               "(calibration reaches no TPU kernel)")
+        t0 = time.perf_counter()
+        by_path["q"], q_res = ba_mesh_path()
+        phase_s["path q"] = time.perf_counter() - t0
+        check(not any(by_path["q"].values()), "path q launched no K1-K9 kernel "
+              "(bundle adjustment reaches no TPU kernel)")
         for r in rows:
             if r["name"] in KERNEL_PHASE_ONLY:
                 r.update(launches_by_path={}, launches=0, kernel_phase_only=True)
@@ -2174,6 +2539,17 @@ def main() -> int:
           f"{lw['grazing']}); camera 1's device walk with a look every k steps: "
           + ", ".join(f"k={k} {lw[f'check_every_{k}_s']:.3f} s" for k in L_CHECK_EVERY),
           flush=True)
+    print(f"path (q): bundle_adjust(mesh=), f64, {Q_ITERS} LM steps: " + "; ".join(
+        f"{n} (O = {q_res[n]['n_obs']}, W {q_res[n]['W']:,} f64) mesh=None "
+        f"{q_res[n]['none_ms'][1]:.1f} ms, one NCCL rank {q_res[n]['one_rank_ms'][1]:.1f} "
+        f"ms, {RANKS} gloo ranks " + " / ".join(f"{m[1]:.1f}" for m in q_res[n]["ranks_ms"])
+        + " ms" for n in ("rig", "wide")) + f"; the ranks' processes {q_res['ranks_wall']:.2f} s",
+        flush=True)
+    print(f"path (r): processing tree built in {r_res['build_s']:.2f} s; step+psp_process "
+          f"ran (a)'s datapoint in {r_res['wall']:.2f} s (phase 1 "
+          f"{r_res['stages']['frames_per_s']:.1f} frames/s after set-up); deck keys the "
+          f"tree cannot render: {', '.join(r_res['unrendered']) or 'none'}; flat files "
+          f"bit for bit against (a)'s: {r_res['same_a']}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check; "
           f"by phase: " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items()),
           flush=True)

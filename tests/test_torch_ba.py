@@ -5,7 +5,9 @@ A 3-camera rig around a plate of 30 targets (tests/test_ba.py's rig),
 noisy observations, perturbed poses and targets, one observation
 weighted out: the solved poses and points within 1e-8 and the rms within
 1e-10 of the JAX package's; the assembled problem, the dense Schur
-system and ``poses_to_rmat_tvec`` equal; ``axis_name`` raises.
+system and ``poses_to_rmat_tvec`` equal; ``axis_name`` (a JAX mesh axis)
+raises a TypeError that names ``mesh=``, its torch counterpart
+(tests/test_torch_ba_mesh.py).
 """
 
 import jax.numpy as jnp
@@ -90,5 +92,5 @@ def test_bundle_adjust_matches_jax(rig, n_iters):
 
 def test_axis_name_is_not_ported(rig):
     _, t = _problems(rig)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="mesh="):
         TB.bundle_adjust(t, n_iters=1, axis_name="x")

@@ -2,7 +2,10 @@
 and its CLI drives a datapoint.
 
 By source: no file of the port, nor its CLIs, nor ``chip_smoke.py`` names an
-import root ``jax``, ``jaxlib`` or ``upsp_tpu``.  At run time: each case
+import root ``jax``, ``jaxlib`` or ``upsp_tpu``; and the port has every
+module and public top-level name of the JAX package but the Pallas modules
+and the names it leaves out by design (``UNPORTED_BY_DESIGN``, each with
+its reason).  At run time: each case
 runs in a fresh interpreter (this pytest process has both loaded already)
 and finds no ``jax`` and no ``upsp_tpu`` module in ``sys.modules`` after a
 datapoint.
@@ -22,8 +25,31 @@ PORT_SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "upsp_tpu_torch", "**", "*.py"),
                        recursive=True)
-) + ["scripts/upsp-process-torch", "scripts/upsp-external-calibration-torch",
-     "scripts/upsp-integrate-forces-torch", "chip_smoke.py"]
+) + sorted(os.path.relpath(p, REPO)
+           for p in glob.glob(os.path.join(REPO, "scripts", "*-torch"))) + ["chip_smoke.py"]
+PORT_SCRIPTS = ("upsp-process-torch", "upsp-external-calibration-torch",
+                "upsp-integrate-forces-torch", "upsp-make-processing-tree-torch",
+                "upsp-kulite-comparison-torch", "upsp-extract-frames-torch",
+                "upsp-plotting-torch")
+
+# What of the JAX package's public top-level names the port does not have,
+# by design, and why.  The three Pallas modules (ops/pallas_{ecc,gather,
+# unpack}.py) are answered by ops/{ecc,gather,unpack}_kernels.py and
+# csrc/*.cu.  Everything else of upsp_tpu/ has a twin of the same module
+# path and name (test_port_has_every_public_name).
+PALLAS_MODULES = ("ops/pallas_ecc.py", "ops/pallas_gather.py", "ops/pallas_unpack.py")
+UNPORTED_BY_DESIGN = {
+    "ops/image.py": {"gaussian_blur_matrix_1d": "the blur as an MXU matmul; K1 blurs"},
+    "ops/warp.py": {"warp_affine_mxu": "the warp as MXU matmuls; K2 warps"},
+    "parallel/mesh.py": {
+        "FRAMES_AXIS": "a jax.sharding mesh axis name; torch.distributed has none",
+        "HOSTS_AXIS": "a jax.sharding mesh axis name; torch.distributed has none",
+        "mesh_axes": "jax.sharding axes of a device mesh",
+        "replicated": "a jax.sharding placement of one global array",
+        "shard_frames": "a jax.sharding placement of one global array",
+    },
+    "pipeline/phase2.py": {"log": "a module logger, not used there"},
+}
 
 # no module of jax nor of the JAX package may be loaded
 _NO_JAX = r"""
@@ -164,6 +190,83 @@ def test_packed_path_runs_without_jax():
     r = _run([sys.executable, "-c", _PACKED])
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().endswith("OK")
+
+
+# the host-side tools' modules, then each new entry point's --help
+_TOOLS = r"""
+import importlib, runpy, sys
+for m in ("processing.tree", "processing.kulites", "processing.kulite_selection",
+          "processing.p3d_export", "geometry.primitives", "ops.pointset", "ops.blob",
+          "ops.polyfit", "ops.patching", "ops.fftreg", "utils.timing",
+          "parallel.launcher", "io.video"):
+    importlib.import_module("upsp_tpu_torch." + m)
+for script in sys.argv[1:]:
+    sys.argv = [script, "--help"]
+    try:
+        runpy.run_path(script, run_name="__main__")
+    except SystemExit as e:
+        assert e.code in (0, None), (script, e.code)
+""" + _NO_JAX + """
+print("OK")
+"""
+
+
+def test_tools_load_no_jax():
+    r = _run([sys.executable, "-c", _TOOLS] + [
+        os.path.join(REPO, "scripts", s) for s in PORT_SCRIPTS[3:]])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("OK")
+
+
+def _public_names(path):
+    """The public names a module defines at its top level (functions,
+    classes, assignments; not what it imports)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+JAX_MODULES = sorted(
+    os.path.relpath(p, os.path.join(REPO, "upsp_tpu"))
+    for p in glob.glob(os.path.join(REPO, "upsp_tpu", "**", "*.py"), recursive=True))
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_port_has_every_public_name(module):
+    """Each module of the JAX package has a twin at the same path in the
+    port, with every public top-level name it defines, but the Pallas
+    modules and UNPORTED_BY_DESIGN (each with its reason)."""
+    if module in PALLAS_MODULES:
+        assert not os.path.exists(os.path.join(REPO, "upsp_tpu_torch", module))
+        return
+    port = os.path.join(REPO, "upsp_tpu_torch", module)
+    assert os.path.exists(port), module
+    missing = _public_names(os.path.join(REPO, "upsp_tpu", module)) - _public_names(port)
+    assert missing == set(UNPORTED_BY_DESIGN.get(module, {})), module
+
+
+def test_every_script_has_a_port_twin():
+    """Every script that imports the JAX package has a ``-torch`` twin;
+    the others are shared by both packages."""
+    shared = []
+    for path in sorted(glob.glob(os.path.join(REPO, "scripts", "upsp-*"))):
+        name = os.path.basename(path)
+        if name.endswith("-torch"):
+            continue
+        if _import_roots(os.path.relpath(path, REPO)) & {"jax", "upsp_tpu"}:
+            assert name + "-torch" in PORT_SCRIPTS, name
+        else:
+            shared.append(name)
+    assert shared == ["upsp-add-field", "upsp-matrix-transpose", "upsp-qsub-args",
+                      "upsp-vv-compare", "upsp-xyz-scalar-to-tbl"]
 
 
 def _import_roots(path):

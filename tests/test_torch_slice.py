@@ -19,6 +19,7 @@ state and model temperature exactly.
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -115,3 +116,56 @@ def test_hdf5_datasets(runs):
                 np.testing.assert_allclose(b[v], a[v], err_msg=n, **tol)
             else:
                 assert np.array_equal(a, b), n
+
+
+@pytest.mark.parametrize("script", ["upsp-add-field", "upsp-xyz-scalar-to-tbl"])
+def test_shared_script_reads_port_outputs(runs, tmp_path, script):
+    """The scripts both packages share read the port's files as they read
+    the JAX package's: ``upsp-add-field`` appends ``pressure_transpose`` to
+    a copy of ``output.h5`` (the port's values exactly; against the JAX
+    package's run within the ratio bound), ``upsp-xyz-scalar-to-tbl``
+    tabulates X, Y, Z (exactly) and ``avg`` (ratio bound)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    jdir, tdir, _, _ = runs
+    out = {}
+    for which, d in (("jax", jdir), ("port", tdir)):
+        if script == "upsp-add-field":
+            h5py = pytest.importorskip("h5py")
+            dst = str(tmp_path / f"{which}.h5")
+            shutil.copy(os.path.join(d, "output.h5"), dst)
+            args = [dst, os.path.join(d, "pressure_transpose"), "--frames", "12",
+                    "--block_nodes", "500"]
+        else:
+            dst = str(tmp_path / f"{which}.tbl")
+            args = [f"--{a.lower()}={os.path.join(d, a)}" for a in "XYZ"]
+            args += ["--scalar", os.path.join(d, "avg"), "--name", "avg", "--out", dst]
+        r = subprocess.run([sys.executable, os.path.join(repo, "scripts", script), *args],
+                           capture_output=True, text=True, timeout=120,
+                           env=dict(os.environ, PYTHONPATH=repo))
+        assert r.returncode == 0, r.stderr[-3000:]
+        if script == "upsp-add-field":
+            with h5py.File(dst) as f:
+                out[which] = (r.stdout, f["frames"][()])
+        else:
+            with open(dst) as fh:
+                lines = fh.read().splitlines()
+            rows = np.array([ln.split() for ln in lines[3:]], dtype=np.float64)
+            out[which] = (r.stdout.replace(dst, ""), lines[:3], rows)
+    assert out["port"][0] == out["jax"][0]
+    if script == "upsp-add-field":
+        got, want = out["port"][1], out["jax"][1]
+        press = read_flat(os.path.join(tdir, "pressure_transpose")).reshape(got.shape)
+        np.testing.assert_array_equal(got, press)
+    else:
+        assert out["port"][1] == out["jax"][1]
+        np.testing.assert_array_equal(out["port"][2][:, :3], out["jax"][2][:, :3])
+        got, want = out["port"][2][:, 3], out["jax"][2][:, 3]
+        avg = read_flat(os.path.join(tdir, "avg"))
+        np.testing.assert_array_equal(got, [float(f"{x:.7g}") for x in avg])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    v = np.isfinite(want)
+    assert v.any()
+    np.testing.assert_allclose(got[v], want[v], atol=5e-4, rtol=0)

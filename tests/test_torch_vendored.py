@@ -4,9 +4,12 @@
 that need no jax (``io``, ``geometry``, ``native``, ``pipeline.config``,
 ``pipeline.interpolate``, ``processing.context``, ``camera.tunnel``,
 ``camera.matching``, ``camera.internal``, ``ops.detection``,
-``ops.panels`` and ``ops.image.scale_image{,_max_inlier}``, and the numpy
-parts of ``ops.integration`` and ``pipeline.synthetic``) are copied into
-it.  Each
+``ops.panels`` and ``ops.image.scale_image{,_max_inlier}``, the numpy
+parts of ``ops.integration`` and ``pipeline.synthetic``, and the host-side
+tools: ``geometry.primitives``, ``ops.{pointset,blob}``,
+``processing.{tree,kulites,kulite_selection,p3d_export}``, the numpy
+helpers of ``ops.{polyfit,patching}``, ``FramePrefetcher``,
+``host_reads_for_datapoint`` and ``BlockTimer``) are copied into it.  Each
 case feeds one seeded input to a copy and to its original and requires the
 same result: equal arrays (NaN at the same places), equal fields, equal
 bytes on disk.
@@ -50,6 +53,31 @@ from upsp_tpu_torch.pipeline import config as t_config
 from upsp_tpu_torch.pipeline import interpolate as t_interpolate
 from upsp_tpu_torch.pipeline.synthetic import write_datapoint
 from upsp_tpu_torch.processing import context as t_context
+
+
+def write_kulite_info(d, run, seq):
+    """A kulite datapoint's ``.info``/``.fast``/``.slow`` files, as
+    tests/test_psd_kulites.py writes them: two channels K01, K02."""
+    name = f"wtT{run}p{seq}t1"
+    lines = ["\t".join(["0", "3", "File Name"])]
+    lines += ["\t".join([str(k + 1), str(k), name + ext])
+              for k, ext in enumerate((".info", ".fast", ".slow"))]
+    lines.append("\t".join(["0", "2", "Sampling Rate", "Number Channels",
+                            "Samples Acquired"]))
+    lines.append("\t".join(["1", "0", "40000", "2", "32"]))
+    lines.append("\t".join(["2", "1", "1000", "2", "8"]))
+    lines.append("\t".join(["0", "1", "Device"]))
+    lines.append("\t".join(["1", "0", "PXI"]))
+    lines.append("\t".join(["0", "2", "User Name", "User Channel", "Coeff k1",
+                            "Coeff k0", "Sensitivity", "Offset"]))
+    for ch in (1, 2):
+        lines.append("\t".join([str(ch), str(ch - 1), f"K{ch:02d}", str(ch), "0.001",
+                                "0.05", "2.0", "0.1"]))
+    (d / (name + ".info")).write_text("\n".join(lines) + "\n")
+    rng = np.random.default_rng(7)
+    rng.integers(-1000, 1000, size=(32, 2)).astype("<i4").tofile(d / (name + ".fast"))
+    rng.integers(-1000, 1000, size=(8, 2)).astype("<i4").tofile(d / (name + ".slow"))
+    return name
 
 
 def assert_same(a, b, where="value"):
@@ -522,11 +550,276 @@ def _scale_image(_dp, _tmp):
     assert_same(t_image.scale_image_max_inlier(img), j_image.scale_image_max_inlier(img))
 
 
+def _primitives(dp, _tmp):
+    from upsp_tpu.geometry import primitives as j_prim
+    from upsp_tpu_torch.geometry import primitives as t_prim
+
+    rng = np.random.default_rng(17)
+    a, b, c = rng.normal(0, 1, (3, 3))
+    o, d = rng.normal(0, 1, 3), rng.normal(0, 1, 3)
+    lo, hi = np.array([-1.0, -0.5, -2.0]), np.array([1.0, 1.5, 0.5])
+    pts = rng.uniform(-2, 2, (200, 3))
+    model = j_grids.load_model(t_config.read_input_deck(dp["mraw12"]["deck"]).grid)
+
+    def run(m):
+        plane = m.plane_from_points(a, b, c)
+        poly = m.box_polyhedron(lo, hi)
+        inset = np.array([0.5, 0.5, -0.1])  # a flat plate: the box is thicker
+        box = m.box_polyhedron(model.vertices.min(0) + inset,
+                               model.vertices.max(0) - inset)
+        return (plane, plane.offset, m.ray_plane_intersect(o, d, plane),
+                m.ray_box_intersect(o, d, lo, hi),
+                m.ray_box_intersect(np.zeros(3), np.array([0.0, 0.0, 1.0]), lo, hi),
+                m.ray_triangle_intersect(np.array([0.1, 0.1, 1.0]),
+                                         np.array([0.0, 0.0, -1.0]), *np.eye(3)),
+                m.ray_triangle_intersect(o, d, a, b, c), poly,
+                m.points_in_polyhedron(pts, poly), m.points_in_polyhedron(pts, poly, 0.1),
+                m.ray_polyhedron_intersect(np.array([0.0, 0.0, 5.0]),
+                                           np.array([0.0, 0.0, -1.0]), poly),
+                m.nodes_in_polyhedron(model, box), m.triangle_area_normal(a, b, c),
+                [m.get_perpendicular(v) for v in (a, np.array([0.0, 0.0, 1.0]))])
+
+    got = run(t_prim)
+    assert 0 < got[8].sum() < 200 and got[11].size > 0
+    assert_same(got, run(j_prim))
+
+
+def _pointset(_dp, _tmp):
+    from upsp_tpu.ops import pointset as j_ps
+    from upsp_tpu_torch.ops import pointset as t_ps
+
+    rng = np.random.default_rng(18)
+    ref = rng.uniform(0, 10, (40, 2))
+    th = np.deg2rad(4.0)
+    rmat = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    pts = ref[5:] @ rmat.T + [0.3, -0.2] + rng.normal(0, 0.01, (35, 2))
+    pts3 = np.concatenate([pts, rng.normal(0, 0.1, (35, 1))], 1)
+    ref3 = np.concatenate([ref, np.zeros((40, 1))], 1)
+
+    def run(m):
+        match = m.closest_point(ref, pts, 0.5)
+        return (match, m.closest_point(ref, pts), m.closest_point(ref, pts[:0]),
+                m.closest_point_unique(ref, pts, 0.5),
+                m.iterative_closest_point(ref, pts), m.iterative_closest_point(ref3, pts3),
+                m.coherent_point_drift(ref, pts, mode="rigid"),
+                m.coherent_point_drift(ref, pts, mode="affine", w=0.1),
+                m.unmatch_outliers(ref, pts, match, 2.0))
+
+    assert_same(run(t_ps), run(j_ps))
+
+
+def _blob(_dp, _tmp):
+    from upsp_tpu.ops import blob as j_blob
+    from upsp_tpu_torch.ops import blob as t_blob
+
+    rng = np.random.default_rng(19)
+    img = np.full((64, 96), 3000.0)
+    yy, xx = np.mgrid[0:64, 0:96]
+    for cx, cy, r2 in ((20, 30, 9), (70, 40, 12), (50, 10, 2), (85, 55, 40)):
+        img[(xx - cx) ** 2 + (yy - cy) ** 2 < r2] = 500.0
+    img += rng.normal(0, 10, img.shape)
+    for kw in (dict(min_diameter=3, max_diameter=12), dict(), dict(min_circularity=0.9)):
+        got = t_blob.find_targets(img, **kw)
+        assert_same(got, j_blob.find_targets(img, **kw))
+    assert len(t_blob.find_targets(img, min_diameter=3, max_diameter=12)) >= 2
+    assert_same(t_blob.find_targets(np.ones((8, 8))), j_blob.find_targets(np.ones((8, 8))))
+
+
+def _processing_tree(_dp, tmp):
+    """resolve_parameter_overlays equal; create() writes the same tree but
+    for the launchers' scripts, the generator strings and the date (the
+    whole trees are compared in tests/test_torch_tools.py)."""
+    from upsp_tpu.processing import tree as j_tree
+    from upsp_tpu_torch.processing import tree as t_tree
+
+    dps = {"3000101": {"run": 1, "grid": "/g/a.grid"}, "3000201": {"grid": "/g/b_fine.grid"}}
+    proc = {"psp_process": {"filter_size": 3, "__overlays__": [
+                {"__regex__": {"grid": "fine"}, "filter_size": 5},
+                {"__regex__": {"name": "^30001"}, "degree": 4}]},
+            "__meta__": {}, "other": {"a": 1}}
+    assert_same(t_tree.resolve_parameter_overlays(proc, dps),
+                j_tree.resolve_parameter_overlays(proc, dps))
+    assert t_tree.STEPS == j_tree.STEPS
+    for step in t_tree.STEPS:
+        assert_same(t_tree._input_deck("3000101", dps["3000101"], {"degree": 4, "x": 1},
+                                       "/o"),
+                    j_tree._input_deck("3000101", dps["3000101"], {"degree": 4, "x": 1},
+                                       "/o"))
+
+
+def _kulites(_dp, tmp):
+    """The .info/.fast/.slow readers (tests/test_psd_kulites.py's fixture
+    layout), the kulite positions from a tgts file, the analysis helpers."""
+    pytest.importorskip("pandas")
+    from upsp_tpu.processing import kulites as j_kul
+    from upsp_tpu_torch.processing import kulites as t_kul
+
+    write_kulite_info(tmp, 123, 4)
+    (tmp / "wtT999p9t1.info").write_text("")
+    (tmp / "xr0123s004t1_S1C1.info").write_text("")
+    assert_same(t_kul.find_info_files(str(tmp), 123, 4),
+                j_kul.find_info_files(str(tmp), 123, 4))
+    (tmp / "xr0123s004t1_S1C1.info").unlink()
+    info = str(tmp / "wtT123p4t1.info")
+    ti, ji = t_kul.read_info(info), j_kul.read_info(info)
+    for a, b in zip(ti[1:], ji[1:]):
+        assert a.equals(b)
+    for kw in (dict(f_type="slow"), dict(f_type="fast", psf=True), dict(kulites=["K02"])):
+        tk, jk = t_kul.Kulites(str(tmp), 123, 4, **kw), j_kul.Kulites(str(tmp), 123, 4, **kw)
+        assert_same((tk.data, tk.raw, tk.sample_rate), (jk.data, jk.raw, jk.sample_rate))
+    rng = np.random.default_rng(20)
+    data = {"K01": rng.normal(0, 1, 4096), "K02": rng.normal(0, 2, 4096)}
+    psd = t_kul.compute_psd(data, 1000.0, 256)
+    assert_same(psd, j_kul.compute_psd(data, 1000.0, 256))
+    from scipy import signal
+
+    sos = signal.butter(4, 100.0, fs=1000.0, output="sos")
+    for f in (None, sos):
+        assert_same(t_kul.compute_delta_rms(data, f), j_kul.compute_delta_rms(data, f))
+    for f0 in (None, 50.0):
+        assert_same(t_kul.compute_rms_from_psd(psd, f0), j_kul.compute_rms_from_psd(psd, f0))
+    tgts = tmp / "k.tgts"
+    tgts.write_text("*Targets\n1 1.0 2.0 3.0 0.0 0.0 1.0 0.1 1 1 1 K01\n"
+                    "2 4.0 5.0 6.0 0.0 0.0 1.0 0.1 1 1 1 st02\n"
+                    "*Kulites\n3 7.0 8.0 9.0 0.0 0.0 1.0 0.1 1 1 1 K03\n")
+    got = t_kul.read_kulite_positions(str(tgts))
+    assert_same(got, j_kul.read_kulite_positions(str(tgts)))
+    frames = rng.normal(0, 1, (5, 20, 30)).astype(np.float32)
+    uv = np.array([[3.2, 4.7], [0.0, 0.0], [29.6, 19.4]])
+    assert_same(t_kul.virtual_kulite_histories(frames, uv, 2),
+                j_kul.virtual_kulite_histories(frames, uv, 2))
+
+
+def _kulite_selection(dp, tmp):
+    from upsp_tpu.processing import kulite_selection as j_ks
+    from upsp_tpu_torch.processing import kulite_selection as t_ks
+
+    model = j_grids.load_model(t_config.read_input_deck(dp["mraw12"]["deck"]).grid)
+    p0 = model.vertices[150]
+    for direction in ("up", "down", "port", "starboard"):
+        assert_same(t_ks.selection_area_center(p0, direction, 0.3),
+                    j_ks.selection_area_center(p0, direction, 0.3))
+    kul = {"K01": p0, "K02": model.vertices[40]}
+    ts, js = t_ks.KuliteNeighborhoodSearch(model, kul), j_ks.KuliteNeighborhoodSearch(model, kul)
+    recs = []
+    for name, direction, tol in (("K01", "up", 2e-2), ("K02", "port", None),
+                                 ("K01", "starboard", 0.3)):
+        got = ts.query(name, direction, 0.4, 6, tol)
+        assert_same(got, js.query(name, direction, 0.4, 6, tol))
+        recs.append({"Kulite Name": name, "Kulite Nearest Vertex": got["Kulite Nearest Vertex"],
+                     "Selection Vertices": str(got["Selection Vertices"])})
+    idx = list(range(0, 60, 3))
+    assert_same(ts.filter_duplicates(idx, 0.5), js.filter_duplicates(idx, 0.5))
+    img = np.zeros((10, 12, 3), np.uint8)
+    assert_same(t_ks.highlight_pixels(img.copy(), [(1, 2), (9, 11), (20, 3)], (1, 2, 3)),
+                j_ks.highlight_pixels(img.copy(), [(1, 2), (9, 11), (20, 3)], (1, 2, 3)))
+    pytest.importorskip("cv2")
+    diag = tmp / "diag"
+    diag.mkdir()
+    import cv2
+
+    rng = np.random.default_rng(21)
+    for c in (1, 2):
+        cv2.imwrite(str(diag / f"cam{c:02d}-8bit-raw.png"),
+                    rng.integers(0, 255, (40, 64, 3)).astype(np.uint8))
+        rng.uniform(0, 1, (model.size, 2)).astype("<f4").tofile(diag / f"cam{c:02d}-uv")
+    tp = t_ks.make_selection_area_images(recs, str(diag), str(tmp / "t"))
+    jp = j_ks.make_selection_area_images(recs, str(diag), str(tmp / "j"))
+    assert [os.path.basename(x) for x in tp] == [os.path.basename(x) for x in jp]
+    assert len(tp) == 2
+    for a, b in zip(tp, jp):
+        assert open(a, "rb").read() == open(b, "rb").read()
+
+
+def _p3d_export(dp, tmp):
+    from upsp_tpu.io.plot3d import read_p3d_grid
+    from upsp_tpu.processing import p3d_export as j_p3d
+    from upsp_tpu_torch.processing import p3d_export as t_p3d
+
+    grid = read_p3d_grid(t_config.read_input_deck(dp["mraw12"]["deck"]).grid)
+    for fn in ("p3d_to_obj", "p3d_to_gltf", "write_zones_mapping"):
+        getattr(t_p3d, fn)(grid, str(tmp / "t"))
+        getattr(j_p3d, fn)(grid, str(tmp / "j"))
+        assert (tmp / "t").read_bytes() == (tmp / "j").read_bytes(), fn
+
+
+def _polyfit_host(_dp, tmp):
+    """The numpy helpers of ops/polyfit.py and ops/patching.py."""
+    from upsp_tpu.ops import patching as j_patch
+    from upsp_tpu.ops import polyfit as j_poly
+    from upsp_tpu_torch.ops import patching as t_patch
+    from upsp_tpu_torch.ops import polyfit as t_poly
+
+    rng = np.random.default_rng(22)
+    x, y = rng.uniform(-1, 1, 50), rng.uniform(-1, 1, 50)
+    z = 1 + x - 2 * y + 0.5 * x * y + rng.normal(0, 0.01, 50)
+    for deg in (1, 3, 6):
+        c = t_poly.polyfit_1d(x, z, deg)
+        assert_same(c, j_poly.polyfit_1d(x, z, deg))
+        assert_same(t_poly.polyval_1d(y, c), j_poly.polyval_1d(y, c))
+    for deg in (2, 3):
+        c = t_patch.polyfit2d(x, y, z, deg)
+        assert_same(c, j_patch.polyfit2d(x, y, z, deg))
+        assert_same(t_patch.polyval2d(y, x, c, deg), j_patch.polyval2d(y, x, c, deg))
+    coeffs = rng.normal(0, 1, (7, 33)).astype(np.float32)
+    t_poly.write_coeffs(str(tmp / "t"), coeffs)
+    j_poly.write_coeffs(str(tmp / "j"), coeffs)
+    assert (tmp / "t").read_bytes() == (tmp / "j").read_bytes()
+    assert_same(t_poly.read_coeffs(str(tmp / "j")), j_poly.read_coeffs(str(tmp / "t")))
+    (tmp / "bad").write_bytes(np.array([2, 4, 1, 1], np.int32).tobytes())
+    for mod in (t_poly, j_poly):
+        with pytest.raises(ValueError, match="header"):
+            mod.read_coeffs(str(tmp / "bad"))
+
+
+def _frame_prefetcher(dp, _tmp):
+    """FramePrefetcher's chunks, decoded and packed, and the same for the
+    port's host_reads_for_datapoint against the JAX package's."""
+    from upsp_tpu.parallel import launcher as j_launcher
+    from upsp_tpu_torch.parallel import launcher as t_launcher
+
+    for d in dp.values():
+        cfg = t_config.read_input_deck(d["deck"])
+        for packed in (False, True):
+            t, j = t_video.video_reader(cfg.cameras[0].video), j_video.video_reader(
+                cfg.cameras[0].video)
+            with t, j:
+                assert_same(list(t_video.FramePrefetcher(t, 3, 1, 2, packed=packed)),
+                            list(j_video.FramePrefetcher(j, 3, 1, 2, packed=packed)))
+        for pid, count in ((0, 2), (1, 2), (2, 3)):
+            tr, ts, tc = t_launcher.host_reads_for_datapoint(cfg, pid, count)
+            jr, js, jc = j_launcher.host_reads_for_datapoint(
+                j_config.read_input_deck(d["deck"]), pid, count)
+            try:
+                assert (ts, tc) == (js, jc)
+                assert_same([r.read_frames(tc, ts) for r in tr],
+                            [r.read_frames(jc, js) for r in jr])
+            finally:
+                for r in tr + jr:
+                    r.close()
+
+
+def _timing_and_outputs(_dp, _tmp):
+    """BlockTimer, and Phase1Outputs' fields."""
+    from upsp_tpu.pipeline import phase1 as j_phase1
+    from upsp_tpu.utils import timing as j_timing
+    from upsp_tpu_torch.pipeline import phase1 as t_phase1
+    from upsp_tpu_torch.utils import timing as t_timing
+
+    assert t_phase1.Phase1Outputs._fields == j_phase1.Phase1Outputs._fields
+    for mod in (t_timing, j_timing):
+        with mod.BlockTimer("x", enabled=False) as bt:
+            assert bt.elapsed == 0.0
+        assert bt.elapsed > 0 and bt.label == "x"
+
+
 CASES = {f.__name__[1:]: f for f in (
     _deck, _flat_files, _read_flat, _pack_unpack, _videos, _load_model, _idw,
     _targets_cameras_conditions, _comps, _native_bvh, _python_bvh,
     _tree_context, _hdf5, _transpose, _async_writer, _tunnel, _matching,
     _internal, _detection, _scale_image, _panels, _synthetic_builders,
+    _primitives, _pointset, _blob, _processing_tree, _kulites, _kulite_selection,
+    _p3d_export, _polyfit_host, _frame_prefetcher, _timing_and_outputs,
 )}
 
 

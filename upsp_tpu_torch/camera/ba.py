@@ -10,9 +10,23 @@ Levenberg–Marquardt on
 The point blocks (3x3) are eliminated by a Schur complement onto the
 camera system (6C x 6C).  Per-observation Jacobians come from
 ``torch.func.jacfwd`` under ``torch.func.vmap``; the block sums
-(``jax.ops.segment_sum`` in the JAX package) are ``index_add_``.  The
-JAX package's ``axis_name`` (block sums ``psum``-reduced over a mesh) is
-not ported: a value other than None raises.
+(``jax.ops.segment_sum`` in the JAX package) are products with 0/1
+segment matrices, so they are summed in the same order on every call
+(``index_add_`` accumulates with atomics on CUDA, in an order that
+changes from call to call).
+
+Across ranks (``mesh=``, a :class:`~upsp_tpu_torch.parallel.mesh.Mesh`):
+each rank passes its own block of the observations (``cam_idx``,
+``pt_idx``, ``uv``, ``weight``; blocks may be uneven or empty) and the
+same poses, points, prior and intrinsics.  The block sums go through
+:func:`~upsp_tpu_torch.parallel.mesh.all_reduce` where the JAX package
+``psum``s them (``axis_name``): the normal-equation blocks of a step, the
+data term of the cost, and the final sum of squares with the observation
+count.  The solve that follows is the same on every rank, so the ranks
+take the same steps and return the same result.  The points' prior is
+added once, after the reduction, in the cost as in the step (the JAX
+package adds it to the cost on every rank before its ``psum``), so any
+world size solves the problem of ``mesh=None``.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ import numpy as np
 import torch
 
 from upsp_tpu_torch.camera.model import CameraParams, project_points, rodrigues
+from upsp_tpu_torch.parallel.mesh import Mesh, all_reduce
 
 
 class BAProblem(NamedTuple):
@@ -61,48 +76,77 @@ _jac_point = torch.func.vmap(torch.func.jacfwd(_residual_one, argnums=1))
 
 
 def _all_residuals(poses, points, prob: BAProblem):
+    if prob.uv.shape[0] == 0:  # a rank with no observations
+        return prob.uv.new_zeros((0, 2))
     r = _residuals(poses[prob.cam_idx], points[prob.pt_idx],
                    prob.intrinsics[prob.cam_idx], prob.uv)
     return r * prob.weight[:, None]
 
 
-def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx, x)
+def _segments(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """The (n, O) 0/1 matrix of segment ids ``idx``: row s picks the
+    observations of segment s."""
+    return (idx[None, :] == torch.arange(n, device=idx.device)[:, None]).to(dtype)
 
 
-def bundle_adjust(prob: BAProblem, n_iters: int = 30,
+def _segment_sum(x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Per-segment sums of ``x`` (O, ...) by the segment matrix ``seg``."""
+    return (seg @ x.flatten(1)).reshape((seg.shape[0],) + x.shape[1:])
+
+
+def _reduce(mesh: Optional[Mesh], *blocks: torch.Tensor):
+    """The sums of ``blocks`` over the mesh's ranks, in one collective;
+    the blocks themselves without a reduction."""
+    if mesh is None or mesh.group is None:
+        return blocks
+    flat = all_reduce(mesh, torch.cat([b.reshape(-1) for b in blocks]))
+    parts = flat.split([b.numel() for b in blocks])
+    return tuple(p.reshape(b.shape) for p, b in zip(parts, blocks))
+
+
+def bundle_adjust(prob: BAProblem, n_iters: int = 30, mesh: Optional[Mesh] = None,
                   axis_name: Optional[str] = None) -> BAResult:
     """LM with Schur elimination of point blocks (``upsp_tpu/camera/ba.py
-    :80-183``), on the problem's device."""
+    :80-183``), on the problem's device; over ``mesh``'s ranks, each with
+    its own block of the observations, when given (module docstring)."""
     if axis_name is not None:
-        raise NotImplementedError(
-            "bundle_adjust(axis_name=...) — block sums reduced over a mesh — is "
-            "not ported (ROADMAP queue 1, item 6: BA's axis_name)")
+        raise TypeError(
+            "bundle_adjust(axis_name=...) names a JAX mesh axis, which has no "
+            "torch meaning: pass mesh= (a upsp_tpu_torch.parallel.mesh.Mesh) and "
+            "each rank's block of the observations")
     C = prob.poses.shape[0]
     K = prob.points.shape[0]
     inv_ps2 = 1.0 / (prob.prior_sigma**2)
     ci, pi = prob.cam_idx.long(), prob.pt_idx.long()
+    seg_c = _segments(ci, C, prob.uv.dtype)  # (C, O)
+    seg_p = _segments(pi, K, prob.uv.dtype)  # (K, O)
 
     def cost(poses, points):
         r = _all_residuals(poses, points, prob)
         prior = (points - prob.points0).reshape(-1)
-        return (r * r).sum() + inv_ps2 * (prior * prior).sum()
+        (data,) = _reduce(mesh, (r * r).sum())
+        return data + inv_ps2 * (prior * prior).sum()
 
     def step(poses, points, lam):
         args = (poses[ci], points[pi], prob.intrinsics[ci], prob.uv)
         w = prob.weight[:, None, None]
-        Jc = _jac_pose(*args) * w  # (O, 2, 6)
-        Jp = _jac_point(*args) * w  # (O, 2, 3)
-        r = _residuals(*args) * prob.weight[:, None]  # (O, 2)
+        if ci.shape[0]:
+            Jc = _jac_pose(*args) * w  # (O, 2, 6)
+            Jp = _jac_point(*args) * w  # (O, 2, 3)
+        else:  # a rank with no observations: its block sums are zeros
+            Jc, Jp = prob.uv.new_zeros((0, 2, 6)), prob.uv.new_zeros((0, 2, 3))
+        r = _all_residuals(poses, points, prob)  # (O, 2)
 
-        Hcc = _segment_sum(torch.einsum("oic,oid->ocd", Jc, Jc), ci, C)  # (C,6,6)
-        Hpp = _segment_sum(torch.einsum("oic,oid->ocd", Jp, Jp), pi, K)  # (K,3,3)
-        gc = _segment_sum(torch.einsum("oic,oi->oc", Jc, r), ci, C)  # (C,6)
-        gp = _segment_sum(torch.einsum("oic,oi->oc", Jp, r), pi, K)  # (K,3)
-        # dense camera-point coupling blocks W[c,k] (rigs are small)
-        W = _segment_sum(torch.einsum("oic,oid->ocd", Jc, Jp), ci * K + pi,
-                         C * K).reshape(C, K, 6, 3)
+        Hcc = _segment_sum(torch.einsum("oic,oid->ocd", Jc, Jc), seg_c)  # (C,6,6)
+        Hpp = _segment_sum(torch.einsum("oic,oid->ocd", Jp, Jp), seg_p)  # (K,3,3)
+        gc = _segment_sum(torch.einsum("oic,oi->oc", Jc, r), seg_c)  # (C,6)
+        gp = _segment_sum(torch.einsum("oic,oi->oc", Jp, r), seg_p)  # (K,3)
+        # dense camera-point coupling blocks W[c,k] (rigs are small): the
+        # camera's blocks side by side, summed by point
+        JcJp = torch.einsum("oic,oid->ocd", Jc, Jp).reshape(ci.shape[0], 1, 18)
+        JcJp = seg_c.T[:, :, None] * JcJp  # (O, C, 18)
+        W = _segment_sum(JcJp, seg_p).reshape(K, C, 6, 3).transpose(0, 1)  # (C,K,6,3)
+        Hcc, Hpp, gc, gp, W = _reduce(mesh, Hcc, Hpp, gc, gp, W)
 
         # survey prior on the points + LM damping
         eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
@@ -134,8 +178,8 @@ def bundle_adjust(prob: BAProblem, n_iters: int = 30,
         best_cost = torch.where(improved, new_cost, best_cost)
         lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 6.0), 1e-9, 1e8)
     r = _all_residuals(poses, points, prob)
-    n_obs = torch.clamp_min((prob.weight > 0).sum(), 1)
-    rms = torch.sqrt((r * r).sum() / n_obs)
+    ssq, n_obs = _reduce(mesh, (r * r).sum(), (prob.weight > 0).sum().to(r.dtype))
+    rms = torch.sqrt(ssq / torch.clamp_min(n_obs, 1))
     return BAResult(poses=poses, points=points, rms=rms, n_iters=n_iters)
 
 

@@ -3,6 +3,7 @@
 import os
 
 from upsp_tpu_torch.io.video.base import (  # noqa: F401
+    FramePrefetcher,
     IntervalPrefetcher,
     VideoReader,
 )

@@ -149,10 +149,10 @@ class IntervalPrefetcher:
     frame intervals, one yielded array per interval.
 
     Multi-process ingest reads per-chunk host slices — contiguous within a
-    chunk but strided across the video — so the read-ahead takes any
-    interval plan (the reference's per-rank read-ahead,
-    psp_process.cpp:867-908), decoding in a producer thread while the
-    consumer (the device feed) computes.  Zero-count intervals
+    chunk but strided across the video — so the single-range
+    :class:`FramePrefetcher` doesn't fit; this generalizes the same
+    producer/consumer overlap (the reference's per-rank read-ahead,
+    psp_process.cpp:867-908) to any interval plan.  Zero-count intervals
     yield an empty array without touching the reader.
     """
 
@@ -200,3 +200,56 @@ class IntervalPrefetcher:
         if self._error is not None:
             raise self._error
         thread.join()
+
+
+class FramePrefetcher:
+    """Background-thread chunk decoder feeding a bounded queue.
+
+    Replaces the reference's volatile-flag pthread read-ahead with a proper
+    producer/consumer handoff; the consumer (device feed) calls
+    :meth:`__iter__` and overlaps decode with compute.
+    """
+
+    def __init__(
+        self,
+        reader: VideoReader,
+        nframes: int,
+        start: int = 0,
+        frames_per_chunk: int = 64,
+        max_queued_chunks: int = 4,
+        packed: bool = False,
+    ):
+        self.reader = reader
+        self.nframes = nframes
+        self.start = start
+        self.frames_per_chunk = frames_per_chunk
+        self.packed = packed
+        self._q: queue.Queue = queue.Queue(maxsize=max_queued_chunks)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _produce(self):
+        try:
+            it = (
+                self.reader.iter_chunks_packed
+                if self.packed
+                else self.reader.iter_chunks
+            )
+            for chunk in it(self.nframes, self.start, self.frames_per_chunk):
+                self._q.put(chunk.copy())
+        except BaseException as e:  # surfaced on the consumer side
+            self._error = e
+        finally:
+            self._q.put(None)
+
+    def __iter__(self):
+        self._thread = threading.Thread(target=self._produce, daemon=True)
+        self._thread.start()
+        while True:
+            chunk = self._q.get()
+            if chunk is None:
+                break
+            yield chunk
+        if self._error is not None:
+            raise self._error
+        self._thread.join()

@@ -105,13 +105,15 @@ def _displacement_prior(h: int, w: int, sigma: float, device) -> torch.Tensor:
 
 
 def prepare_template(ref: torch.Tensor, decimate: int = 1,
-                     prior_sigma_px: float = 12.0) -> CorrelationTemplate:
-    """Template spectrum for :func:`correlate` (Hann window on; prior width
-    in full-resolution pixels)."""
+                     prior_sigma_px: float = 12.0, window: bool = True
+                     ) -> CorrelationTemplate:
+    """Template spectrum for :func:`correlate` (prior width in
+    full-resolution pixels; ``window``: the Hann window, else none)."""
     pools = pool_matrices(*ref.shape[-2:], decimate, ref.device)
     small = pow2_center_crop(decimate_image(ref, decimate, pools))
     h, w = small.shape
-    win = _hann(h, ref.device)[:, None] * _hann(w, ref.device)[None, :]
+    win = (_hann(h, ref.device)[:, None] * _hann(w, ref.device)[None, :] if window
+           else torch.ones((h, w), dtype=torch.float32, device=ref.device))
     prior = _displacement_prior(h, w, prior_sigma_px / decimate, ref.device)
     return CorrelationTemplate(
         spectrum=torch.fft.rfft2(small * win), window=win, decimate=decimate,
@@ -152,6 +154,20 @@ def correlate(tmpl: CorrelationTemplate, imgs: torch.Tensor) -> torch.Tensor:
     dx = torch.where(fx > w / 2, fx - w, fx)
     t = (torch.stack([-dx, -dy], dim=1) * tmpl.decimate).to(torch.float32)
     return t.reshape(lead + (2,))
+
+
+def make_phase_correlator(ref: torch.Tensor, window: bool = True, decimate: int = 1):
+    """Bind the template: returns ``fn(img) -> (2,) float32 (tx, ty)``
+    (``upsp_tpu/ops/fftreg.py:203-214``).  A convenience for tests and
+    host-side use; the chunk program prepares its templates once a chunk
+    and calls :func:`correlate` on each batch."""
+    tmpl = prepare_template(torch.as_tensor(ref, dtype=torch.float32), decimate,
+                            window=window)
+
+    def fn(img: torch.Tensor) -> torch.Tensor:
+        return correlate(tmpl, torch.as_tensor(img, dtype=torch.float32))
+
+    return fn
 
 
 def translation_warp(t: torch.Tensor) -> torch.Tensor:

@@ -164,6 +164,18 @@ def poly2d_basis(x: np.ndarray, y: np.ndarray, degree: int = 3) -> np.ndarray:
     return np.stack(cols, axis=1)
 
 
+def polyfit2d(x, y, z, degree: int = 3) -> np.ndarray:
+    """Least-squares 2D polynomial fit (reference polyfit2D semantics); a
+    copy of ``upsp_tpu/ops/patching.py:219-223``."""
+    A = poly2d_basis(np.asarray(x), np.asarray(y), degree)
+    coeffs, *_ = np.linalg.lstsq(A, np.asarray(z, np.float64), rcond=None)
+    return coeffs
+
+
+def polyval2d(x, y, coeffs, degree: int = 3) -> np.ndarray:
+    return poly2d_basis(np.asarray(x), np.asarray(y), degree) @ np.asarray(coeffs)
+
+
 # ---------------------------------------------------------------------------
 # composed operators
 

@@ -171,3 +171,15 @@ def host_frame_slice(n_frames: int, process_id: int, process_count: int):
 
     return apportion(n_frames, process_count)[process_id]
 
+
+def host_reads_for_datapoint(cfg, process_id: int, process_count: int):
+    """Open this host's video slice: returns (readers, start, count).
+
+    Each host decodes only its own block of frames, so video ingest
+    bandwidth scales with hosts like the reference's per-rank read-ahead
+    (``upsp_tpu/parallel/launcher.py:106-116``)."""
+    from upsp_tpu_torch.pipeline.run import open_videos
+
+    readers, n_frames, start0 = open_videos(cfg)
+    start, count = host_frame_slice(n_frames, process_id, process_count)
+    return readers, start0 + start, count

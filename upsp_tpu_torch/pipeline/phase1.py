@@ -34,7 +34,7 @@ banded XLA oracle (``ecc_band``), which raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -637,6 +637,15 @@ def process_frames(state, frames, batched: bool = True) -> torch.Tensor:
     fn = make_frame_processor(state)
     x = torch.as_tensor(frames)
     return torch.stack([fn(x[i]) for i in range(x.shape[0])])
+
+
+class Phase1Outputs(NamedTuple):
+    """Phase 1's results (``upsp_tpu/pipeline/phase1.py:1037``)."""
+
+    intensity: torch.Tensor  # (F, N) overlap-adjusted per-frame solutions
+    sol_avg: torch.Tensor  # (N,) mean over frames (NaN where skipped)
+    sol_rms: torch.Tensor  # (N,) root-mean-square over frames
+    coverage: torch.Tensor  # (N,)
 
 
 def phase1_statistics(intensity) -> Tuple[torch.Tensor, torch.Tensor]:

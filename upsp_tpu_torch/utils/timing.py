@@ -1,18 +1,40 @@
-"""Pipeline stage checkpoints with the barrier wait kept apart.
+"""Scope timers, pipeline stage checkpoints and device traces.
 
-Port of ``upsp_tpu/utils/timing.py``'s ``StageClock``: the reference's
-timedBarrierPoint (psp_process.cpp:583-606).  Every stage records its
+Port of ``upsp_tpu/utils/timing.py``.  ``StageClock`` is the reference's
+timedBarrierPoint (psp_process.cpp:583-606): every stage records its
 total elapsed and since-previous seconds, and on multi-rank runs the
 wait at the barrier separately (the load-imbalance signal).
+``BlockTimer`` (a copy) is the reference's psp::BlockTimer
+(cpp/include/utils/pspTimer.h); :func:`trace` records device work with
+``torch.profiler`` where the JAX package uses ``jax.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Callable, Optional
 
 log = logging.getLogger("upsp_tpu.timing")
+
+
+class BlockTimer:
+    """RAII-style scope timer: logs elapsed wall time on exit."""
+
+    def __init__(self, label: str, enabled: bool = True):
+        self.label = label
+        self.enabled = enabled
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.t0
+        if self.enabled:
+            log.info("%s: %.3f s", self.label, self.elapsed)
 
 
 class StageClock:
@@ -62,3 +84,43 @@ class StageClock:
             self.sync()
         if self.times is not None:
             self.times[label] = time.perf_counter() - self.t_prev
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str] = None):
+    """A ``torch.profiler`` trace of the CPU and, where CUDA is available,
+    the card, written as a Chrome trace (``trace.json``) under ``log_dir``;
+    a no-op when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_barrier():
+    """Wait for this process's device work and then, on a run of two or
+    more ranks, for every rank (a :class:`StageClock` barrier)."""
+    import torch
+    import torch.distributed as dist
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        from upsp_tpu_torch.parallel.mesh import Mesh, barrier
+
+        backend = dist.get_backend()
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if backend == "nccl" else torch.device("cpu"))
+        barrier(Mesh(dist.get_rank(), dist.get_world_size(), device,
+                     dist.group.WORLD, backend))
