@@ -70,6 +70,16 @@ From the root of a checkout, on a machine with a CUDA device:
    (p) ``surface_psd`` of the same block (nperseg 32, 10 nodes set to
        NaN) against scipy.signal.welch in float64 on 1,000 nodes, NaN
        nodes NaN, its seconds and peak device memory;
+   (s) right after (n), the JAX package's calls that the port now takes
+       as it does (``drop_in_path``): (s1) ``run_datapoint(frame_batch=16)``,
+       every flat file against (b)'s within the f32 bounds, bit for bit or
+       not printed; (s2) ``process_frame(adjust_overlap=False)`` and
+       ``=True`` on one frame on the card, with supersession equal to
+       without it indexed by ``superseded_by`` bit for bit, on (b)'s plan
+       and on one with 10,000 nodes superseded; (s3)
+       ``make_chunk_processor(state)`` at its defaults (scan starts, a
+       frame at a time) on 8 frames on the card, K1-K6 launched, its
+       frames/s beside (b)'s and (n)'s default loop;
    between (b) and (d), two out-of-core runs (``run_datapoint_streaming``):
    (e) (b)'s files through ``upsp-process-torch --streaming`` in f32,
        with its disk transpose (numpy, fewer rows than a native block)
@@ -249,6 +259,15 @@ E_TOL = {"intensity_avg": dict(rtol=1e-5), "intensity_rms": dict(rtol=1e-5),
          "intensity_ratio_0": dict(atol=1e-5),
          "pressure_transpose": dict(rtol=1e-4, atol=1e-6),
          "avg": dict(rtol=1e-4, atol=1e-6), "rms": dict(rtol=1e-4, atol=1e-6)}
+# path (s): the JAX package's calls on (b)'s files.  (s1)'s files against
+# (b)'s: intensities and their statistics within the f32 bound (rtol 1e-4,
+# atol 0.2 counts), what is derived from their ratios within atol 5e-4 (0.2
+# counts of ~2000), the rest exactly (tests/test_torch_slice.py's table)
+S_FRAME_BATCH = 16
+S_INTENSITY = ("intensity", "intensity_transpose", "intensity_avg", "intensity_rms")
+S_RATIO = ("intensity_ratio_0", "pressure_transpose", "avg", "rms")
+S_SUPERSEDED = 10_000  # live nodes (s2) gives another node's value
+S_FRAMES = 8  # (s3)'s frames, scan starts a frame at a time
 # paths (i) and (j): (b)'s files through two CLI ranks on the one card
 RANKS = 2
 RANK_TIMEOUT_S = 300
@@ -1018,11 +1037,13 @@ def datapoint_path(label, dp, spec, batch, expect, dtype, ref=None,
             r.close()
     gpu, gtele = make_chunk_processor(state, with_telemetry=True, packed=True,
                                       compute_dtype=dtype, warm_start=warm_start,
+                                      frame_batch=8,
                                       **kw)(torch.from_numpy(packed).to(DEVICE))
     torch.cuda.synchronize()
     t_cpu = time.perf_counter()
     cpu, ctele = make_chunk_processor(state.to("cpu"), with_telemetry=True,
-                                      compute_dtype=dtype, warm_start=warm_start)(
+                                      compute_dtype=dtype, warm_start=warm_start,
+                                      frame_batch=8)(
         dp["frames"][batch])
     print(f"  batch of {batch.stop - batch.start} frames: phase 0 and the card "
           f"{t_cpu - t_batch:.2f} s, the CPU twins {time.perf_counter() - t_cpu:.2f} s",
@@ -1872,7 +1893,8 @@ def camera_batch_path(dp, state):
     }
     out, fps = {}, {}
     for name, kw in forms.items():
-        fn = make_chunk_processor(state, with_telemetry=True, **kw)
+        fn = make_chunk_processor(state, with_telemetry=True, warm_start="fft",
+                                  frame_batch=8, **kw)
         fn(chunk[:8])
         torch.cuda.synchronize()
         cuda_lib.reset_launch_counts()
@@ -1903,6 +1925,154 @@ def camera_batch_path(dp, state):
         f"{k} {v:.2f}" for k, v in fps.items()), flush=True)
     del chunk
     return counts, dict(fps=fps, d_t=d_t, d_max=float(d.max()))
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else "nvidia-smi unavailable")
+
+
+def drop_in_path(dp, state, by_path, b_stages, n_fps):
+    """Path (s), in this process on (b)'s files and outputs, each part with
+    the launch counts reset just before it and read just after (``by_path``
+    "s1", "s2", "s3"):
+
+    (s1) ``run_datapoint(frame_batch=S_FRAME_BATCH)`` into an output
+         directory of its own: every flat file against (b)'s (S_INTENSITY,
+         S_RATIO, the rest exactly), whether it is bit for bit printed;
+    (s2) frame 1 through ``process_frame(adjust_overlap=False)`` and
+         ``=True`` on the card (the while loop from identity): with
+         supersession equals without it indexed by ``superseded_by``, bit
+         for bit, on (b)'s plan and on one where S_SUPERSEDED live nodes
+         take another node's value;
+    (s3) ``make_chunk_processor(state)`` at the JAX package's defaults (scan
+         starts, a frame at a time) on (b)'s first S_FRAMES frames on the
+         card: K1-K6 launched; its frames/s printed beside (b)'s CLI run
+         (ingest included) and (n)'s default loop (fft, 8 a batch).
+
+    ``state`` is (b)'s native phase-0 state on the card.  Returns a
+    summary."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.io.flatfile import FLAT_FILES, read_flat
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.pipeline.config import read_input_deck
+    from upsp_tpu_torch.pipeline.phase1 import (
+        best_view_gather_plan,
+        make_chunk_processor,
+        phase1_params,
+        process_frame,
+    )
+    from upsp_tpu_torch.pipeline.run import run_datapoint
+
+    res = {}
+    print(f"  -- path s1: run_datapoint(frame_batch={S_FRAME_BATCH}) on (b)'s files, "
+          "in process", flush=True)
+    s_dp = own_output(dp, "s")
+    times = {}
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_datapoint(read_input_deck(s_dp["deck"]), device=DEVICE,
+                  frame_batch=S_FRAME_BATCH, registration_telemetry=True,
+                  stage_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["s1"] = cuda_lib.launch_counts()
+    print(f"  launches on this path: {by_path['s1']}", flush=True)
+    for name in FRAME_KERNELS + ("unpack12",):
+        check(by_path["s1"][name] > 0, f"kernel {name} launched on this path")
+    times["n_frames"] = FULL["n_frames"]
+    print_stages(f"run_datapoint(frame_batch={S_FRAME_BATCH})", wall, times)
+    res["s1_fps"] = times["frames_per_s"]
+    exact = []
+    for name in FLAT_FILES:
+        got = read_flat(os.path.join(s_dp["out_dir"], name))
+        want = read_flat(os.path.join(dp["out_dir"], name))
+        tol = (dict(rtol=1e-4, atol=0.2) if name in S_INTENSITY
+               else dict(atol=5e-4) if name in S_RATIO else {})
+        same_values(got, want, f"(s1) {name} against (b)", **tol)
+        if np.array_equal(got, want, equal_nan=True):
+            exact.append(name)
+    res["s1_exact"] = exact
+    print(f"  (s1) bit for bit against (b): {len(exact)} of {len(FLAT_FILES)} files "
+          f"({', '.join(exact) or 'none'})", flush=True)
+    shutil.rmtree(os.path.dirname(s_dp["deck"]), ignore_errors=True)
+
+    print("  -- path s2: one frame through process_frame(adjust_overlap=False/True) "
+          "on the card", flush=True)
+    cfg = state.config
+    frame_kw = dict(registration=cfg.registration,
+                    patch=cfg.target_patcher == "polynomial", filter_type=cfg.filter,
+                    filter_size=cfg.filter_size, interpolation=cfg.pixel_interpolation)
+    frame = torch.from_numpy(dp["frames"][1].view(np.int16)).to(DEVICE)
+    p = phase1_params(state)
+    n = p.superseded_by.shape[0]
+    live = torch.nonzero(~p.skipped).flatten().cpu().numpy()
+    rng = np.random.default_rng(14)
+    sup = np.arange(n)
+    sup[rng.choice(live, S_SUPERSEDED, replace=False)] = rng.choice(
+        live, S_SUPERSEDED)
+    sup_t = torch.from_numpy(sup).to(DEVICE)
+    g = p.gather
+    remapped = dataclasses.replace(p, superseded_by=sup_t, gather=best_view_gather_plan(
+        g.combined_index, g.combined_weight, g.skipped, sup_t, g.corr_nodes,
+        p.ref_frames))
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    for what, params in (("(b)'s plan", p), (f"{S_SUPERSEDED:,} nodes superseded",
+                                            remapped)):
+        with_ = process_frame(frame, params, **frame_kw).cpu().numpy()
+        without = process_frame(frame, params, adjust_overlap=False,
+                                **frame_kw).cpu().numpy()
+        idx = params.superseded_by.cpu().numpy()
+        moved = int((idx != np.arange(n)).sum())
+        check(np.array_equal(with_, without[idx], equal_nan=True)
+              and (moved == 0 or not np.array_equal(with_, without, equal_nan=True)),
+              f"(s2) {what} ({moved:,} superseded): process_frame equals "
+              "adjust_overlap=False indexed by superseded_by, bit for bit")
+    torch.cuda.synchronize()
+    res["s2_s"] = time.perf_counter() - t0
+    by_path["s2"] = cuda_lib.launch_counts()
+    print(f"  launches on this path: {by_path['s2']}", flush=True)
+    for name in FRAME_KERNELS:
+        check(by_path["s2"][name] > 0, f"kernel {name} launched on this path")
+    del remapped
+
+    print(f"  -- path s3: make_chunk_processor(state) at its defaults (scan starts, "
+          f"a frame at a time) on {S_FRAMES} frames of (b) on the card", flush=True)
+    chunk = torch.from_numpy(dp["frames"][:S_FRAMES].view(np.int16)).to(DEVICE).float()
+    fn = make_chunk_processor(state)
+    fn(chunk[:1])
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = fn(chunk)
+    torch.cuda.synchronize()
+    res["s3_fps"] = S_FRAMES / (time.perf_counter() - t0)
+    by_path["s3"] = cuda_lib.launch_counts()
+    print(f"  launches on this path: {by_path['s3']}", flush=True)
+    for name in FRAME_KERNELS:
+        check(by_path["s3"][name] > 0, f"kernel {name} launched on this path")
+    visible = read_flat(os.path.join(dp["out_dir"], "coverage")) > 0
+    check(tuple(sol.shape) == (S_FRAMES, n)
+          and bool(torch.isfinite(sol[:, torch.from_numpy(visible).to(DEVICE)]).all()),
+          "(s3) intensities finite on visible nodes")
+    del chunk, sol
+    res["card"] = card_line()
+    print(f"  path s: (s1) {res['s1_fps']:.2f} frames/s after set-up at frame_batch "
+          f"{S_FRAME_BATCH} against (b) {b_stages['frames_per_s']:.2f} (CLI); (s2) "
+          f"{res['s2_s']:.3f} s for four process_frame calls; (s3) {res['s3_fps']:.2f} "
+          f"frames/s (scan, a frame at a time, frames on the card) against (n)'s "
+          f"default loop {n_fps:.2f}; {res['card']} (printed, not a claim)", flush=True)
+    return res
 
 
 def forces_path(dp):
@@ -2363,8 +2533,14 @@ def full_config_paths(by_path, phase_s):
         by_path["m"], m_res = device_phase0_path(dp)
         phase_s["path m"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        by_path["n"], n_res = camera_batch_path(dp, m_res.pop("state"))
+        state = m_res.pop("state")
+        by_path["n"], n_res = camera_batch_path(dp, state)
         phase_s["path n"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s_res = drop_in_path(dp, state, by_path, ref["stages"],
+                             n_res["fps"]["loop, default"])
+        del state
+        phase_s["path s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         by_path["o"], o_res = forces_path(dp)
         phase_s["path o"] = time.perf_counter() - t0
@@ -2424,6 +2600,7 @@ def full_config_paths(by_path, phase_s):
             f"the datapoint after set-up, phase 2 {t['phase2']:.3f} s"
             for t in ranks) + f"; one rank, (b') phase 2 {runs[2]['phase2']:.3f} s",
             flush=True)
+    return s_res
 
 
 def main() -> int:
@@ -2441,12 +2618,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-            else "nvidia-smi unavailable")
+    card = card_line()
     print(card, flush=True)
     t_start = time.perf_counter()
     phase_s = {}  # seconds of each phase after the card check
@@ -2495,8 +2667,8 @@ def main() -> int:
         shutil.rmtree(os.path.join(WORK, "h"), ignore_errors=True)
         phase_s["path h"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        full_config_paths(by_path, phase_s)
-        phase_s["paths b, m, n, o, p, e, i, j, f, g, d, b', d'"] = (
+        s_res = full_config_paths(by_path, phase_s)
+        phase_s["paths b, m, n, s, o, p, e, i, j, f, g, d, b', d'"] = (
             time.perf_counter() - t0)
         t0 = time.perf_counter()
         k_ms = nccl_path()
@@ -2550,6 +2722,12 @@ def main() -> int:
           f"{r_res['stages']['frames_per_s']:.1f} frames/s after set-up); deck keys the "
           f"tree cannot render: {', '.join(r_res['unrendered']) or 'none'}; flat files "
           f"bit for bit against (a)'s: {r_res['same_a']}", flush=True)
+    print(f"path (s): the JAX package's calls on (b)'s files: (s1) "
+          f"run_datapoint(frame_batch={S_FRAME_BATCH}) {s_res['s1_fps']:.2f} frames/s "
+          f"after set-up, {len(s_res['s1_exact'])} of 15 flat files bit for bit against "
+          f"(b)'s, the rest within bounds; (s2) process_frame's supersession an index, "
+          f"bit for bit; (s3) make_chunk_processor(state) at its defaults "
+          f"{s_res['s3_fps']:.2f} frames/s; {s_res['card']}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check; "
           f"by phase: " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items()),
           flush=True)

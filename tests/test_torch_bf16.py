@@ -186,7 +186,8 @@ def port_runs(scene):
 
     frames, _, ts = scene
     return {dt: [a.numpy() for a in make_chunk_processor(
-        ts, with_telemetry=True, compute_dtype=dt)(frames)]
+        ts, with_telemetry=True, compute_dtype=dt, warm_start="fft",
+        frame_batch=8)(frames)]
         for dt in ("float32", "bfloat16")}
 
 

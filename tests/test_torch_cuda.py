@@ -621,8 +621,9 @@ def test_while_loop_on_card(cuda, dtype):
     ref, frames = ecc_scenes(31, 8, 240, 320)
     r, f = torch.tensor(ref).to(dt), torch.tensor(frames).to(dt)
     before = K.launch_counts()
-    cap = int(R.ecc_affine(r.to(cuda), f.to(cuda), epsilon=3e-6)[2].max()) - 1
-    kw = dict(epsilon=3e-6, max_iters=cap)
+    cap = int(R.ecc_affine(r.to(cuda), f.to(cuda), epsilon=3e-6,
+                           return_iters=True)[2].max()) - 1
+    kw = dict(epsilon=3e-6, max_iters=cap, return_iters=True)
     warp, rho, iters = R.ecc_affine(r.to(cuda), f.to(cuda), **kw)
     after = K.launch_counts()
     sfx = "" if dtype == "float32" else "_bf16"
@@ -680,9 +681,10 @@ def test_coarse_stage_and_warp_affine_on_card(cuda):
     init = torch.tensor(np.tile(np.array([[1.0, 0.0, 0.3], [0.0, 1.0, -0.2]],
                                          np.float32), (2, 1, 1)))
     args = dict(max_iters=2, unroll=True, coarse_iters=1)
-    gw, grho, _ = R.ecc_affine(torch.tensor(ref).to(cuda), torch.tensor(frames).to(cuda),
-                               init.to(cuda), **args)
-    cw, crho, _ = R.ecc_affine(torch.tensor(ref), torch.tensor(frames), init, **args)
+    gw, grho = R.ecc_affine(torch.tensor(ref).to(cuda), torch.tensor(frames).to(cuda),
+                            warp_init=init.to(cuda), **args)
+    cw, crho = R.ecc_affine(torch.tensor(ref), torch.tensor(frames), warp_init=init,
+                            **args)
     np.testing.assert_allclose(gw.cpu().numpy()[:, :, 2], cw.numpy()[:, :, 2], atol=0.05)
     np.testing.assert_allclose(gw.cpu().numpy()[:, :, :2], cw.numpy()[:, :, :2], atol=1e-3)
     np.testing.assert_allclose(grho.cpu().numpy(), crho.numpy(), atol=1e-3)

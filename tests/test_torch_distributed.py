@@ -318,8 +318,8 @@ def test_chunk_program_blocks(runs, world, warm_start):
     equals the program on that block alone, bit for bit)."""
     state = runs["state"]
     frames = runs["dp"]["frames"][:6]
-    whole = make_chunk_processor(state, warm_start=warm_start)
-    blocks = [make_chunk_processor(state, warm_start=warm_start,
+    whole = make_chunk_processor(state, warm_start=warm_start, frame_batch=8)
+    blocks = [make_chunk_processor(state, warm_start=warm_start, frame_batch=8,
                                    mesh=Mesh(r, world, torch.device("cpu"), None,
                                              "gloo"))(frames)
               for r in range(world)]
@@ -332,8 +332,8 @@ def test_chunk_program_blocks(runs, world, warm_start):
     else:
         _close(torch.cat(blocks).numpy(), whole(frames).numpy(), rtol=1e-6, atol=1e-3)
     with pytest.raises(ValueError, match="pad it first"):
-        make_chunk_processor(state, mesh=Mesh(0, 4, torch.device("cpu"), None,
-                                              "gloo"))(frames)
+        make_chunk_processor(state, warm_start="fft", frame_batch=8,
+                             mesh=Mesh(0, 4, torch.device("cpu"), None, "gloo"))(frames)
 
 
 @pytest.mark.parametrize("rcs,code", [([0, 0, 0], 0), ([0, 7, 0], 7)])

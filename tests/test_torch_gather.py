@@ -189,7 +189,8 @@ def test_chunk_processor_matches_slab_mode(tmp_path):
     j_sol, j_tele = slab(jnp.asarray(frames))
     j_sol = finalize_host(slab.slab_plan, np.asarray(j_sol), slab.skipped_eff)
     sol, tele = make_chunk_processor(from_jax_state(js, "cpu", jp),
-                                     with_telemetry=True)(frames)
+                                     with_telemetry=True, warm_start="fft",
+                                     frame_batch=8)(frames)
     sol = sol.numpy()
     np.testing.assert_array_equal(np.isnan(sol), np.isnan(j_sol))
     v = np.isfinite(j_sol)

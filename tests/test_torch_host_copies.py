@@ -152,7 +152,8 @@ def test_chunk_program_copies_nothing(count, tmp_path):
     state = run_phase0(read_input_deck(dp["deck"]),
                        [frames[0, c] for c in range(frames.shape[1])],
                        [12] * frames.shape[1], device="cpu")
-    proc = P1.make_chunk_processor(state, with_telemetry=True)
+    proc = P1.make_chunk_processor(state, with_telemetry=True, warm_start="fft",
+                                   frame_batch=8)
     assert count["pool"] > 0 and count["shift"] > 0  # made at set-up
     sol, tele = proc(frames)
     built = dict(count)

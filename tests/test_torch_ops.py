@@ -118,8 +118,8 @@ def test_ecc_fixed_iterations_with_valid_shift(t_int):
     init = np.array([[1.0, 0.0, 0.1], [0.0, 1.0, -0.05]], np.float32)
     got_w, got_rho, got_drho = ecc_affine(
         torch.tensor(x[0]), torch.tensor(inp),
-        torch.tensor(np.stack([init, init])), max_iters=2, unroll=True,
-        valid_shift=torch.tensor(np.stack([ti, ti])),
+        warp_init=torch.tensor(np.stack([init, init])), max_iters=2, unroll=True,
+        valid_shift=torch.tensor(np.stack([ti, ti])), return_iters=True,
     )
     for i in range(2):
         w, rho, drho = j_ecc_affine(

@@ -40,7 +40,8 @@ def setup(tmp_path_factory):
     assert any(c is not None for c in jp.patch_corr)
     assert any(n is not None and len(n[0]) for n in jp.corr_nodes)
     ts = from_jax_state(js, "cpu", jp)
-    sols, teles = make_chunk_processor(ts, with_telemetry=True)(frames)
+    sols, teles = make_chunk_processor(ts, with_telemetry=True, warm_start="fft",
+                                       frame_batch=8)(frames)
     pallas = j_make_chunk_processor(
         js, warm_start="fft", ecc_impl="pallas", pre_shift=True,
         slab_gather=False, with_telemetry=True,
@@ -79,7 +80,8 @@ def test_chunk_matches_jnp(setup):
 def test_frame_batch_does_not_change_results(setup):
     frames, sols, teles, _, js = setup
     ts = from_jax_state(js, "cpu")  # the port derives its own parameters
-    s3, t3 = make_chunk_processor(ts, with_telemetry=True, frame_batch=3)(frames)
+    s3, t3 = make_chunk_processor(ts, with_telemetry=True, warm_start="fft",
+                                  frame_batch=3)(frames)
     np.testing.assert_allclose(s3.numpy(), sols, rtol=1e-6, atol=1e-3)
     np.testing.assert_allclose(t3.numpy(), teles, atol=1e-5)
 
@@ -96,7 +98,8 @@ def test_chunk_without_registration(tmp_path):
     j_sols, j_teles = (np.asarray(a) for a in j_make_chunk_processor(
         js, with_telemetry=True)(jnp.asarray(frames)))
     sols, teles = make_chunk_processor(from_jax_state(js, "cpu"),
-                                       with_telemetry=True)(frames)
+                                       with_telemetry=True, warm_start="fft",
+                                       frame_batch=8)(frames)
     np.testing.assert_array_equal(np.isnan(sols.numpy()), np.isnan(j_sols))
     v = np.isfinite(j_sols)
     np.testing.assert_allclose(sols.numpy()[v], j_sols[v], rtol=1e-6, atol=1e-3)

@@ -41,9 +41,9 @@ def _no_registration(state):
         state, config=dataclasses.replace(state.config, registration="none"))
 
 
-def _port(state, frames, **kw):
+def _port(state, frames, warm_start="fft", **kw):
     sol, tele = P1.make_chunk_processor(state, with_telemetry=True, frame_batch=2,
-                                        **kw)(frames)
+                                        warm_start=warm_start, **kw)(frames)
     return sol.numpy(), tele.numpy()
 
 
@@ -84,7 +84,8 @@ def test_camera_batch_refusals(scene):
     package's Pallas moments do on batched templates; ``auto`` runs."""
     _, ts, frames = scene
     with pytest.raises(NotImplementedError, match="one template"):
-        P1.make_chunk_processor(ts, vmap_cameras=True, ecc_impl="kernels")
+        P1.make_chunk_processor(ts, warm_start="fft", vmap_cameras=True,
+                                ecc_impl="kernels")
     with pytest.raises(NotImplementedError, match="valid_shift"):
         P1.process_frames_cams_batched(
             frames[:1], P1.phase1_params(ts), "pixel", True, "gaussian", 3,

@@ -53,8 +53,10 @@ def nearest(tmp_path_factory):
     return frames, js, ts
 
 
-def _port(ts, frames, **kw):
-    sols, teles = P1.make_chunk_processor(ts, with_telemetry=True, **kw)(frames)
+def _port(ts, frames, warm_start="fft", frame_batch=8, **kw):
+    sols, teles = P1.make_chunk_processor(ts, with_telemetry=True,
+                                          warm_start=warm_start,
+                                          frame_batch=frame_batch, **kw)(frames)
     return sols.numpy(), teles.numpy()
 
 
@@ -239,14 +241,15 @@ def test_frame_programs_and_statistics(linear):
 def test_refusal_reasons(linear, kw, reason):
     """Each refusal names its real reason and where it comes from."""
     with pytest.raises(NotImplementedError, match=reason):
-        P1.make_chunk_processor(linear[2], **kw)
+        P1.make_chunk_processor(linear[2], warm_start="fft", frame_batch=8, **kw)
 
 
 def test_unported_options_raise(linear):
     _, _, ts = linear
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P1.make_chunk_processor(ts, ecc_band=3)
+        P1.make_chunk_processor(ts, warm_start="fft", frame_batch=8, ecc_band=3)
     with pytest.raises(NotImplementedError, match="one template"):
-        P1.make_chunk_processor(ts, vmap_cameras=True, ecc_impl="kernels")
+        P1.make_chunk_processor(ts, warm_start="fft", frame_batch=8,
+                                vmap_cameras=True, ecc_impl="kernels")
     with pytest.raises(ValueError, match="warm_start"):
         P1.make_chunk_processor(ts, warm_start="coarse")

@@ -136,8 +136,8 @@ def test_downsample2_and_scale_warp():
 
 def test_while_loop_from_identity():
     ref, frames = _scenes()
-    warp, rho, iters = (t.numpy() for t in R.ecc_affine(torch.tensor(ref),
-                                                        torch.tensor(frames)))
+    warp, rho, iters = (t.numpy() for t in R.ecc_affine(
+        torch.tensor(ref), torch.tensor(frames), return_iters=True))
     assert iters.dtype == np.int32 and (iters >= 1).all() and (iters <= 50).all()
     j_warp, j_rho, j_iters = _j_solve(ref, frames)
     _hold(warp, rho, j_warp, j_rho)
@@ -152,7 +152,8 @@ def test_while_loop_from_warm_start():
     j_warp0, _, _ = _j_solve(ref, frames)
     init = np.roll(j_warp0, 1, axis=0)  # frame k starts from frame k-1's warp
     warp, rho, iters = (t.numpy() for t in R.ecc_affine(
-        torch.tensor(ref), torch.tensor(frames), torch.tensor(init)))
+        torch.tensor(ref), torch.tensor(frames), warp_init=torch.tensor(init),
+        return_iters=True))
     j_warp, j_rho, j_iters = zip(*[
         (np.asarray(a), float(b), int(c)) for a, b, c in (
             J.ecc_affine(jnp.asarray(ref), jnp.asarray(f), warp_init=jnp.asarray(i),
@@ -168,7 +169,7 @@ def test_while_loop_bf16():
     ref, frames = _scenes()
     bf = torch.bfloat16
     warp, rho, iters = (t.numpy() for t in R.ecc_affine(
-        torch.tensor(ref).to(bf), torch.tensor(frames).to(bf)))
+        torch.tensor(ref).to(bf), torch.tensor(frames).to(bf), return_iters=True))
     j_out = [J.ecc_affine(jnp.asarray(ref, jnp.bfloat16), jnp.asarray(f, jnp.bfloat16),
                           return_iters=True) for f in frames]
     j_warp = np.stack([np.asarray(o[0]) for o in j_out])
@@ -191,11 +192,11 @@ def test_dense_step_matches_body(steps, shift):
     inits = torch.tensor(np.stack([init] * len(frames)))
     vs = None if shift is None else torch.tensor([shift] * len(frames))
     got = [t.numpy() for t in R.ecc_affine(
-        torch.tensor(ref), torch.tensor(frames), inits, max_iters=steps, unroll=True,
-        valid_shift=vs, impl="jnp")]
+        torch.tensor(ref), torch.tensor(frames), warp_init=inits, max_iters=steps,
+        unroll=True, valid_shift=vs, impl="jnp", return_iters=True)]
     kern = [t.numpy() for t in R.ecc_affine(
-        torch.tensor(ref), torch.tensor(frames), inits, max_iters=steps, unroll=True,
-        valid_shift=vs)]
+        torch.tensor(ref), torch.tensor(frames), warp_init=inits, max_iters=steps,
+        unroll=True, valid_shift=vs)]
     want = [J._ecc_core(jnp.asarray(ref), jnp.asarray(f), jnp.asarray(init),
                         max_iters=steps, unroll=True, impl="jnp",
                         valid_shift=None if shift is None else jnp.asarray(shift))
@@ -214,8 +215,8 @@ def test_coarse_stage():
     init = np.array([[1.0, 0.0, 0.3], [0.0, 1.0, -0.2]], np.float32)
     inits = np.stack([init] * len(frames))
     warp, rho, drho = (t.numpy() for t in R.ecc_affine(
-        torch.tensor(ref), torch.tensor(frames), torch.tensor(inits), max_iters=2,
-        unroll=True, coarse_iters=1))
+        torch.tensor(ref), torch.tensor(frames), warp_init=torch.tensor(inits),
+        max_iters=2, unroll=True, coarse_iters=1, return_iters=True))
     out = [J.ecc_affine(jnp.asarray(ref), jnp.asarray(f), warp_init=jnp.asarray(init),
                         max_iters=2, unroll=True, coarse_iters=1, return_iters=True)
            for f in frames]
@@ -223,8 +224,9 @@ def test_coarse_stage():
           np.array([float(o[1]) for o in out]))
     np.testing.assert_allclose(drho, [float(o[2]) for o in out], atol=1e-3)
     # the coarse step moved the start: not the two full steps alone
-    full = R.ecc_affine(torch.tensor(ref), torch.tensor(frames), torch.tensor(inits),
-                        max_iters=2, unroll=True)[0].numpy()
+    full = R.ecc_affine(torch.tensor(ref), torch.tensor(frames),
+                        warp_init=torch.tensor(inits), max_iters=2,
+                        unroll=True)[0].numpy()
     assert np.abs(full - warp).max() > 1e-4
 
 
@@ -257,7 +259,7 @@ def test_batch_independence():
     solve."""
     ref, frames = _scenes()
     frames[7] = np.random.default_rng(10).normal(2000, 300, (H, W))
-    kw = dict(epsilon=3e-6)
+    kw = dict(epsilon=3e-6, return_iters=True)
     warp, rho, iters = R.ecc_affine(torch.tensor(ref), torch.tensor(frames), **kw)
     assert int(iters.max()) == 50 and len(set(iters.tolist())) >= 4, iters.tolist()
     for i in range(len(frames)):

@@ -33,6 +33,14 @@ class CameraParams(NamedTuple):
     cy: torch.Tensor  # ()
     dist: torch.Tensor  # (5,) [k1 k2 p1 p2 k3]
 
+    @property
+    def camera_matrix(self) -> torch.Tensor:
+        """The 3x3 intrinsic matrix, in ``fx``'s dtype and on its device."""
+        z = torch.zeros((), dtype=self.fx.dtype, device=self.fx.device)
+        o = torch.ones_like(z)
+        return torch.stack([torch.stack(row) for row in (
+            (self.fx, z, self.cx), (z, self.fy, self.cy), (z, z, o))])
+
 
 def rmat_to_rvec(rmat: np.ndarray) -> np.ndarray:
     """Rotation matrix -> rotation vector (host numpy)."""

@@ -83,6 +83,9 @@ class GatherPlan:
     overlays: Tuple = ()
     n_pixels: int = 0  # C*H*W
     tile: int = GATHER_TILE
+    # per camera: the overlay's (node, value slot, weight) numpy arrays in
+    # model order before supersession | None (what the plan was built from)
+    corr_nodes: Tuple = ()
 
     @property
     def n_nodes(self) -> int:
@@ -112,12 +115,16 @@ def build_gather_plan(combined_index, combined_weight, skipped, superseded_by,
     src = np.where(skipped_primary, -1, ci[sup])
     # tile by tile in model order; by source within a tile (stable)
     order = np.lexsort((src, np.arange(n) // GATHER_TILE))
+    corr_nodes = tuple(
+        None if cn is None else tuple(
+            _np(a, t) for a, t in zip(cn, (np.int64, np.int64, np.float32)))
+        for cn in corr_nodes)
     overlays = []
     for cn in corr_nodes:
         if cn is None:
             overlays.append(None)
             continue
-        ni, ns, nw = (_np(a, t) for a, t in zip(cn, (np.int64, np.int64, np.float32)))
+        ni, ns, nw = cn
         entry = np.full(n, -1, np.int64)
         entry[ni] = np.arange(ni.shape[0])
         sel = entry[sup]
@@ -144,7 +151,18 @@ def build_gather_plan(combined_index, combined_weight, skipped, superseded_by,
         overlays=tuple(overlays),
         n_pixels=int(n_pixels),
         tile=GATHER_TILE,
+        corr_nodes=corr_nodes,
     )
+
+
+def without_supersession(plan: GatherPlan) -> GatherPlan:
+    """The plan of the same gather with no overlap supersession, each node
+    keeping its own view (``process_frame(adjust_overlap=False)``): its
+    result indexed by ``plan.superseded_by`` is ``plan``'s."""
+    own = torch.arange(plan.n_nodes, device=plan.superseded_by.device)
+    return build_gather_plan(plan.combined_index, plan.combined_weight,
+                             plan.skipped, own, plan.corr_nodes, plan.n_pixels,
+                             device=plan.src.device)
 
 
 Frames = Union[torch.Tensor, Sequence[torch.Tensor]]

@@ -188,6 +188,10 @@ class PatchOperator(NamedTuple):
     internal_idx: torch.Tensor  # (K, I_max) int64 flat pixel (H*W = pad)
     n_clusters: int
 
+    @property
+    def empty(self) -> bool:
+        return self.n_clusters == 0
+
     def to(self, device) -> "PatchOperator":
         return PatchOperator(self.M.to(device), self.boundary_idx.to(device),
                              self.internal_idx.to(device), self.n_clusters)

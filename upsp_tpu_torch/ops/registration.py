@@ -77,12 +77,14 @@ def ecc_route(impl: str) -> str:
     raise ValueError(f"ecc impl must be auto|kernels|jnp, got {impl!r}")
 
 
-def identity_warp(batch: int = 1, device=None) -> torch.Tensor:
-    """(batch, 2, 3) identity warps, made on ``device`` (no host copy)."""
-    w = torch.zeros((batch, 2, 3), device=device)
+def identity_warp(dtype=torch.float32, batch: Optional[int] = None,
+                  device=None) -> torch.Tensor:
+    """The (2, 3) identity warp of ``dtype``, as the JAX package's, or with
+    ``batch`` (batch, 2, 3) of them; made on ``device`` (no host copy)."""
+    w = torch.zeros((1 if batch is None else batch, 2, 3), dtype=dtype, device=device)
     w[:, 0, 0] = 1.0
     w[:, 1, 1] = 1.0
-    return w
+    return w[0] if batch is None else w
 
 
 # ---------------------------------------------------------------------------
@@ -401,26 +403,30 @@ def _ecc_core(ref, inp, warp, max_iters, epsilon, gauss_size, unroll,
 def ecc_affine(
     ref: torch.Tensor,
     inp: torch.Tensor,
-    warp_init: Optional[torch.Tensor] = None,
     max_iters: int = MAX_ITERS,
     epsilon: float = EPSILON,
     gauss_size: int = 5,
+    warp_init: Optional[torch.Tensor] = None,
+    return_iters: bool = False,
     unroll: bool = False,
     coarse_iters: int = 0,
     valid_shift: Optional[torch.Tensor] = None,
     impl: str = "auto",
     tmpl_blurred: Optional[torch.Tensor] = None,
     tmpl_shift: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+):
     """Align (B, H, W) ``inp`` to the (H, W) template ``ref`` by ECC
     maximisation, from ``warp_init`` (B, 2, 3) or identity.  ``ref`` may
     also be (B, H, W), a template per lane, on the dense route only (the
-    kernel route raises ``NotImplementedError``).
+    kernel route raises ``NotImplementedError``).  An (H, W) ``inp`` is one
+    frame, as the JAX package takes it, with a (2, 3) ``warp_init`` and
+    (2,) ``valid_shift``, and returns a (2, 3) warp and scalars.  The
+    parameters come in the JAX package's order (but its ``band``).
 
-    Returns (warps (B, 2, 3), rho (B,), conv (B,)): ``conv`` is the
-    iteration count (int32) of the while loop, or with ``unroll`` the final
-    |drho| of ``max_iters`` fixed steps.  With ``unroll``,
-    ``coarse_iters`` > 0 first runs that many fixed steps on a 2x
+    Returns (warps (B, 2, 3), rho (B,)), or with ``return_iters`` (warps,
+    rho, conv (B,)): ``conv`` is the iteration count (int32) of the while
+    loop, or with ``unroll`` the final |drho| of ``max_iters`` fixed
+    steps.  With ``unroll``, ``coarse_iters`` > 0 first runs that many fixed steps on a 2x
     box-decimated f32 pair (``valid_shift`` halved) and starts from their
     warp scaled back (registration.py:213-232).  ``valid_shift`` (B, 2):
     the integer pre-shift already applied to ``inp``, composed into the
@@ -430,9 +436,16 @@ def ecc_affine(
     once), and ``tmpl_shift`` its :func:`template_shift` (computed here
     when None); both serve the full-resolution stage.
     """
+    if inp.dim() == 2:  # one (H, W) frame, as the JAX package takes it
+        out = ecc_affine(
+            ref, inp[None], max_iters, epsilon, gauss_size,
+            None if warp_init is None else warp_init[None], True, unroll,
+            coarse_iters, None if valid_shift is None else valid_shift[None],
+            impl, tmpl_blurred, tmpl_shift)
+        return tuple(o[0] for o in out[: 3 if return_iters else 2])
     b = inp.shape[0]
     warp = (
-        identity_warp(b, inp.device) if warp_init is None
+        identity_warp(batch=b, device=inp.device) if warp_init is None
         else warp_init.to(torch.float32).contiguous()
     )
     if valid_shift is not None:
@@ -446,8 +459,9 @@ def ecc_affine(
             impl,
         )
         warp = scale_warp(wc, 2.0).contiguous()
-    return _ecc_core(ref, inp, warp, max_iters, epsilon, gauss_size, unroll,
-                     valid_shift, impl, tmpl_blurred, tmpl_shift)
+    out = _ecc_core(ref, inp, warp, max_iters, epsilon, gauss_size, unroll,
+                    valid_shift, impl, tmpl_blurred, tmpl_shift)
+    return out if return_iters else out[:2]
 
 
 def ecc_affine_pyramid(ref: torch.Tensor, inp: torch.Tensor,
@@ -457,7 +471,7 @@ def ecc_affine_pyramid(ref: torch.Tensor, inp: torch.Tensor,
     """Coarse-to-fine ECC (registration.py:132-162): the while loop at 2^k
     decimation, k = levels-1 .. 0, each level starting from the last
     one's warp.  Returns (warps (B, 2, 3), rho (B,)) of the finest level."""
-    warp = identity_warp(inp.shape[0], inp.device)
+    warp = identity_warp(batch=inp.shape[0], device=inp.device)
     rho = None
     for lev in range(levels - 1, -1, -1):
         r, i = ref.to(torch.float32), inp.to(torch.float32)
@@ -479,8 +493,8 @@ def register_frame(ref: torch.Tensor, inp: torch.Tensor,
     images is applied to the raw input (upsp::register_pixel,
     registration.cpp:31-84), by K2 ("linear", ``warp_affine_mxu``'s order-2
     warp as in the JAX package) or by :func:`warp_affine` ("nearest")."""
-    warp, rho, _ = ecc_affine(ref, inp, max_iters=max_iters, epsilon=epsilon,
-                              impl=impl)
+    warp, rho = ecc_affine(ref, inp, max_iters=max_iters, epsilon=epsilon,
+                           impl=impl)
     raw = inp.to(torch.float32).contiguous()
     if interpolation == "nearest":
         aligned = warp_affine(raw, warp, "nearest")

@@ -46,7 +46,7 @@ def make_sharded_pipeline(state, mesh: Mesh, const: Phase2Constants,
     ``model_temp`` and ``coverage`` are (N,) arrays over every node.
     Phase 1 starts each frame's ECC solve from identity, as the JAX
     package's frame program does."""
-    step = make_chunk_processor(state, warm_start=False, mesh=mesh)
+    step = make_chunk_processor(state, warm_start=False, frame_batch=8, mesh=mesh)
     n = state.n_nodes
     n_pad = padded(n, mesh.world)
     n0, n1 = node_sharding(mesh, n)

@@ -143,17 +143,39 @@ def native_or_none():
         return None
 
 
+def _build_bvh(model: SurfaceModel, max_leaf: int):
+    """The model's flat BVH, native when the library is loaded and numpy
+    otherwise (as the JAX package builds it); SAH from 2M triangles."""
+    from upsp_tpu_torch.native import build_bvh
+
+    method = os.environ.get(
+        "UPSP_BVH_METHOD",
+        "sah" if model.triangles.shape[0] >= 2_000_000 else "median",
+    )
+    return build_bvh(model.vertices, model.triangles, leaf_size=max_leaf,
+                     method=method)
+
+
 def visible_targets(
-    targets: Sequence[Target], params: CameraParams, model: SurfaceModel,
-    oblique_angle_deg: float, image_hw: Tuple[int, int], flat_bvh,
-    bvh_dev: Optional[BVHArrays] = None,
+    targets: Sequence[Target], params: CameraParams,
+    bvh_dev: Optional[BVHArrays], model: SurfaceModel,
+    oblique_angle_deg: float, image_hw: Tuple[int, int], max_leaf: int = 4,
+    flat_bvh=None,
 ) -> List[Target]:
     """getTargets parity: in-frame, unoccluded, facing within the oblique
-    limit; the normal is the nearest node's (psp_process.cpp:92-106).  The
-    rays take ``bvh_dev``'s device walk when it is given, else the native
-    walk over ``flat_bvh``."""
+    limit; the normal is the nearest node's (psp_process.cpp:92-106).  As
+    in the JAX package, the rays take the native walk over ``flat_bvh``
+    when it is given and the library loads, else ``bvh_dev``'s device walk
+    (``max_leaf`` its leaf size; made from ``flat_bvh`` on the parameters'
+    device when None).  With neither, the flat BVH is built from the model
+    with ``max_leaf`` triangles a leaf, as :func:`run_phase0` builds it."""
     if not targets:
         return []
+    if flat_bvh is None and bvh_dev is None:
+        flat_bvh = _build_bvh(model, max_leaf)
+    lib = None if flat_bvh is None else native_or_none()
+    if lib is None and bvh_dev is None:
+        bvh_dev = bvh_to_device(flat_bvh, device=params.rvec.device)
     H, W = image_hw
     xyz, _, _ = targets_as_arrays(targets)
     uv = project_points(params, torch.from_numpy(xyz)).numpy()
@@ -163,13 +185,13 @@ def visible_targets(
     dist = np.linalg.norm(d, axis=1)
     dirs = d / dist[:, None]
     origins = np.broadcast_to(center, xyz.shape).astype(np.float32)
-    if bvh_dev is None:
-        t, _, hit = native_library().bvh_intersect(flat_bvh, origins,
-                                                   dirs.astype(np.float32))
+    if lib is not None:
+        t, _, hit = lib.bvh_intersect(flat_bvh, origins, dirs.astype(np.float32))
     else:
         dev = bvh_dev.leaf_v0.device
         t, _, hit = bvh_intersect(bvh_dev, torch.from_numpy(origins).to(dev),
-                                  torch.from_numpy(dirs.astype(np.float32)).to(dev))
+                                  torch.from_numpy(dirs.astype(np.float32)).to(dev),
+                                  max_leaf=max_leaf)
         t, hit = t.cpu().numpy(), hit.cpu().numpy()
     occluded = hit & (t < dist - 1e-3)
     hit_pos = np.where(hit[:, None], center + dirs * t[:, None], xyz)
@@ -215,20 +237,21 @@ def target_image_diameters(targets: Sequence[Target], params: CameraParams,
 
 
 def build_patcher_for_camera(
-    cfg: ProcessingConfig, params: CameraParams, model: SurfaceModel,
+    cfg: ProcessingConfig, params: CameraParams,
+    bvh_dev: Optional[BVHArrays], model: SurfaceModel,
     first_frame: np.ndarray, targets_file: str, image_hw: Tuple[int, int],
-    bit_depth: int, flat_bvh, bvh_dev: Optional[BVHArrays] = None,
+    bit_depth: int = 12, max_leaf: int = 4, flat_bvh=None,
 ):
     """InitializeImagePatches parity: visible targets + fiducials ->
     clusters -> boundary threshold -> composed patch operator.  Returns
-    (PatchOperator | None, diagnostics | None).  ``bvh_dev``: the device
-    walk's BVH (:func:`visible_targets`)."""
+    (PatchOperator | None, diagnostics | None).  ``bvh_dev``, ``max_leaf``
+    and ``flat_bvh``: the rays' walk (:func:`visible_targets`)."""
     all_t = read_tgts(targets_file) + read_tgts(targets_file, section="*Fiducials")
     if not all_t:
         return None, None
     oblique = min(cfg.oblique_angle + 5.0, 90.0)
-    vis = visible_targets(all_t, params, model, oblique, image_hw, flat_bvh,
-                          bvh_dev)
+    vis = visible_targets(all_t, params, bvh_dev, model, oblique, image_hw,
+                          max_leaf=max_leaf, flat_bvh=flat_bvh)
     if not vis:
         return None, None
     diams = target_image_diameters(vis, params, model, image_hw) * cfg.target_diam_sf
@@ -298,16 +321,7 @@ def run_phase0(
     H, W = first_frames[0].shape
     image_hw = (H, W)
     bit_depths = bit_depths or [12] * len(first_frames)
-    bvh_method = os.environ.get(
-        "UPSP_BVH_METHOD",
-        "sah" if model.triangles.shape[0] >= 2_000_000 else "median",
-    )
-    # native when the library is loaded, numpy otherwise (as the JAX
-    # package builds it)
-    from upsp_tpu_torch.native import build_bvh
-
-    bvh = build_bvh(model.vertices, model.triangles, leaf_size=max_leaf,
-                    method=bvh_method)
+    bvh = _build_bvh(model, max_leaf)
     if walk == "device":
         bvh_dev = bvh_to_device(bvh, device=device)
         mesh = dict(
@@ -340,8 +354,9 @@ def run_phase0(
                 width=W, **mesh))
         if cfg.target_patcher == "polynomial" and cam.targets:
             op, diag = build_patcher_for_camera(
-                cfg, params, model, first_frames[c], cam.targets, image_hw,
-                bit_depths[c], bvh, bvh_dev,
+                cfg, params, bvh_dev, model, first_frames[c], cam.targets, image_hw,
+                bit_depth=bit_depths[c], max_leaf=max_leaf,
+                flat_bvh=None if walk == "device" else bvh,
             )
         else:
             op, diag = None, None

@@ -15,10 +15,11 @@ hot-pixel repair, the phase correlation and the integer shift run on the
 f32 frame, which is then cast, and K1-K5 run their bf16 instantiations;
 warps, statistics, telemetry and intensities stay f32.
 
-The ECC start (``make_chunk_processor(warm_start=...)``): "fft" (the
-default, above), "scan" (the previous frame's warp, identity at each
-chunk's first frame; frames run in order) or False (identity, the
-reference's semantics).  Scan and identity solve with the while loop
+The ECC start (``make_chunk_processor(warm_start=...)``): "fft" (above;
+what the datapoint runs pass), True/"scan" (the default, as in the JAX
+package: the previous frame's warp, identity at each chunk's first frame;
+frames run in order) or False (identity, the reference's semantics).
+Scan and identity solve with the while loop
 (``ops/registration.ecc_affine``), identity batched over frames with
 per-lane stopping.  With ``pixel_interpolation = nearest`` the final warp
 is the nearest-neighbour ``warp_affine``, then patches and the filter, so
@@ -58,6 +59,7 @@ from upsp_tpu_torch.ops.gather_kernels import (
     apply_overlays,
     build_gather_plan,
     project_gather,
+    without_supersession,
 )
 from upsp_tpu_torch.ops.image import apply_filter
 from upsp_tpu_torch.ops.patching import (
@@ -199,6 +201,7 @@ def process_frames_core(
     ecc_epsilon: Optional[float] = None,  # while loop |drho| stop (1e-3)
     ecc_max_iters: Optional[int] = None,  # while loop cap (50)
     ecc_impl: str = "auto",
+    adjust_overlap: bool = True,
 ):
     """A frame batch -> (intensity (B, N), warps (B, C, 2, 3), telemetry
     (B, C, 5)), all f32.  Telemetry per camera is [rho, conv, total tx,
@@ -206,7 +209,9 @@ def process_frames_core(
     ``ecc_unroll_iters`` fixed steps, or with ``ecc_unroll_iters=None``
     the while loop's iteration count; the bound (written for format
     parity: the port's K2 has no band limit) is 0 for the while loop and
-    for nearest warps, as the JAX package's dense path writes it."""
+    for nearest warps, as the JAX package's dense path writes it.
+    ``adjust_overlap=False`` leaves out the overlap supersession: each
+    node keeps its own view (K5 on a plan without it)."""
     b, n_cams, h, w = frames.shape
     dev = frames.device
     nearest = interpolation == "nearest"
@@ -231,7 +236,8 @@ def process_frames_core(
             warp, rho, conv = ecc_affine(
                 params.ref_frames[c], img,
                 warp_init=None if warp_init is None else warp_init[:, c],
-                gauss_size=ECC_GAUSS_SIZE, valid_shift=vs_c, impl=ecc_impl,
+                gauss_size=ECC_GAUSS_SIZE, return_iters=True, valid_shift=vs_c,
+                impl=ecc_impl,
                 tmpl_blurred=None if ecc_templates is None else ecc_templates[c],
                 tmpl_shift=None if ecc_shifts is None else ecc_shifts[c],
                 **ecc_kw,
@@ -279,11 +285,12 @@ def process_frames_core(
         # K5: gather + skip mask + supersession in model order from the
         # camera images as they are, then the patch overlays on every node
         # that displays an overlaid node
-        sol = apply_overlays(project_gather(processed, params.gather),
-                             params.gather, overlays)
+        plan = params.gather if adjust_overlap else without_supersession(params.gather)
+        sol = apply_overlays(project_gather(processed, plan), plan, overlays)
     else:
         sol = torch.where(params.skipped, torch.full_like(sol, float("nan")), sol)
-        sol = sol[:, params.superseded_by]  # overlap supersession
+        if adjust_overlap:
+            sol = sol[:, params.superseded_by]  # overlap supersession
     return sol, torch.stack(warps, dim=1), torch.stack(teles, dim=1)
 
 
@@ -342,7 +349,8 @@ def process_frames_cams_batched(
             ref, imgs,
             warp_init=None if warp_init is None else warp_init.reshape(lanes, 2, 3),
             max_iters=ecc_unroll_iters, unroll=True, coarse_iters=ecc_coarse_iters,
-            gauss_size=ECC_GAUSS_SIZE, impl=ecc_impl, tmpl_blurred=tmpl,
+            gauss_size=ECC_GAUSS_SIZE, return_iters=True, impl=ecc_impl,
+            tmpl_blurred=tmpl,
         )
         tele = torch.stack([rho, conv.to(torch.float32), warps[:, 0, 2],
                             warps[:, 1, 2], torch.zeros_like(rho)], dim=1)
@@ -376,15 +384,18 @@ def process_frames_cams_batched(
 def process_frame(frames, params: Phase1Params, registration: str = "pixel",
                   patch: bool = True, filter_type: str = "gaussian",
                   filter_size: int = 3, interpolation: str = "linear",
-                  with_telemetry: bool = False):
+                  adjust_overlap: bool = True, with_telemetry: bool = False):
     """One multi-camera (C, H, W) frame -> per-node intensity (N,), with
-    the while-loop ECC from identity (the JAX package's ``process_frame``,
-    overlap supersession applied); ``with_telemetry`` also returns the
-    (C, 5) record [rho, iterations, tx, ty, 0]."""
+    the while-loop ECC from identity (the JAX package's ``process_frame``);
+    ``adjust_overlap`` applies the overlap supersession (without it the
+    result indexed by ``params.superseded_by`` is the result with it).
+    ``with_telemetry`` also returns the (C, 5) record [rho, iterations,
+    tx, ty, 0]."""
     x = torch.as_tensor(frames).to(params.ref_frames.device, torch.float32)
     sol, _, tele = process_frames_core(
         x[None], params, registration, patch, filter_type, filter_size,
         interpolation=interpolation, ecc_unroll_iters=None,
+        adjust_overlap=adjust_overlap,
     )
     return (sol[0], tele[0]) if with_telemetry else sol[0]
 
@@ -408,9 +419,9 @@ def make_frame_processor(state, with_telemetry: bool = False):
 
 
 def make_chunk_processor(state, with_telemetry: bool = False,
-                         frame_batch: int = 8, packed: bool = False,
+                         frame_batch: int = 1, packed: bool = False,
                          packed_bits: int = 12, lut=None,
-                         compute_dtype="float32", warm_start="fft",
+                         compute_dtype="float32", warm_start=True,
                          ecc_iters: Optional[int] = None,
                          ecc_coarse_iters: Optional[int] = None,
                          ecc_epsilon: Optional[float] = None,
@@ -428,9 +439,10 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     ``lut``), unpacked on the device by K7/K8 before the frame program.
 
     ``warm_start``, the start of each frame's ECC solve with pixel
-    registration:
+    registration (default ``True``, and ``frame_batch`` 1, as in the JAX
+    package; ``run_datapoint`` passes "fft" and 8):
 
-    - ``"fft"`` (default): the phase-correlation estimate; with
+    - ``"fft"``: the phase-correlation estimate; with
       ``pre_shift`` (default on with the kernel route) split into an
       integer pre-shift applied to the hot-pixel-repaired frame and a
       sub-pixel start, the shift composed into the ECC validity mask
@@ -565,7 +577,7 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     def scan_chunk(x: torch.Tensor):
         """The chunk's frames in order, each solve from the last one's
         warps; identity at the chunk's first frame."""
-        carry = identity_warp(n_cams, state.device)
+        carry = identity_warp(batch=n_cams, device=state.device)
         sols, teles = [], []
         for f in range(x.shape[0]):
             frame = x[f : f + 1].to(state.device, torch.float32)
@@ -633,7 +645,7 @@ def process_frames(state, frames, batched: bool = True) -> torch.Tensor:
     intensities the same to 1e-6 (the patch matmuls round by a blocking
     that depends on the batch size)."""
     if batched:
-        return make_chunk_processor(state, warm_start=False)(frames)
+        return make_chunk_processor(state, warm_start=False, frame_batch=8)(frames)
     fn = make_frame_processor(state)
     x = torch.as_tensor(frames)
     return torch.stack([fn(x[i]) for i in range(x.shape[0])])

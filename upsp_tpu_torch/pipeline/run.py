@@ -161,7 +161,28 @@ def _stage_clock(device: torch.device, stage_times: Optional[dict], mesh=None):
     every rank) and record their wall seconds in ``stage_times``."""
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
     barrier = None if mesh is None else (lambda: M.barrier(mesh))
-    return StageClock(barrier=barrier, sync=sync, times=stage_times)
+    return StageClock(barrier=barrier, enabled=False, sync=sync, times=stage_times)
+
+
+class _StreamClock:
+    """The points of a streaming run: the port's clock (the ``stage_times``
+    keys) and the caller's StageClock under the JAX package's labels
+    (upsp_tpu/pipeline/run.py:655-802), which has no ``phase1_setup`` and
+    no ``outputs``."""
+
+    JAX_LABELS = {"phase0": "phase0", "phase1": "phase1_stream",
+                  "disk_transpose": "disk_transpose", "phase2": "phase2_blocks"}
+
+    def __init__(self, clock: StageClock, caller: StageClock):
+        self.clock, self.caller = clock, caller
+
+    def point(self, label: str) -> None:
+        self.clock.point(label)
+        if label in self.JAX_LABELS:
+            self.caller.point(self.JAX_LABELS[label])
+
+    def split(self, label: str) -> None:
+        self.clock.split(label)
 
 
 def _open_inputs(cfg, frames_array):
@@ -361,6 +382,7 @@ def run_datapoint(
     write_outputs: bool = True,
     warm_start="fft",
     mesh=None,
+    frame_batch: int = 8,
 ) -> DatapointOutputs:
     """Process one datapoint end to end on ``device``; outputs go to
     ``cfg.out_dir`` when set.
@@ -370,7 +392,12 @@ def run_datapoint(
     "fft" (default; per-frame phase correlation, fixed steps, 8-frame
     batches), True/"scan" (the previous frame's warp, identity at each
     chunk's start) or False (identity, the while loop with the reference's
-    criteria: reference parity, batched 8 frames with per-frame stopping).
+    criteria: reference parity, batched with per-frame stopping).
+    ``frame_batch``: the frames of one batch in fft and identity modes
+    (scan runs a frame at a time).  The JAX package passes 1 in identity
+    mode, where it solves a frame at a time; the port's batched while loop
+    gives each lane the result of its solve alone
+    (tests/test_torch_registration.py), so it keeps the batch.
 
     ``frames_array`` (F, C, H, W) bypasses the video files.
     ``device_unpack``: "auto" (or True) ships the videos' packed bytes to
@@ -457,7 +484,7 @@ def run_datapoint(
 
     fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
                               compute_dtype=compute_dtype, warm_start=warm_start,
-                              **packed_kw)
+                              frame_batch=frame_batch, **packed_kw)
     clock.split("phase1_setup")  # part of phase 1: parameters, templates
     intensity = np.empty((n_frames, n_nodes), np.float32) if rank0 else None
     reg_telemetry = it_local = None
@@ -531,6 +558,8 @@ def run_datapoint_streaming(
     stage_times: Optional[dict] = None,
     warm_start="fft",
     mesh=None,
+    frame_batch: int = 8,
+    stage_clock: Optional[StageClock] = None,
 ) -> DatapointOutputs:
     """Out-of-core datapoint processing on ``device``, for datapoints
     larger than host or device memory.
@@ -546,14 +575,19 @@ def run_datapoint_streaming(
     is the reference's disk-intermediate pattern (psp_process.cpp:524-563,
     upsp_matrix_transpose) with the compute on the device.
 
-    ``frames_array`` and ``warm_start``: as in :func:`run_datapoint`;
+    ``frames_array``, ``warm_start`` and ``frame_batch``: as in
+    :func:`run_datapoint`;
     ``frames_array`` may also be a callable frame
     source ``source(start, count) -> (count, C, H, W)`` (a tensor on the
     device or a numpy array), ``cfg.frames`` frames long.  Requires an
     output directory, a wtd (sds) file and a paint calibration; raises
     ``ValueError`` without them.  ``stage_times``: as in
     :func:`run_datapoint`, with ``disk_transpose`` between phase 1 and
-    phase 2.  Returns no (F, N) array: ``intensity`` and the phase-2
+    phase 2.  ``stage_clock``: a
+    :class:`~upsp_tpu_torch.utils.timing.StageClock` (a new one when None)
+    that gets the JAX package's points, each after the device's work:
+    ``phase0``, ``phase1_stream``, ``disk_transpose`` and ``phase2_blocks``.
+    Returns no (F, N) array: ``intensity`` and the phase-2
     ``pressure_transpose`` are None.
 
     ``mesh``: as in :func:`run_datapoint`; on two or more ranks the run
@@ -574,7 +608,8 @@ def run_datapoint_streaming(
     mesh = _resolve_mesh(mesh, device)
     if mesh is not None:
         device = mesh.device
-    clock = _stage_clock(device, stage_times, mesh)
+    clock = _StreamClock(_stage_clock(device, stage_times, mesh),
+                         StageClock() if stage_clock is None else stage_clock)
     frames_array, readers, n_frames, start0, first_frames, bit_depths = (
         _open_inputs(cfg, frames_array))
     try:
@@ -586,7 +621,8 @@ def run_datapoint_streaming(
                                                      device_unpack)
         fn = make_chunk_processor(state, packed=use_packed,
                                   compute_dtype=compute_dtype,
-                                  warm_start=warm_start, **packed_kw)
+                                  warm_start=warm_start, frame_batch=frame_batch,
+                                  **packed_kw)
         clock.split("phase1_setup")
         ffs = FlatFileSet(cfg.out_dir)
         chunks = _chunk_iter(frames_array, readers, n_frames, start0,

@@ -14,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Tuple
 
 log = logging.getLogger("upsp_tpu.timing")
 
@@ -42,23 +42,26 @@ class StageClock:
 
     Each :meth:`point` first calls ``sync`` (waits for this rank's device
     work), then ``barrier`` (waits for every rank; e.g.
-    :func:`upsp_tpu_torch.parallel.mesh.barrier`), and logs (debug) the
-    total elapsed, the seconds since the previous point and the barrier
-    wait.  ``times``, when a dict, receives each stage's seconds since the
-    previous point under its label, and the barrier waits under
-    ``"barrier"`` (label -> seconds) when there is a barrier.  On
-    multi-rank runs every rank must make the same points in the same
-    order.
+    :func:`upsp_tpu_torch.parallel.mesh.barrier`), appends (label, total
+    elapsed, seconds since the previous point, barrier wait) to
+    ``records`` and, when ``enabled``, logs them (info).  ``times``, when
+    a dict, receives each stage's seconds since the previous point under
+    its label, and the barrier waits under ``"barrier"`` (label ->
+    seconds) when there is a barrier.  On multi-rank runs every rank must
+    make the same points in the same order.
     """
 
     def __init__(self, barrier: Optional[Callable[[], None]] = None,
+                 enabled: bool = True,
                  sync: Optional[Callable[[], None]] = None,
                  times: Optional[dict] = None):
         self.t_start = time.perf_counter()
         self.t_prev = self.t_start
         self.barrier = barrier
+        self.enabled = enabled
         self.sync = sync
         self.times = times
+        self.records: List[Tuple[str, float, float, float]] = []
 
     def point(self, label: str) -> None:
         if self.sync is not None:
@@ -67,14 +70,24 @@ class StageClock:
         if self.barrier is not None:
             self.barrier()
         t_after = time.perf_counter()
-        step, wait = t_after - self.t_prev, t_after - t_before
+        rec = (label, t_after - self.t_start, t_after - self.t_prev,
+               t_after - t_before)
+        self.records.append(rec)
         self.t_prev = t_after
         if self.times is not None:
-            self.times[label] = step
+            self.times[label] = rec[2]
             if self.barrier is not None:
-                self.times.setdefault("barrier", {})[label] = wait
-        log.debug("[stage] %-40s total %8.3f s  step %8.3f s  barrier %6.3f s",
-                  label, t_after - self.t_start, step, wait)
+                self.times.setdefault("barrier", {})[label] = rec[3]
+        if self.enabled:
+            log.info("[stage] %-40s total %8.3f s  step %8.3f s  barrier %6.3f s",
+                     *rec)
+
+    def summary(self) -> str:
+        """The records as a table, one stage a line."""
+        lines = [f"{'stage':40s} {'total':>10s} {'step':>10s} {'barrier':>8s}"]
+        for label, total, step, wait in self.records:
+            lines.append(f"{label:40s} {total:10.3f} {step:10.3f} {wait:8.3f}")
+        return "\n".join(lines)
 
     def split(self, label: str) -> None:
         """Record the seconds since the previous point under ``label`` in
