@@ -80,6 +80,19 @@ From the root of a checkout, on a machine with a CUDA device:
        ``make_chunk_processor(state)`` at its defaults (scan starts, a
        frame at a time) on 8 frames on the card, K1-K6 launched, its
        frames/s beside (b)'s and (n)'s default loop;
+       (s1) then prints which stage of the frame program first depends on
+       the frame batch (``upsp_tpu_torch.tools.batch_stages``: each
+       stage's outputs at batches of 8 and of 16 on (b)'s first 16 frames)
+       and checks each camera's patch products alone: a frame's values
+       the same bit for bit in batches of 16, 8 and 1 on the card;
+   (t) right after (s), the port's measurement tools
+       (``upsp_tpu_torch/tools/``) on the card, each record printed:
+       ``bench`` (1 MP, f32 and bf16, 5 trials), ``bench_fullconfig``
+       (fft, f32, phase 2), ``profile_phase1`` at 1 MP and at (b)'s shapes
+       on (b)'s state (the profiler's K1-K6 launches equal to the wrappers'
+       counts over the same chunks, busy share in (0, 1]),
+       ``bench_ablate`` and ``bench_endurance`` at 512 frames of 1,048,576
+       nodes (15 flat files, finite statistics); no K7, K8;
    between (b) and (d), two out-of-core runs (``run_datapoint_streaming``):
    (e) (b)'s files through ``upsp-process-torch --streaming`` in f32,
        with its disk transpose (numpy, fewer rows than a native block)
@@ -154,6 +167,7 @@ repository is missing, or any phase fails.
 
 import importlib.util
 import json
+import math
 import os
 import runpy
 import shutil
@@ -268,6 +282,20 @@ S_INTENSITY = ("intensity", "intensity_transpose", "intensity_avg", "intensity_r
 S_RATIO = ("intensity_ratio_0", "pressure_transpose", "avg", "rms")
 S_SUPERSEDED = 10_000  # live nodes (s2) gives another node's value
 S_FRAMES = 8  # (s3)'s frames, scan starts a frame at a time
+# path (t): the measurement tools (upsp_tpu_torch/tools/), each through its
+# run(argv) as ``python -m upsp_tpu_torch.tools.<name>`` runs it
+T_TRIALS = 5  # bench's timing trials
+T_TOP = 12  # rows of each profile's table
+# 2 GiB a flat file at 1,048,576 nodes; the disk probe 1 GiB (a chip
+# machine's disk takes ~45 GiB of writes a call, this script's included)
+T_ENDURANCE_FRAMES = 512
+# (b)'s configuration for the profile at its shapes, with (b)'s state
+T_FULL_ARGS = ["--cams", str(FULL_C), "--hw", f"{FULL_H},{FULL_W}",
+               "--grid", "1024,1024", "--reps", "4"]
+# the launches of csrc/*.cu's K1-K6 kernels that each profile must count
+T_PROFILED = ("blur_kernel", "warp_kernel", "moments_kernel", "moments_reduce_kernel",
+              "warp_filter_kernel", "gather_kernel", "hot_scan_kernel",
+              "hot_repair_kernel")
 # paths (i) and (j): (b)'s files through two CLI ranks on the one card
 RANKS = 2
 RANK_TIMEOUT_S = 300
@@ -1927,16 +1955,6 @@ def camera_batch_path(dp, state):
     return counts, dict(fps=fps, d_t=d_t, d_max=float(d.max()))
 
 
-def card_line():
-    """The card's name and power limit as nvidia-smi reports them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-            else "nvidia-smi unavailable")
-
-
 def drop_in_path(dp, state, by_path, b_stages, n_fps):
     """Path (s), in this process on (b)'s files and outputs, each part with
     the launch counts reset just before it and read just after (``by_path``
@@ -1945,6 +1963,11 @@ def drop_in_path(dp, state, by_path, b_stages, n_fps):
     (s1) ``run_datapoint(frame_batch=S_FRAME_BATCH)`` into an output
          directory of its own: every flat file against (b)'s (S_INTENSITY,
          S_RATIO, the rest exactly), whether it is bit for bit printed;
+         then each stage's largest difference between frame batches of
+         8 and of S_FRAME_BATCH on (b)'s first frames, and the first
+         stage that differs (``tools.batch_stages``); and each camera's
+         patch products alone, a frame's values the same bit for bit in
+         batches of S_FRAME_BATCH, 8 and 1;
     (s2) frame 1 through ``process_frame(adjust_overlap=False)`` and
          ``=True`` on the card (the while loop from identity): with
          supersession equals without it indexed by ``superseded_by``, bit
@@ -1972,6 +1995,7 @@ def drop_in_path(dp, state, by_path, b_stages, n_fps):
         process_frame,
     )
     from upsp_tpu_torch.pipeline.run import run_datapoint
+    from upsp_tpu_torch.tools import batch_stages, benchlib
 
     res = {}
     print(f"  -- path s1: run_datapoint(frame_batch={S_FRAME_BATCH}) on (b)'s files, "
@@ -2005,6 +2029,42 @@ def drop_in_path(dp, state, by_path, b_stages, n_fps):
     print(f"  (s1) bit for bit against (b): {len(exact)} of {len(FLAT_FILES)} files "
           f"({', '.join(exact) or 'none'})", flush=True)
     shutil.rmtree(os.path.dirname(s_dp["deck"]), ignore_errors=True)
+    # which stage of the frame program first depends on the batch, on (b)'s
+    # first S_FRAME_BATCH frames (outside the launch counts of s1)
+    frames = torch.from_numpy(dp["frames"][:S_FRAME_BATCH].view(np.int16)).to(
+        DEVICE).float()
+    stages = batch_stages.stage_diffs(state, frames, (8, S_FRAME_BATCH))
+    del frames
+    res["s1_stages"] = stages
+    check(all(np.isfinite(v) for v in stages["max_abs_diff"].values()),
+          "(s1) every stage's batch difference is finite")
+    print(f"  (s1) frame batch 8 against {S_FRAME_BATCH}, each stage's largest "
+          f"difference: {json.dumps(stages['max_abs_diff'])}; the first stage that "
+          f"differs: {stages['first_differs']}", flush=True)
+    # the patch products alone on the card: a frame's values are the same
+    # bit for bit in a batch of S_FRAME_BATCH, of 8 and alone (random
+    # images at (b)'s size through each camera's operators)
+    from upsp_tpu_torch.ops.patching import apply_patches, patch_correction_values
+
+    params = phase1_params(state)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    shapes = []
+    for c, op in enumerate(params.patch_ops):
+        corr = params.patch_corr[c] if c < len(params.patch_corr) else None
+        x = 1000 + 2000 * torch.rand((S_FRAME_BATCH, *state.image_hw), device=DEVICE,
+                                     generator=gen)
+        for fn, arg in ((apply_patches, op), (patch_correction_values, corr)):
+            if arg is None:
+                continue
+            whole = fn(x, arg)
+            check(torch.equal(whole[:8], fn(x[:8], arg))
+                  and torch.equal(whole[5:6], fn(x[5:6], arg)),
+                  f"(s1) camera {c} {fn.__name__}: a frame's values are the same "
+                  f"in batches of {S_FRAME_BATCH}, 8 and 1 on the card")
+            shapes.append(tuple((arg.M if fn is apply_patches else arg.C).shape))
+    check(bool(shapes), "(s1) the batch check reached a patch operator")
+    print(f"  (s1) patch products on the card: operators (K, R, S) {shapes}, each "
+          f"frame's values the same in batches of {S_FRAME_BATCH}, 8 and 1", flush=True)
 
     print("  -- path s2: one frame through process_frame(adjust_overlap=False/True) "
           "on the card", flush=True)
@@ -2066,13 +2126,113 @@ def drop_in_path(dp, state, by_path, b_stages, n_fps):
           and bool(torch.isfinite(sol[:, torch.from_numpy(visible).to(DEVICE)]).all()),
           "(s3) intensities finite on visible nodes")
     del chunk, sol
-    res["card"] = card_line()
+    res["card"] = benchlib.card()
     print(f"  path s: (s1) {res['s1_fps']:.2f} frames/s after set-up at frame_batch "
           f"{S_FRAME_BATCH} against (b) {b_stages['frames_per_s']:.2f} (CLI); (s2) "
           f"{res['s2_s']:.3f} s for four process_frame calls; (s3) {res['s3_fps']:.2f} "
           f"frames/s (scan, a frame at a time, frames on the card) against (n)'s "
           f"default loop {n_fps:.2f}; {res['card']} (printed, not a claim)", flush=True)
     return res
+
+
+def finite_positive(x):
+    return x is not None and math.isfinite(x) and x > 0
+
+
+def tools_path(state):
+    """Path (t), in this process right after (s): the port's measurement
+    tools (``upsp_tpu_torch/tools/``), each through ``run(argv)`` on the
+    card, each record printed on a line of its own:
+
+    - ``bench`` (f32 and bf16, T_TRIALS trials): frames/s > 0 and finite;
+    - ``bench_fullconfig`` (fft, f32, phase 2; its own synthetic state):
+      phase-1 and end-to-end frames/s > 0 and finite;
+    - ``profile_phase1`` at the 1 MP default and at (b)'s shapes on
+      ``state`` ((b)'s phase-0 state): the profiler saw device time, its
+      launches of each K1-K6 kernel equal the wrappers' counts over the
+      same window, and the busy share lies in (0, 1];
+    - ``bench_ablate`` (1 MP): the GN step and the splits finite;
+    - ``bench_endurance`` at T_ENDURANCE_FRAMES frames (1,048,576 nodes)
+      after its free-space check: the 15 flat files written, the
+      intensity statistics finite on every covered node.
+
+    Returns (the launch counts of the whole path, the records)."""
+    import numpy as np
+
+    from upsp_tpu_torch.io.flatfile import FLAT_FILES, read_flat
+    from upsp_tpu_torch.ops import cuda_lib
+    from upsp_tpu_torch.tools import (
+        bench,
+        bench_ablate,
+        bench_endurance,
+        bench_fullconfig,
+        profile_phase1,
+    )
+
+    recs = {}
+
+    def show(name, rec):
+        recs[name] = rec
+        print(f"  (t) {name} {json.dumps(rec)}", flush=True)
+
+    cuda_lib.reset_launch_counts()
+    print(f"  -- path t: bench, {T_TRIALS} trials, f32 and bf16", flush=True)
+    rec = bench.run(["--trials", str(T_TRIALS)])
+    show("bench", rec)
+    for k in ("value", "trial_fps_min", "trial_fps_max", "bf16_optin_fps"):
+        check(finite_positive(rec[k]), f"(t) bench {k} > 0 and finite")
+
+    print("  -- path t: bench_fullconfig (fft, f32, with phase 2)", flush=True)
+    rec = bench_fullconfig.run([])
+    show("bench_fullconfig", rec)
+    for k in ("fps_phase1", "fps_end2end"):
+        check(finite_positive(rec[k]), f"(t) bench_fullconfig {k} > 0 and finite")
+
+    for name, argv, st in (("profile_phase1 1MP", [], None),
+                           ("profile_phase1 (b)", T_FULL_ARGS, state)):
+        print(f"  -- path t: {name}", flush=True)
+        rec = profile_phase1.run(argv + ["--top", str(T_TOP)], state=st)
+        show(name, rec)
+        prof, want = rec["kernel_launches"], rec["wrapper_launches"]
+        for k in T_PROFILED:
+            check(prof[k] == want[k] > 0,
+                  f"(t) {name}: the profiler's {k} launches ({prof[k]}) equal the "
+                  f"wrappers' ({want[k]}) over the same chunks")
+        check(0 < rec["busy_share"] <= 1, f"(t) {name}: busy share in (0, 1]")
+
+    print("  -- path t: bench_ablate", flush=True)
+    rec = bench_ablate.run([])
+    show("bench_ablate", rec)
+    for k in ("gn_step_ms_per_frame", "ecc_fixed_ms_per_frame",
+              "non_registration_ms_per_frame"):
+        check(math.isfinite(rec[k]), f"(t) bench_ablate {k} finite")
+
+    print(f"  -- path t: bench_endurance, {T_ENDURANCE_FRAMES} frames", flush=True)
+    out_root = os.path.join(WORK, "t_endurance")
+    try:
+        rec = bench_endurance.run(["--frames", str(T_ENDURANCE_FRAMES), "--out-dir",
+                                   out_root, "--keep-files", "--disk-probe-bytes",
+                                   str(1 << 30)])
+        show("bench_endurance", rec)
+        out_dir = rec["out_dir"]
+        missing = [n for n in FLAT_FILES if not os.path.exists(os.path.join(out_dir, n))]
+        check(not missing, f"(t) bench_endurance wrote every flat file (missing: {missing})")
+        covered = read_flat(os.path.join(out_dir, "coverage")) > 0
+        for n in ("intensity_avg", "intensity_rms"):
+            v = read_flat(os.path.join(out_dir, n))[covered]
+            check(covered.sum() > 0 and np.isfinite(v).all(),
+                  f"(t) bench_endurance {n} finite on the {int(covered.sum()):,} "
+                  "covered nodes")
+        check(finite_positive(rec["value"]), "(t) bench_endurance frames/s > 0")
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    counts = cuda_lib.launch_counts()
+    print(f"  launches on this path: {counts}", flush=True)
+    for name in FRAME_KERNELS:
+        check(counts[name] > 0, f"kernel {name} launched on path t")
+    check(counts["unpack12"] == counts["unpack10"] == 0,
+          "path t feeds frames from the card (no K7, K8)")
+    return counts, recs
 
 
 def forces_path(dp):
@@ -2539,8 +2699,11 @@ def full_config_paths(by_path, phase_s):
         t0 = time.perf_counter()
         s_res = drop_in_path(dp, state, by_path, ref["stages"],
                              n_res["fps"]["loop, default"])
-        del state
         phase_s["path s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        by_path["t"], s_res["tools"] = tools_path(state)
+        del state
+        phase_s["path t"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         by_path["o"], o_res = forces_path(dp)
         phase_s["path o"] = time.perf_counter() - t0
@@ -2618,7 +2781,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    card = card_line()
+    from upsp_tpu_torch.tools import benchlib
+
+    card = benchlib.card()
     print(card, flush=True)
     t_start = time.perf_counter()
     phase_s = {}  # seconds of each phase after the card check
@@ -2668,7 +2833,7 @@ def main() -> int:
         phase_s["path h"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         s_res = full_config_paths(by_path, phase_s)
-        phase_s["paths b, m, n, s, o, p, e, i, j, f, g, d, b', d'"] = (
+        phase_s["paths b, m, n, s, t, o, p, e, i, j, f, g, d, b', d'"] = (
             time.perf_counter() - t0)
         t0 = time.perf_counter()
         k_ms = nccl_path()
@@ -2728,6 +2893,19 @@ def main() -> int:
           f"(b)'s, the rest within bounds; (s2) process_frame's supersession an index, "
           f"bit for bit; (s3) make_chunk_processor(state) at its defaults "
           f"{s_res['s3_fps']:.2f} frames/s; {s_res['card']}", flush=True)
+    t = s_res["tools"]
+    tb, tf, ta, te = (t[k] for k in ("bench", "bench_fullconfig", "bench_ablate",
+                                     "bench_endurance"))
+    print(f"path (t): the measurement tools: bench {tb['value']} frames/s f32 (trials "
+          f"{tb['trial_fps_min']}-{tb['trial_fps_max']}), bf16 {tb['bf16_optin_fps']}; "
+          f"bench_fullconfig phase 1 {tf['fps_phase1']} frames/s, end to end "
+          f"{tf['fps_end2end']}; " + "; ".join(
+              f"{n}: device {t[n]['device_us_per_frame']} us a frame, busy share "
+              f"{t[n]['busy_share']}, K1-K9 {t[n]['k_share_of_device']} of device time"
+              for n in ("profile_phase1 1MP", "profile_phase1 (b)"))
+          + f"; GN step {ta['gn_step_ms_per_frame']} ms a frame; endurance "
+          f"{te['value']} frames/s sustained over {te['config']['frames']} frames "
+          f"(stages {te['stages_s']}; disk {te['disk']}; link {te['link']})", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check; "
           f"by phase: " + ", ".join(f"{k} {v:.2f} s" for k, v in phase_s.items()),
           flush=True)

@@ -2,11 +2,16 @@
 
 Port of ``upsp_tpu/ops/patching.py``.  Phase 0 builds, per cluster, the
 composed operator ``M = A_internal @ pinv(A_boundary)`` on the host (numpy,
-as the JAX package); per frame the fill is a gather of boundary pixels, a
-batched matmul and a scatter of interiors (:func:`apply_patches`), or, on
+as the JAX package); per frame the fill is a gather of boundary pixels,
+the operator's products summed along its rows and a scatter of
+interiors (:func:`apply_patches`), or, on
 the fused warp+filter tail, the node-level correction of
 :class:`PatchNodeCorrection` sampled from the kernel's pre-filter warped
-image (:func:`patch_correction_values`).
+image (:func:`patch_correction_values`).  The product runs a frame at a
+time, as the JAX package's per-frame ``einsum`` under ``vmap``: one
+matmul over the whole batch makes the frames a GEMM's columns, whose
+blocking depends on their count, so a frame's fill would change with the
+frames beside it.
 """
 
 from __future__ import annotations
@@ -379,22 +384,35 @@ def build_patch_node_correction(op: Optional[PatchOperator],
 
 
 # ---------------------------------------------------------------------------
-# per-frame application (batched over frames)
+# per-frame application (on a batch of frames, a frame at a time)
+
+
+def _frame_products(mat: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """(B, K, R) products of the (K, R, S) cluster operators with each
+    frame's (K, S) gathered pixels in (B, K, S) ``vecs``, a frame at a
+    time, each row's products summed along S.  Every frame takes the same
+    call, so its sums do not depend on the frames beside it, and the one
+    intermediate, (K, R, S), is the operator's own size.  (A
+    matrix-vector GEMM a frame rounds further from the JAX package's sums
+    than this reduction does.)"""
+    return torch.stack([(mat * v.unsqueeze(1)).sum(-1) for v in vecs])
 
 
 def patch_correction_values(warped: torch.Tensor,
                             corr: PatchNodeCorrection) -> torch.Tensor:
     """(B, K, A_max) filtered-patched values from (B, H, W) pre-filter
-    warped images: a gather at static source pixels + the cluster matmul."""
+    warped images: a gather at static source pixels + the cluster product,
+    a frame at a time (:func:`_frame_products`)."""
     b = warped.shape[0]
     srcv = warped.reshape(b, -1)[:, corr.src_flat].to(torch.float32)
-    return torch.einsum("kas,bks->bka", corr.C, srcv[:, corr.src_slot])
+    return _frame_products(corr.C, srcv[:, corr.src_slot])
 
 
 def apply_patches(frames: torch.Tensor,
                   op: Optional[PatchOperator]) -> torch.Tensor:
-    """Patch all clusters of (B, H, W) frames: gather boundaries, one
-    batched f32 matmul, scatter interiors (pad slots are dropped).
+    """Patch all clusters of (B, H, W) frames: gather boundaries, the f32
+    operator product a frame at a time (:func:`_frame_products`), scatter
+    interiors (pad slots are dropped).
     bfloat16 frames stay bfloat16, the fill rounded once; others are f32."""
     frames = frames.to(image_dtype(frames))
     if op is None:
@@ -402,7 +420,7 @@ def apply_patches(frames: torch.Tensor,
     b = frames.shape[0]
     flat = frames.reshape(b, -1)
     z = flat[:, op.boundary_idx].float()  # (B, K, B_max); M's pad columns are 0
-    fill = torch.einsum("kib,nkb->nki", op.M, z).reshape(b, -1)
+    fill = _frame_products(op.M, z).reshape(b, -1)
     idx = op.internal_idx.reshape(-1)
     keep = idx < flat.shape[1]
     out = flat.clone()

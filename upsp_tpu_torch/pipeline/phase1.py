@@ -641,9 +641,8 @@ def process_frames(state, frames, batched: bool = True) -> torch.Tensor:
     """(F, C, H, W) frames -> (F, N) intensities with identity starts: the
     stateless oracle of the warm-started chunk program.  ``batched`` runs
     the frames in batches of 8 through the identity chunk program, else
-    one :func:`process_frame` call a frame: the same ECC solves, and
-    intensities the same to 1e-6 (the patch matmuls round by a blocking
-    that depends on the batch size)."""
+    one :func:`process_frame` call a frame: the same ECC solves and
+    intensities (no stage's result depends on the batch on the CPU)."""
     if batched:
         return make_chunk_processor(state, warm_start=False, frame_batch=8)(frames)
     fn = make_frame_processor(state)

@@ -1,0 +1,9 @@
+"""Measurement programs of the port, each ``python -m
+upsp_tpu_torch.tools.<name>`` with ``--device cuda`` (default) or ``cpu``:
+``bench`` (1 MP frames/s), ``bench_fullconfig`` (the production
+configuration, phase 1 and phase 2), ``profile_phase1`` (device time by
+kernel), ``bench_ablate`` and ``bench_budget`` (the Gauss-Newton and
+registration split), ``bench_endurance`` (out of core past device
+memory), ``batch_stages`` (which stage depends on the frame batch);
+``benchlib`` times them.  ``k9_sweep.py`` runs as a script.
+"""

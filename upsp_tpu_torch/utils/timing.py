@@ -103,9 +103,10 @@ class StageClock:
 def trace(log_dir: Optional[str] = None):
     """A ``torch.profiler`` trace of the CPU and, where CUDA is available,
     the card, written as a Chrome trace (``trace.json``) under ``log_dir``;
-    a no-op when ``log_dir`` is None."""
+    yields the ``torch.profiler.profile`` (its events are read after the
+    block); a no-op yielding None when ``log_dir`` is None."""
     if log_dir is None:
-        yield
+        yield None
         return
     import os
 
@@ -117,7 +118,7 @@ def trace(log_dir: Optional[str] = None):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield
+        yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
