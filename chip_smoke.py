@@ -23,7 +23,11 @@ From the root of a checkout, on a machine with a CUDA device:
    bf16 frames, from the camera images and from a stack, also on a plan
    with a partial last tile and an all-NaN tile and in plain model order,
    with its sector floor; K6 also on an all-saturated frame and adjacent
-   hot pixels; both bit-identical from call to call);
+   hot pixels; both bit-identical from call to call); K10 (the phase
+   correlation's k x k pooling) at 8 x 4 x 1200x1800, k = 4, f32 and
+   bf16, bit for bit, also on a camera's strided slice, with
+   ``F.avg_pool2d`` as its yardstick and the parent's two pooling GEMMs
+   timed beside it;
 4. drives four synthetic datapoints through scripts/upsp-process-torch,
    each run (and (e), (f) below) with the kernel launch counts reset just
    before and read just after, packed ingest on and hot pixels injected, in this order:
@@ -82,17 +86,22 @@ From the root of a checkout, on a machine with a CUDA device:
        frames/s beside (b)'s and (n)'s default loop;
        (s1) then prints which stage of the frame program first depends on
        the frame batch (``upsp_tpu_torch.tools.batch_stages``: each
-       stage's outputs at batches of 8 and of 16 on (b)'s first 16 frames)
-       and checks each camera's patch products alone: a frame's values
-       the same bit for bit in batches of 16, 8 and 1 on the card;
+       stage's outputs at batches of 8 and of 16 on (b)'s first 16 frames;
+       the hot pixels and the phase correlation must not), and checks each
+       camera's pooled frames (K10) and phase correlation, and its patch
+       products alone: a frame's values the same bit for bit in batches
+       of 16, 8 and 1 on the card;
    (t) right after (s), the port's measurement tools
        (``upsp_tpu_torch/tools/``) on the card, each record printed:
        ``bench`` (1 MP, f32 and bf16, 5 trials), ``bench_fullconfig``
        (fft, f32, phase 2), ``profile_phase1`` at 1 MP and at (b)'s shapes
        on (b)'s state (the profiler's K1-K6 launches equal to the wrappers'
        counts over the same chunks, busy share in (0, 1]),
-       ``bench_ablate`` and ``bench_endurance`` at 512 frames of 1,048,576
-       nodes (15 flat files, finite statistics); no K7, K8;
+       ``bench_ablate``, ``bench_components`` (1 MP), ``bench_hbm`` (its
+       best rate beside the 3.35 TB/s the bounds assume),
+       ``correlate`` at (b)'s shapes under the profiler (K10, no matrix
+       product), and ``bench_endurance`` at 512 frames of
+       1,048,576 nodes (15 flat files, finite statistics); no K7, K8;
    between (b) and (d), two out-of-core runs (``run_datapoint_streaming``):
    (e) (b)'s files through ``upsp-process-torch --streaming`` in f32,
        with its disk transpose (numpy, fewer rows than a native block)
@@ -157,7 +166,9 @@ measured shape under ``shapes``; ``bound_share``, the bound over
 ``device_ms``; the redesigned K1-K6 and K9 also ``redesigned``, with
 their time before the redesign printed on a line of its own; K5 also
 ``sector_floor_ms``, ``stacked_device_ms`` and
-``model_order_device_ms``; K9 also ``split_ms``/``split_device_ms``, the
+``model_order_device_ms``; K10 also ``gemm_ms``, the parent's two
+pooling GEMMs, and its bf16 instantiation ``kernel_phase_only`` (the
+phase correlation pools f32 frames in both compute dtypes); K9 also ``split_ms``/``split_device_ms``, the
 time of K2 then K3, ``registers`` and ``local_bytes`` a thread, and
 ``kernel_phase_only``: no datapoint path runs it), the card's name and
 power limit, then as the last line {"ok": true, "device": {...}}.
@@ -190,11 +201,15 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "hot": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:739"),
     "unpack12": ("upsp_tpu_torch/csrc/unpack.cu", "upsp_tpu/ops/pallas_unpack.py:37"),
     "unpack10": ("upsp_tpu_torch/csrc/unpack.cu", "upsp_tpu/ops/pallas_unpack.py:76"),
+    # K10 replaces no Pallas kernel: the XLA dot of decimate_image
+    "pool": ("upsp_tpu_torch/csrc/fftreg.cu", "upsp_tpu/ops/fftreg.py:74"),
 }
 # the bfloat16 instantiations replace the same TPU kernels (out_dtype=imgs.dtype)
-for _k in ("blur", "warp", "moments", "warp_filter", "gn_fused", "gather"):
+for _k in ("blur", "warp", "moments", "warp_filter", "gn_fused", "gather", "pool"):
     KERNEL_INFO[f"{_k}_bf16"] = KERNEL_INFO[_k]
-KERNEL_PHASE_ONLY = ("gn_fused", "gn_fused_bf16")  # no datapoint path runs K9
+# no datapoint path runs K9, nor K10 on bf16 frames (the phase correlation
+# takes the f32 frames in both compute dtypes)
+KERNEL_PHASE_ONLY = ("gn_fused", "gn_fused_bf16", "pool_bf16")
 # the least time of a call: bytes over the HBM rate, operations over the
 # f32 (CUDA-core) rate -- every kernel computes in f32 -- whichever is
 # larger (NVIDIA H100 SXM data sheet)
@@ -212,8 +227,14 @@ F32_FLOPS_PER_S = 67e12
 # (f*x, then sums of f*x*x, f*x, f), the gradient-times-z products 4 and
 # their sums 18 (g*z*x and g*z for two g and three z), the masked sums 9.
 # K9: K2 + K3.  K5: one multiply.  K6: two compares.  K7/K8: integer work.
+# K10 (per pooled pixel, k x k block): k column sums of k products (2k^2 -
+# k), then k products and k - 1 sums: 2k^2 + k - 1 (:func:`pool_flops`).
 FLOPS = {"blur": 2 * 9, "warp": 9 + 27, "warp_filter": 36 + 2 * 5, "moments": 61,
          "gn_fused": 36 + 61, "gather": 1, "hot": 2, "unpack12": 0, "unpack10": 0}
+
+
+def pool_flops(k):
+    return 2 * k * k + k - 1
 B = 8  # the frame batch of the frame program
 FULL_C, FULL_H, FULL_W = 4, 1200, 1800
 # K1-K4 are checked at the frame sizes of paths (a)/(c) and of (b), whose
@@ -228,11 +249,11 @@ BF16_KERNELS = tuple(f"{k}_bf16" for k in F32_ECC + ("gather",)) + ("hot",)
 PATHS = [
     ("a: 2 x 1024x1024 mraw12, 64 frames, 81,920 nodes",
      dict(n_cameras=2, image_hw=(1024, 1024), n_frames=64, grid_shape=(320, 256)),
-     slice(0, 8), FRAME_KERNELS + ("unpack12",)),
+     slice(0, 8), FRAME_KERNELS + ("pool", "unpack12")),
     ("c: 2 x 1024x1024 cine10, 32 frames, 81,920 nodes",
      dict(n_cameras=2, image_hw=(1024, 1024), n_frames=32, grid_shape=(320, 256),
           video_format="cine10"),
-     slice(0, 8), FRAME_KERNELS + ("unpack10",)),
+     slice(0, 8), FRAME_KERNELS + ("pool", "unpack10")),
 ]
 # the full configuration, written once and run as (b) in f32 and (d) in
 # bf16: (label, compute dtype, kernels the path must launch)
@@ -248,9 +269,10 @@ P2_NODE_BLOCK = 65536
 TALL = (4096, 32768)
 FULL_PATHS = (
     ("b: full config, 4 x 1200x1800 mraw12, 64 frames, 1,048,576 nodes",
-     "float32", FRAME_KERNELS + ("unpack12",)),
+     "float32", FRAME_KERNELS + ("pool", "unpack12")),
+    # the phase correlation pools the f32 frames in both dtypes: K10 in f32
     ("d: full config in bfloat16 (--compute-dtype bfloat16), path (b)'s files",
-     "bfloat16", BF16_KERNELS + ("unpack12",)),
+     "bfloat16", BF16_KERNELS + ("pool", "unpack12")),
 )
 # path (g): (b)'s files again, reference parity (identity starts, the while
 # loop), into an output directory of its own
@@ -286,16 +308,18 @@ S_FRAMES = 8  # (s3)'s frames, scan starts a frame at a time
 # run(argv) as ``python -m upsp_tpu_torch.tools.<name>`` runs it
 T_TRIALS = 5  # bench's timing trials
 T_TOP = 12  # rows of each profile's table
+T_CORRELATE_CALLS = 4  # correlate calls in its profiler window
 # 2 GiB a flat file at 1,048,576 nodes; the disk probe 1 GiB (a chip
 # machine's disk takes ~45 GiB of writes a call, this script's included)
 T_ENDURANCE_FRAMES = 512
 # (b)'s configuration for the profile at its shapes, with (b)'s state
 T_FULL_ARGS = ["--cams", str(FULL_C), "--hw", f"{FULL_H},{FULL_W}",
                "--grid", "1024,1024", "--reps", "4"]
-# the launches of csrc/*.cu's K1-K6 kernels that each profile must count
+# the launches of csrc/*.cu's K1-K6 and K10 kernels that each profile must
+# count
 T_PROFILED = ("blur_kernel", "warp_kernel", "moments_kernel", "moments_reduce_kernel",
               "warp_filter_kernel", "gather_kernel", "hot_scan_kernel",
-              "hot_repair_kernel")
+              "hot_repair_kernel", "pool_kernel")
 # paths (i) and (j): (b)'s files through two CLI ranks on the one card
 RANKS = 2
 RANK_TIMEOUT_S = 300
@@ -894,6 +918,51 @@ def kernel_phase_ingest(rows):
     torch.cuda.synchronize()
 
 
+def kernel_phase_pool(rows):
+    """K10, the phase correlation's k x k pooling, against its twin at the
+    full configuration's shapes (8 frames x 4 cameras x 1200x1800, k = 4),
+    f32 and bf16, bit for bit (both sum in one fixed order, each product
+    and sum rounded); also on one camera's strided slice of the chunk.
+    ``library_ms`` is ``F.avg_pool2d`` (its window summed row-major, so up
+    to 1 ulp from K10); ``gemm_ms`` the parent's form, ``P_h @ x @ P_w^T``
+    with dense pooling matrices (cuBLAS), both timed, neither used."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from upsp_tpu_torch.ops import fftreg as TF
+
+    k = TF.default_decimate(FULL_H, FULL_W)
+    rng = np.random.default_rng(10)
+    x32 = torch.tensor(rng.uniform(0, 4095, (B, FULL_C, FULL_H, FULL_W)).astype(np.float32),
+                       device=DEVICE)
+    ho, wo = FULL_H // k, FULL_W // k
+    p_h = ((torch.arange(ho, device=DEVICE)[:, None]
+            == torch.arange(FULL_H, device=DEVICE)[None] // k).float() / k)
+    p_wt = ((torch.arange(wo, device=DEVICE)[:, None]
+             == torch.arange(FULL_W, device=DEVICE)[None] // k).float() / k).T.contiguous()
+    n_img = B * FULL_C
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        name = "pool" if dtype == torch.float32 else "pool_bf16"
+        got, want = TF.decimate_image(x, k), TF.decimate_plain(x, k)
+        cam = TF.decimate_image(x[:, 2], k)
+        ok = (torch.equal(got, want) and torch.equal(cam, want[:, 2])
+              and torch.equal(TF.decimate_image(x, k), got))
+        err = float((got - want).abs().max())
+        flat = x.reshape(n_img, 1, FULL_H, FULL_W)
+        gemm_ms = cuda_time(lambda: p_h @ x.float() @ p_wt)
+        add_row(rows, name, f"{B}x{FULL_C}x{FULL_H}x{FULL_W} {str(dtype)[6:]}, k={k}",
+                err, ok, "bit for bit, also a camera's strided slice, and call to call",
+                lambda: TF.decimate_image(x, k), lambda: TF.decimate_plain(x, k),
+                x.numel() * x.element_size() + n_img * ho * wo * 4,
+                n_img * ho * wo * pool_flops(k),
+                library_fn=lambda: F.avg_pool2d(flat, k), gemm_ms=gemm_ms)
+        print(f"  {name}: the parent's two pooling GEMMs {gemm_ms:.4f} ms "
+              f"(in f32, as the parent computed them)", flush=True)
+    torch.cuda.synchronize()
+
+
 def run_cli(argv):
     """Run the script ``argv[0]`` in this process with ``argv``."""
     saved = sys.argv
@@ -1241,7 +1310,8 @@ def identity_path(dp, b_tele):
     g_dp = own_output(dp, "g")
     counts, res = datapoint_path(G_LABEL, g_dp, FULL, FULL_BATCH,
                                  FRAME_KERNELS + ("unpack12",), "float32",
-                                 warm_start=False, flags=("--no-warm-start",))
+                                 warm_start=False, flags=("--no-warm-start",),
+                                 absent=("pool",))
     d_t = np.abs(res["cli_tele"][..., 2:4] - b_tele[..., 2:4])
     print(f"  (g) against (b)'s fft telemetry: largest |translation difference| "
           f"{d_t.max():.4f} px, mean {d_t.mean():.4f} px (informative)", flush=True)
@@ -1935,7 +2005,7 @@ def camera_batch_path(dp, state):
         out[name] = (sol.cpu().numpy(), tele.cpu().numpy())
         del sol, tele
     print(f"  launches of the batched run: {counts}", flush=True)
-    for k in ("blur", "warp", "gather", "hot"):
+    for k in ("blur", "warp", "gather", "hot", "pool"):
         check(counts[k] > 0, f"kernel {k} launched by the batched run")
     for k in ("moments", "warp_filter", "gn_fused"):
         check(counts[k] == 0 and counts[f"{k}_bf16"] == 0,
@@ -1953,6 +2023,36 @@ def camera_batch_path(dp, state):
         f"{k} {v:.2f}" for k, v in fps.items()), flush=True)
     del chunk
     return counts, dict(fps=fps, d_t=d_t, d_max=float(d.max()))
+
+
+def pooled_batch_check(state, frames):
+    """(s1): each camera's pooled frames (K10, on the camera's strided slice
+    of the (F, C, H, W) chunk, as the frame program takes it) and phase
+    correlation are the same bit for bit in batches of all the frames, of 8
+    and of 1."""
+    import torch
+
+    from upsp_tpu_torch.ops.fftreg import (
+        correlate,
+        decimate_image,
+        default_decimate,
+        prepare_template,
+    )
+    from upsp_tpu_torch.pipeline.phase1 import phase1_params
+
+    dec = default_decimate(*state.image_hw)
+    refs = phase1_params(state).ref_frames
+    n_frames = frames.shape[0]
+    for c in range(frames.shape[1]):
+        tmpl = prepare_template(refs[c], dec)
+        cam = frames[:, c]
+        pooled, est = decimate_image(cam, dec), correlate(tmpl, cam)
+        same = all(torch.equal(decimate_image(cam[i : i + n], dec), pooled[i : i + n])
+                   and torch.equal(correlate(tmpl, cam[i : i + n]), est[i : i + n])
+                   for n in (8, 1) for i in range(0, n_frames, n))
+        check(same, f"(s1) camera {c}: a frame's pooled image and phase correlation "
+              f"are the same bit for bit in batches of {n_frames}, 8 and 1 on "
+              "the card")
 
 
 def drop_in_path(dp, state, by_path, b_stages, n_fps):
@@ -2011,7 +2111,7 @@ def drop_in_path(dp, state, by_path, b_stages, n_fps):
     wall = time.perf_counter() - t0
     by_path["s1"] = cuda_lib.launch_counts()
     print(f"  launches on this path: {by_path['s1']}", flush=True)
-    for name in FRAME_KERNELS + ("unpack12",):
+    for name in FRAME_KERNELS + ("pool", "unpack12"):
         check(by_path["s1"][name] > 0, f"kernel {name} launched on this path")
     times["n_frames"] = FULL["n_frames"]
     print_stages(f"run_datapoint(frame_batch={S_FRAME_BATCH})", wall, times)
@@ -2034,13 +2134,18 @@ def drop_in_path(dp, state, by_path, b_stages, n_fps):
     frames = torch.from_numpy(dp["frames"][:S_FRAME_BATCH].view(np.int16)).to(
         DEVICE).float()
     stages = batch_stages.stage_diffs(state, frames, (8, S_FRAME_BATCH))
-    del frames
     res["s1_stages"] = stages
     check(all(np.isfinite(v) for v in stages["max_abs_diff"].values()),
           "(s1) every stage's batch difference is finite")
     print(f"  (s1) frame batch 8 against {S_FRAME_BATCH}, each stage's largest "
           f"difference: {json.dumps(stages['max_abs_diff'])}; the first stage that "
           f"differs: {stages['first_differs']}", flush=True)
+    check(stages["max_abs_diff"]["hot pixels"] == 0.0
+          and stages["max_abs_diff"]["phase correlation"] == 0.0,
+          "(s1) batch_stages: hot pixels and the phase correlation do not depend "
+          "on the batch")
+    pooled_batch_check(state, frames)
+    del frames
     # the patch products alone on the card: a frame's values are the same
     # bit for bit in a batch of S_FRAME_BATCH, of 8 and alone (random
     # images at (b)'s size through each camera's operators)
@@ -2152,20 +2257,28 @@ def tools_path(state):
       launches of each K1-K6 kernel equal the wrappers' counts over the
       same window, and the busy share lies in (0, 1];
     - ``bench_ablate`` (1 MP): the GN step and the splits finite;
+    - ``bench_components`` (1 MP): every ported op's ms a frame finite;
+    - ``bench_hbm``: every probe's GB/s > 0, the best printed beside the
+      3.35 TB/s that the kernels' bounds assume;
+    - T_CORRELATE_CALLS ``correlate`` calls at (b)'s shapes under the
+      profiler: K10 launched and no matrix product (cuBLAS, CUTLASS);
     - ``bench_endurance`` at T_ENDURANCE_FRAMES frames (1,048,576 nodes)
       after its free-space check: the 15 flat files written, the
       intensity statistics finite on every covered node.
 
     Returns (the launch counts of the whole path, the records)."""
     import numpy as np
+    import torch
 
     from upsp_tpu_torch.io.flatfile import FLAT_FILES, read_flat
     from upsp_tpu_torch.ops import cuda_lib
     from upsp_tpu_torch.tools import (
         bench,
         bench_ablate,
+        bench_components,
         bench_endurance,
         bench_fullconfig,
+        bench_hbm,
         profile_phase1,
     )
 
@@ -2206,6 +2319,52 @@ def tools_path(state):
     for k in ("gn_step_ms_per_frame", "ecc_fixed_ms_per_frame",
               "non_registration_ms_per_frame"):
         check(math.isfinite(rec[k]), f"(t) bench_ablate {k} finite")
+
+    print("  -- path t: bench_components (1 MP)", flush=True)
+    rec = bench_components.run([])
+    show("bench_components", rec)
+    check(set(rec["ms_per_frame"]) == set(bench_components.LABELS)
+          - set(bench_components.NOT_PORTED)
+          and all(math.isfinite(v) for v in rec["ms_per_frame"].values()),
+          "(t) bench_components: every ported op's ms a frame finite")
+
+    print("  -- path t: bench_hbm", flush=True)
+    rec = bench_hbm.run([])
+    show("bench_hbm", rec)
+    check(all(finite_positive(p["gb_per_s"]) for p in rec["probes"].values()),
+          "(t) bench_hbm: every probe's GB/s > 0 and finite")
+    print(f"  (t) bench_hbm: best {rec['best_gb_per_s']} GB/s measured against the "
+          f"{rec['assumed_gb_per_s']:.0f} GB/s the kernels' bounds assume "
+          f"({rec['best_over_assumed']})", flush=True)
+
+    # the phase correlation alone under the profiler, at (b)'s shapes: K10
+    # pools, no matrix product (CUPTI can miss a window's first kernels, so
+    # the window holds several calls)
+    print("  -- path t: correlate at (b)'s shapes under the profiler", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    from upsp_tpu_torch.ops.fftreg import correlate, default_decimate, prepare_template
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = 1000 + 2000 * torch.rand((B,) + tuple(state.image_hw), device=DEVICE,
+                                 generator=gen)
+    tmpl = prepare_template(x[0], default_decimate(*state.image_hw))
+    correlate(tmpl, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=DEVICE).add_(1)
+        torch.cuda.synchronize()
+        for _ in range(T_CORRELATE_CALLS):
+            correlate(tmpl, x)
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU
+               and e.self_device_time_total > 0]
+    print(f"  (t) correlate's device ops: {kernels}", flush=True)
+    check(any("pool_kernel" in k for k in kernels)
+          and not any(profile_phase1.GEMM_RE.search(k) for k in kernels),
+          "(t) the phase correlation pools with K10 and runs no matrix product")
+    del x, tmpl
 
     print(f"  -- path t: bench_endurance, {T_ENDURANCE_FRAMES} frames", flush=True)
     out_root = os.path.join(WORK, "t_endurance")
@@ -2810,6 +2969,9 @@ def main() -> int:
         t0 = time.perf_counter()
         kernel_phase_ingest(rows)
         phase_s["K5-K8"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kernel_phase_pool(rows)
+        phase_s["K10"] = time.perf_counter() - t0
         print("[3/3] datapoints through scripts/upsp-process-torch", flush=True)
         by_path = {}  # "a".."f" -> the launch counts of its run
         for label, spec, batch, expect in PATHS:
@@ -2828,7 +2990,7 @@ def main() -> int:
         dp = write_path_datapoint("h", spec)
         by_path["h"], _ = datapoint_path(label, dp, spec, batch, expect, "float32",
                                          warm_start="scan", flags=("--ecc-init", "scan"),
-                                         absent=("warp_filter",))
+                                         absent=("warp_filter", "pool"))
         shutil.rmtree(os.path.join(WORK, "h"), ignore_errors=True)
         phase_s["path h"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -2901,9 +3063,13 @@ def main() -> int:
           f"bench_fullconfig phase 1 {tf['fps_phase1']} frames/s, end to end "
           f"{tf['fps_end2end']}; " + "; ".join(
               f"{n}: device {t[n]['device_us_per_frame']} us a frame, busy share "
-              f"{t[n]['busy_share']}, K1-K9 {t[n]['k_share_of_device']} of device time"
+              f"{t[n]['busy_share']}, K1-K10 {t[n]['k_share_of_device']} of device time, "
+              f"matrix products {t[n]['gemm_us_per_frame']} us a frame"
               for n in ("profile_phase1 1MP", "profile_phase1 (b)"))
-          + f"; GN step {ta['gn_step_ms_per_frame']} ms a frame; endurance "
+          + f"; GN step {ta['gn_step_ms_per_frame']} ms a frame; bench_components "
+          f"{t['bench_components']['ms_per_frame']}; bench_hbm best "
+          f"{t['bench_hbm']['best_gb_per_s']} GB/s ({t['bench_hbm']['best_over_assumed']} "
+          f"of the assumed 3.35 TB/s); endurance "
           f"{te['value']} frames/s sustained over {te['config']['frames']} frames "
           f"(stages {te['stages_s']}; disk {te['disk']}; link {te['link']})", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the card check; "

@@ -40,8 +40,10 @@ from upsp_tpu_torch.tools import (
     bench,
     bench_ablate,
     bench_budget,
+    bench_components,
     bench_endurance,
     bench_fullconfig,
+    bench_hbm,
     benchlib,
     profile_phase1,
 )
@@ -324,7 +326,7 @@ def test_endurance_refuses_naming_the_bytes(monkeypatch, tmp_path):
 
 
 TOOLS = [bench, bench_fullconfig, profile_phase1, bench_ablate, bench_budget,
-         bench_endurance, batch_stages]
+         bench_endurance, batch_stages, bench_components, bench_hbm]
 
 
 @pytest.mark.parametrize("tool", TOOLS, ids=lambda m: m.__name__.rsplit(".", 1)[-1])
@@ -500,3 +502,151 @@ def test_patch_products_do_not_depend_on_the_batch(fn):
     assert torch.equal(whole[:8], f(x[:8], arg))
     for i in (0, 5, 15):
         assert torch.equal(whole[i : i + 1], f(x[i : i + 1], arg))
+
+
+# -- bench_components and bench_hbm ------------------------------------------------
+
+COMPONENTS_TINY = ["--hw", "64,96", "--batch", "2", "--chain", "2", "--nodes", "100",
+                   "--trials", "1", "--device", "cpu"]
+
+
+def _jax_calls(path, fn):
+    """The argument nodes of each call of ``fn`` in a JAX tool, in source
+    order."""
+    tree = ast.parse(open(os.path.join(REPO, path)).read())
+    calls = [node for node in ast.walk(tree)
+             if isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+             and node.func.id == fn]
+    return [c.args for c in sorted(calls, key=lambda c: (c.lineno, c.col_offset))]
+
+
+def test_components_prints_the_jax_labels(capsys):
+    """Every op the JAX tool reports (tools/bench_components.py), in its
+    order, with its label; ``warp_affine_mxu`` said to be unported."""
+    want = [a[0].value for a in _jax_calls("tools/bench_components.py", "report")
+            if isinstance(a[0], ast.Constant)]
+    assert list(bench_components.LABELS) == want
+    bench_components.main(COMPONENTS_TINY)
+    text = capsys.readouterr().out
+    rec = json.loads(text.strip().splitlines()[-1])
+    lines = [ln for ln in text.splitlines() if ln.split("  ")[0].strip() in want]
+    assert [ln.split("  ")[0].strip() for ln in lines] == want
+    assert set(rec["ms_per_frame"]) == set(want) - set(bench_components.NOT_PORTED)
+    assert all(math.isfinite(v) for v in rec["ms_per_frame"].values())
+    assert "not ported by design (warp_affine_mxu)" in text
+    assert rec["device"] == "cpu" and "card" in rec
+
+
+def test_components_inputs_bit_for_bit():
+    """tools/bench_components.py:55-62, restated at a tiny size."""
+    H, W, B, n = 24, 40, 3, 50
+    rng = np.random.default_rng(0)
+    img = rng.normal(2000, 200, (B, H, W)).astype(np.float32)
+    warp = np.asarray(jnp.broadcast_to(
+        jnp.array([[1.0, 1e-4, 0.3], [-1e-4, 1.0, -0.2]], jnp.float32), (B, 2, 3)))
+    idx = rng.integers(0, H * W, n).astype(np.int32)
+    wt = rng.random(n).astype(np.float32)
+    got = bench_components.make_inputs((H, W), B, n, "cpu")
+    for g, w in zip(got, (img, warp, idx, wt)):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.fixture(scope="module")
+def component_inputs():
+    return bench_components.make_inputs((64, 96), 2, 100, "cpu")
+
+
+def _jax_component(label, img, warp, idx, wt):
+    """One application of the JAX tool's op (tools/bench_components.py:
+    66-112), without its chain; the GN step against frame 0."""
+    from upsp_tpu.ops.fftreg import correlate, default_decimate, prepare_template
+    from upsp_tpu.ops.image import apply_filter, fix_hot_pixels, gaussian_blur
+    from upsp_tpu.ops.registration import ecc_affine
+    from upsp_tpu.ops.warp import warp_validity_mask
+
+    B, H, W = img.shape
+    x = jnp.asarray(img)
+    if label == "fix_hot_pixels":
+        return jax.vmap(fix_hot_pixels)(x)
+    if label == "apply_filter gaussian 3":
+        return jax.vmap(lambda f: apply_filter(f, "gaussian", 3))(x)
+    if label == "gaussian_blur 5 (ECC pre-blur)":
+        return jax.vmap(lambda f: gaussian_blur(f, 5))(x)
+    if label == "warp_validity_mask":
+        return jax.vmap(lambda w: warp_validity_mask((H, W), w))(jnp.asarray(warp))
+    if label == "projection gather (20k nodes)":
+        return (x.reshape(B, -1)[:, jnp.asarray(idx)] * jnp.asarray(wt)).sum()
+    if label == "fft phase-correlation init":
+        tm = prepare_template(x[0], default_decimate(H, W))
+        return jax.vmap(lambda f: correlate(tm, f))(x)
+    w, r, _ = jax.vmap(lambda ip: ecc_affine(x[0], ip, max_iters=1, unroll=True,
+                                             return_iters=True))(x)
+    return w
+
+
+# each op against the JAX one: the selections exactly, the filters within
+# 2e-3 counts (f32 rounding of five products and sums), the gather's sum
+# within rtol 1e-5 (another summation order), the phase correlation within
+# tests/test_torch_ops.py's 2e-3 px, the GN step's warp within 1e-4
+COMPONENT_TOL = {"fix_hot_pixels": 0.0, "apply_filter gaussian 3": 2e-3,
+                 "gaussian_blur 5 (ECC pre-blur)": 2e-3, "warp_validity_mask": 0.0,
+                 "fft phase-correlation init": 2e-3, "ecc 1 GN step (incl blur+stats)": 1e-4}
+
+
+@pytest.mark.parametrize("label", [lb for lb in bench_components.LABELS
+                                   if lb not in bench_components.NOT_PORTED])
+def test_components_ops_match_jax(component_inputs, label):
+    img, warp, idx, wt = component_inputs
+    op, _ = bench_components.ops(img, warp, idx, wt)[label]
+    got = op(img)
+    got = got[0] if isinstance(got, tuple) else got
+    want = np.asarray(_jax_component(label, *(t.numpy() for t in component_inputs)))
+    assert got.shape == want.shape
+    if label == "projection gather (20k nodes)":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=COMPONENT_TOL[label])
+
+
+def test_hbm_plan_is_the_jax_tools():
+    """The probes' shapes, labels and loop lengths at 1024x1024 and a batch
+    of 8 are tools/bench_hbm.py's (its loop's list and ``loop_cost`` calls)."""
+    tree = ast.parse(open(os.path.join(REPO, "tools", "bench_hbm.py")).read())
+    loop = next(n for n in ast.walk(tree) if isinstance(n, ast.For)
+                and isinstance(n.iter, ast.List))
+    want = [eval(compile(ast.Expression(e), "bench_hbm", "eval")) for e in loop.iter.elts]
+    assert bench_hbm.plan((1024, 1024), 8) == want
+    loops = [(a[1].value, a[2].value) for a in _jax_calls("tools/bench_hbm.py", "loop_cost")
+             if isinstance(a[1], ast.Constant)]
+    assert loops == [bench_hbm.BLUR_LOOPS, bench_hbm.WARP_LOOPS]
+
+
+def test_hbm_inputs_bit_for_bit():
+    """tools/bench_hbm.py's draws (:70-100, 118-120), restated with the
+    shapes of a tiny plan."""
+    hw, b = (8, 12), 2
+    rng = np.random.default_rng(0)
+    want = []
+    for shape, _, _, _ in bench_hbm.plan(hw, b):
+        want.append((rng.normal(size=shape).astype(np.float32),
+                     rng.normal(size=shape).astype(np.float32)))
+    frames = rng.normal(2000, 200, (b,) + hw).astype(np.float32)
+    pairs, got_frames = bench_hbm.make_inputs(hw, b)
+    for (gx, gy), (wx, wy) in zip(pairs, want):
+        np.testing.assert_array_equal(gx, wx)
+        np.testing.assert_array_equal(gy, wy)
+    np.testing.assert_array_equal(got_frames, frames)
+
+
+def test_hbm_prints_its_probes(capsys):
+    bench_hbm.main(["--hw", "16,24", "--batch", "2", "--reps", "1", "--device", "cpu"])
+    text = capsys.readouterr().out
+    rec = json.loads(text.strip().splitlines()[-1])
+    want = [f"{kind} ({label})" for _, label, _, _ in bench_hbm.plan((16, 24), 2)
+            for kind in ("copy r+w", "axpy 2r+1w")]
+    want += [bench_hbm.BLUR_LABEL.format(2, "16x24"), bench_hbm.WARP_LABEL.format(2, "16x24")]
+    assert list(rec["probes"]) == want
+    for label in want:
+        assert label in text
+    assert rec["assumed_gb_per_s"] == 3350.0 and rec["best_gb_per_s"] > 0
+    assert rec["device"] == "cpu" and "card" in rec

@@ -694,3 +694,34 @@ def test_coarse_stage_and_warp_affine_on_card(cuda):
                        R.warp_affine(x, wp, "nearest"))
     np.testing.assert_allclose(R.warp_affine(x.to(cuda), wp.to(cuda)).cpu(),
                                R.warp_affine(x, wp), atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,k", [((3, 96, 128), 2), ((2, 130, 197), 2),
+                                     ((2, 97, 131), 4), ((2, 1200, 1800), 4),
+                                     ((1, 1024, 1024), 8), ((2, 60, 75), 3)])
+def test_pool_kernel_matches_twin_on_card(cuda, shape, k, dtype):
+    """K10 (the phase correlation's k x k pooling) equals its plain twin
+    bit for bit: unrolled (k = 2, 4, 8) and generic (k = 3), H or W not a
+    multiple of k, bf16 frames widened on load; on a camera's strided
+    slice of a (B, C, H, W) chunk and on a crop (rows longer than their
+    pixels); a frame alone as in its batch."""
+    from upsp_tpu_torch.ops import fftreg as TF
+
+    x = torch.tensor(images(21, *shape)).to(getattr(torch, dtype))
+    before = K.launch_counts()
+    got = TF.decimate_image(x.to(cuda), k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu(), TF.decimate_plain(x, k))
+    y = x + 1
+    chunk = torch.stack([x, y], dim=1).to(cuda)
+    assert torch.equal(TF.decimate_image(chunk[:, 1], k).cpu(), TF.decimate_plain(y, k))
+    crop = x[..., 1:, 2:]
+    assert torch.equal(TF.decimate_image(crop.to(cuda), k).cpu(),
+                       TF.decimate_plain(crop, k))
+    assert torch.equal(TF.decimate_image(x[-1:].to(cuda), k), got[-1:])
+    torch.cuda.synchronize()
+    name = "pool" if dtype == "float32" else "pool_bf16"
+    assert K.launch_counts()[name] == before[name] + 4

@@ -2,15 +2,15 @@
 
 A ``torch.tensor(..., device=cuda)`` copies host memory to the card and
 waits for it.  The phase-1 program builds what such copies made once, at
-set-up: the phase correlation's pool matrices live on its
-``CorrelationTemplate``, ``warp_displacement_bound`` keeps its corner
-tensor per size and device, and K3 takes each camera template's
-brightness shift (``template_shift``) from the chunk processor; K9 takes
-it from its caller too.  These tests count
-the calls that made those copies (``torch.tensor``, ``fftreg._pool_matrix``,
+set-up: the phase correlation pools with K10 (``fftreg.decimate_image``),
+which takes 1/k as a scalar argument and builds no pooling matrix,
+``warp_displacement_bound`` keeps its corner tensor per size and device,
+and K3 takes each camera template's brightness shift (``template_shift``)
+from the chunk processor; K9 takes it from its caller too.  These tests
+count the calls that made those copies (``torch.tensor``,
 ``ecc_kernels.template_shift``) during calls after set-up, and hold the
-outputs bit for bit to what the per-call construction gives and to the
-JAX package within tests/test_torch_ops.py's and
+outputs bit for bit to what the per-call construction gives (or, for the
+pooling, to its plain twin) and to the JAX package within tests/test_torch_ops.py's and
 tests/test_torch_ecc_kernels.py's bounds.  On the CPU the calls are the
 same; only the device differs.
 """
@@ -40,7 +40,7 @@ from test_torch_cuda import images, warps  # noqa: E402
 @pytest.fixture
 def count(monkeypatch):
     """Counts of calls to the functions that copied to the device."""
-    calls = {"tensor": 0, "pool": 0, "shift": 0}
+    calls = {"tensor": 0, "shift": 0}
 
     def counted(key, fn):
         def wrapper(*a, **k):
@@ -49,7 +49,6 @@ def count(monkeypatch):
         return wrapper
 
     monkeypatch.setattr(torch, "tensor", counted("tensor", torch.tensor))
-    monkeypatch.setattr(TF, "_pool_matrix", counted("pool", TF._pool_matrix))
     shift = counted("shift", K.template_shift)
     for mod in (K, R, P1):  # every module that calls it
         monkeypatch.setattr(mod, "template_shift", shift)
@@ -68,13 +67,13 @@ def test_correlate_copies_nothing(count, decimate):
     shifts = [(0.0, 0.0), (1.3, -0.6), (-1.8, 1.1)]
     x = _scene(96, 128, shifts)
     tmpl = TF.prepare_template(torch.from_numpy(x[0]), decimate)
-    assert (tmpl.pools is None) == (decimate == 1)
     built = dict(count)
     got = TF.correlate(tmpl, torch.from_numpy(x))
     assert count == built  # nothing made per call
-    # the matrices made per call, as before, give the same bits
-    before = TF.correlate(tmpl._replace(pools=None), torch.from_numpy(x))
-    assert torch.equal(got, before)
+    # the template's pooled image is its plain twin's, cropped
+    small = TF.pow2_center_crop(TF.decimate_plain(torch.from_numpy(x[0]), decimate))
+    assert tmpl.hw == tuple(small.shape)
+    assert torch.equal(tmpl.spectrum, torch.fft.rfft2(small * tmpl.window))
     jt = JF.prepare_template(jnp.asarray(x[0]), decimate)
     want = np.stack([np.asarray(JF.correlate(jt, jnp.asarray(f))) for f in x])
     np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=0)
@@ -154,7 +153,7 @@ def test_chunk_program_copies_nothing(count, tmp_path):
                        [12] * frames.shape[1], device="cpu")
     proc = P1.make_chunk_processor(state, with_telemetry=True, warm_start="fft",
                                    frame_batch=8)
-    assert count["pool"] > 0 and count["shift"] > 0  # made at set-up
+    assert count["shift"] > 0  # made at set-up
     sol, tele = proc(frames)
     built = dict(count)
     sol2, tele2 = proc(frames)

@@ -4,14 +4,33 @@ Port of ``upsp_tpu/ops/fftreg.py`` on ``torch.fft``, batched over frames:
 decimate by average pooling, centre-crop to powers of two, Hann window,
 cross-power spectrum, Gaussian prior on the wrapped displacement, argmax
 and a 3-point parabolic sub-pixel fit per axis.
+
+| wrapper | kernel | replaces |
+| --- | --- | --- |
+| :func:`decimate_image` | K10 ``pool_kernel<T, K>`` (csrc/fftreg.cu) | the XLA dot of ``upsp_tpu/ops/fftreg.py:74`` (no Pallas kernel) |
+
+The pooling is a fixed-order block mean instead of the JAX package's
+dense ``P_h @ img @ P_w^T``: on the card cuBLAS folds the batch into such
+a GEMM and picks its algorithm by the batch size, so a frame's pooled
+image (and the ECC start it seeds) depended on its batch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from upsp_tpu_torch.ops.cuda_lib import (
+    CudaLibrary,
+    check_rc,
+    count_launch,
+    register_kernels,
+    stream_of,
+)
 
 
 def default_decimate(h: int, w: int) -> int:
@@ -22,36 +41,111 @@ def default_decimate(h: int, w: int) -> int:
     return k
 
 
-def _pool_matrix(n: int, k: int, device) -> torch.Tensor:
-    """(n//k, n) average-pooling matrix: row i averages source block i."""
-    m = n // k
-    rows = torch.arange(m, device=device)[:, None]
-    cols = torch.arange(n, device=device)[None, :]
-    one = torch.tensor(1.0 / k, dtype=torch.float32, device=device)
-    return torch.where(cols // k == rows, one, torch.zeros_like(one))
+KERNELS = register_kernels(("pool", "pool_bf16"))
 
 
-def pool_matrices(h: int, w: int, k: int, device):
-    """(P_h, P_w^T) of :func:`decimate_image` for (h, w) images; None when
-    k == 1."""
-    if k == 1:
-        return None
-    return (_pool_matrix((h // k) * k, k, device),
-            _pool_matrix((w // k) * k, k, device).T)
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("upsp_fftreg_pool", "upsp_fftreg_pool_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, i, i, i, q, q, i, ctypes.c_float, p]
+        fn.restype = i
 
 
-def decimate_image(img: torch.Tensor, k: int, pools=None) -> torch.Tensor:
-    """k x k average pool of (..., H, W), cropped to a multiple of k first
-    (P_h @ img @ P_w^T, as the JAX package computes it).  ``pools``: the
-    :func:`pool_matrices` of this size and device, made here when None."""
-    img = img.to(torch.float32)
-    if k == 1:
-        return img
+LIBRARY = CudaLibrary("fftreg", _bind)
+MAX_POOLED_ROWS = 65535  # K10's grid rows
+
+
+def _inv(k: int) -> float:
+    """1/k rounded to float32, as the JAX package's pooling matrices hold
+    it (a Python float of that value: torch rounds it to f32 exactly)."""
+    return float(np.float32(1.0 / k))
+
+
+def decimate_plain(img: torch.Tensor, k: int) -> torch.Tensor:
+    """K10's plain twin: the k x k block mean of (..., H, W) float32 or
+    bfloat16 frames, cropped to a multiple of k, in float32.  Summed in a
+    fixed order from strided slices and elementwise products and sums
+    only: for each source column of a block its k rows in order, each
+    times 1/k, then the k column sums in order, each times 1/k -- the
+    order of the JAX package's ``P_h @ img @ P_w^T`` on the CPU.  Every
+    pooled pixel is the same scalar sequence whatever the batch."""
     h, w = img.shape[-2:]
-    if pools is None:
-        pools = pool_matrices(h, w, k, img.device)
-    p_h, p_wt = pools
-    return p_h @ img[..., : p_h.shape[1], : p_wt.shape[0]] @ p_wt
+    x = img[..., : (h // k) * k, : (w // k) * k]
+    inv = _inv(k)
+
+    def term(t):
+        return t.to(torch.float32) * inv
+
+    rows = term(x[..., 0::k, :])
+    for r in range(1, k):
+        rows = rows + term(x[..., r::k, :])
+    out = rows[..., 0::k] * inv
+    for c in range(1, k):
+        out = out + rows[..., c::k] * inv
+    return out
+
+
+def decimate_image(img: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k average pool of (..., H, W) frames, cropped to a multiple of k
+    first, in float32 (``upsp_tpu/ops/fftreg.py:decimate_image``).
+
+    K10: on a CUDA tensor of float32 or bfloat16 frames it launches
+    ``pool_kernel`` (csrc/fftreg.cu), which reads the frames where they
+    lie (a camera's slice of a chunk or a crop: strided rows, contiguous
+    pixels) and widens bf16 on load; on a CPU tensor it runs
+    :func:`decimate_plain`.  Both sum in one fixed order, so a frame's
+    pooled image does not depend on its batch.  Other dtypes are cast to
+    float32 first, as the JAX package casts them.  (In the JAX package's
+    dense products one non-finite pixel makes every pooled pixel NaN
+    through the zero products; here it stays in its block.)"""
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        img = img.to(torch.float32)
+    if k == 1:
+        return img.to(torch.float32)
+    if img.device.type == "cpu":
+        return decimate_plain(img, k)
+    if img.device.type != "cuda":
+        raise ValueError(f"pool: unsupported device {img.device}")
+    h, w = img.shape[-2:]
+    ho, wo = h // k, w // k
+    if ho > MAX_POOLED_ROWS:
+        raise ValueError(f"pool: {ho} pooled rows exceed the kernel's {MAX_POOLED_ROWS}")
+    lead = img.shape[:-2]
+    out = torch.empty(lead + (ho, wo), dtype=torch.float32, device=img.device)
+    if out.numel() == 0:
+        return out
+    x = img.reshape(-1, h, w)  # a view where the leading dims allow one
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    kname = "pool" if x.dtype == torch.float32 else "pool_bf16"
+    rc = getattr(LIBRARY.lib(), f"upsp_fftreg_{kname}")(
+        x.data_ptr(), out.data_ptr(), x.shape[0], ho, wo, x.stride(0), x.stride(1),
+        k, _inv(k), stream_of(x))
+    check_rc(rc, kname)
+    count_launch(kname)
+    return out
+
+
+FFT_GROUP = 8  # frames a call of torch.fft transforms in correlate
+
+
+def _in_groups(fft, x: torch.Tensor) -> torch.Tensor:
+    """``fft`` over the last two axes of (..., h, w) ``x`` in calls of
+    exactly FFT_GROUP frames, the last call's group filled up with zero
+    frames.  cuFFT picks its algorithm by the batch size, so one call over
+    the whole batch would make a frame's transform depend on its batch; in
+    a group of a fixed size it is the same wherever the frame lies (the
+    frame program's batch of 8 is one call, as before)."""
+    lead = x.shape[:-2]
+    flat = x.reshape((-1,) + tuple(x.shape[-2:]))
+    n = flat.shape[0]
+    pad = -n % FFT_GROUP
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((pad,) + tuple(flat.shape[1:]))])
+    groups = [fft(g) for g in flat.split(FFT_GROUP)]
+    out = groups[0] if len(groups) == 1 else torch.cat(groups)
+    return out[:n].reshape(lead + tuple(out.shape[-2:]))
 
 
 def _pow2_floor(n: int) -> int:
@@ -87,10 +181,6 @@ class CorrelationTemplate(NamedTuple):
     decimate: int
     hw: tuple  # pooled, cropped (h, w)
     prior: torch.Tensor  # (h, w) float32 peak prior
-    # decimate_image's (P_h, P_w^T) for the template's size (None if
-    # decimate == 1), made once so that correlate copies nothing to the
-    # device
-    pools: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def _displacement_prior(h: int, w: int, sigma: float, device) -> torch.Tensor:
@@ -109,15 +199,14 @@ def prepare_template(ref: torch.Tensor, decimate: int = 1,
                      ) -> CorrelationTemplate:
     """Template spectrum for :func:`correlate` (prior width in
     full-resolution pixels; ``window``: the Hann window, else none)."""
-    pools = pool_matrices(*ref.shape[-2:], decimate, ref.device)
-    small = pow2_center_crop(decimate_image(ref, decimate, pools))
+    small = pow2_center_crop(decimate_image(ref, decimate))
     h, w = small.shape
     win = (_hann(h, ref.device)[:, None] * _hann(w, ref.device)[None, :] if window
            else torch.ones((h, w), dtype=torch.float32, device=ref.device))
     prior = _displacement_prior(h, w, prior_sigma_px / decimate, ref.device)
     return CorrelationTemplate(
         spectrum=torch.fft.rfft2(small * win), window=win, decimate=decimate,
-        hw=(h, w), prior=prior, pools=pools,
+        hw=(h, w), prior=prior,
     )
 
 
@@ -130,11 +219,11 @@ def correlate(tmpl: CorrelationTemplate, imgs: torch.Tensor) -> torch.Tensor:
     own."""
     h, w = tmpl.hw
     lead = imgs.shape[:-2]
-    small = pow2_center_crop(decimate_image(imgs, tmpl.decimate, tmpl.pools))
-    img_f = torch.fft.rfft2(small * tmpl.window)
+    small = pow2_center_crop(decimate_image(imgs, tmpl.decimate))
+    img_f = _in_groups(torch.fft.rfft2, small * tmpl.window)
     cross = tmpl.spectrum * torch.conj(img_f)
     cross = cross / (cross.abs() + 1e-8)
-    surf = torch.fft.irfft2(cross, s=(h, w)) * tmpl.prior  # (..., h, w)
+    surf = _in_groups(lambda c: torch.fft.irfft2(c, s=(h, w)), cross) * tmpl.prior
     flat = surf.reshape(-1, h * w)
     idx = torch.argmax(flat, dim=1)
     py = idx // w

@@ -19,7 +19,8 @@ the window's wall time a frame -- their quotient
 is the card's busy share (the profiler's own host cost is inside the
 window, so the share is a lower bound) -- then the kernels by self device
 time: us a frame, % of device time, launches a chunk, and the K-number
-where the name is one of ``csrc/*.cu``'s kernels.  It holds the profiler's
+where the name is one of ``csrc/*.cu``'s kernels, and the device time and
+launches of the matrix products (cuBLAS, CUTLASS).  It holds the profiler's
 launches of each of those kernels against the wrappers' launch counts
 (``ops.cuda_lib.launch_counts``) over the same window, and ends with one
 JSON line.
@@ -58,7 +59,10 @@ KERNELS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "unpack12_kernel": ("K7", ("unpack12",)),
     "unpack10_kernel": ("K8", ("unpack10",)),
     "gn_fused_kernel": ("K9", ("gn_fused", "gn_fused_bf16")),
+    "pool_kernel": ("K10", ("pool", "pool_bf16")),
 }
+# a cuBLAS or CUTLASS matrix product's kernel
+GEMM_RE = re.compile(r"gemm|xmma|cutlass", re.IGNORECASE)
 # a kernel's name in a demangled ("ns::blur_kernel<float, 2>(...)") or
 # mangled ("...11blur_kernelIfLi2EE...") symbol
 _KERNEL_RE = re.compile(r"(?<![A-Za-z_])(" + "|".join(KERNELS) + r")(?![a-z0-9_])")
@@ -198,10 +202,16 @@ def run(argv=None, state=None) -> dict:
         prof = kernel_launches(rows)
         want = expected_launches(counts)
         k_us = sum(us for name, us, _ in rows if kernel_of(name))
+        gemms = [(name, us, count) for name, us, count in rows if GEMM_RE.search(name)]
         rec.update({
             "device_us_per_frame": round(per_frame_us, 3),
             "busy_share": round(per_frame_us / wall_us, 5),
             "k_share_of_device": round(k_us / total, 5),
+            "gemm_us_per_frame": round(sum(us for _, us, _ in gemms) / n, 3),
+            "gemm_launches_per_chunk": sum(c for _, _, c in gemms) / args.reps,
+            "gemm_kernels": [{"name": name[:200], "us_per_frame": round(us / n, 3),
+                              "launches_per_chunk": c / args.reps}
+                             for name, us, c in gemms],
             "kernel_launches": prof,
             "wrapper_launches": want,
             "launches_match": prof == want,
