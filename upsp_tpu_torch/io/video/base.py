@@ -16,6 +16,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from upsp_tpu_torch.utils import timing
+
 
 class VideoReader(abc.ABC):
     """File-format-agnostic frame access with context-manager lifetime."""
@@ -180,17 +182,19 @@ class IntervalPrefetcher:
             for start, count in self.intervals:
                 if count <= 0:
                     self._q.put(self._empty())
-                elif self.packed:
-                    self._q.put(self.reader.read_packed_frames(count, start))
-                else:
-                    self._q.put(self.reader.read_frames(count, start).copy())
+                    continue
+                with timing.span("ingest.read"):
+                    chunk = (self.reader.read_packed_frames(count, start)
+                             if self.packed else
+                             self.reader.read_frames(count, start).copy())
+                self._q.put(chunk)
         except BaseException as e:  # surfaced on the consumer side
             self._error = e
         finally:
             self._q.put(None)
 
     def __iter__(self):
-        thread = threading.Thread(target=self._produce, daemon=True)
+        thread = threading.Thread(target=timing.carry(self._produce), daemon=True)
         thread.start()
         while True:
             chunk = self._q.get()

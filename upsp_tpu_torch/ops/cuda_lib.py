@@ -26,6 +26,8 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from upsp_tpu_torch.utils import timing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -129,6 +131,7 @@ class CudaLibrary:
         if verbose and (stdout or stderr):
             print(stdout + stderr)
         os.replace(tmp, out)
+        timing.count("kernel_builds")
 
     def build(self, verbose: bool = False) -> str:
         """Compile the source for sm_90a unless a build of this exact source
@@ -142,6 +145,7 @@ class CudaLibrary:
         with self._lock:
             if self._handle is None:
                 lib = ctypes.CDLL(self.build())
+                timing.count("kernel_builds")
                 self._bind(lib)
                 self._handle = lib
             return self._handle

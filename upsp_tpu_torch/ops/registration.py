@@ -63,6 +63,7 @@ from upsp_tpu_torch.ops.ecc_kernels import (
 )
 from upsp_tpu_torch.ops.image import gaussian_blur, gaussian_kernel_1d
 from upsp_tpu_torch.ops.warp import downsample2, scale_warp, warp_validity_mask
+from upsp_tpu_torch.utils import timing
 
 MAX_ITERS, EPSILON = 50, 1e-3  # the reference's criteria (psp_process.cpp:1665-1667)
 
@@ -352,7 +353,12 @@ def _while_loop(step: Callable, img, warp, valid_shift, max_iters: int,
         rho.index_copy_(0, lanes, rho_a)
         iters.index_fill_(0, lanes, it)
         go = drho_a >= epsilon
-        n = int(go.sum())
+        timing.count("gn.steps")
+        timing.count("gn.lane_steps", n_active)
+        with timing.span("phase1.gn_sync"):
+            n = int(go.sum())
+        if go.device.type != "cpu":
+            timing.count("host_syncs.gn")
         if n < n_active:
             keep = go.nonzero().squeeze(1)
             lanes = lanes[keep]

@@ -54,6 +54,7 @@ from upsp_tpu_torch.ops.projection import (
     identify_skipped_nodes,
 )
 from upsp_tpu_torch.ops.raycast import BVHArrays, bvh_intersect, bvh_to_device
+from upsp_tpu_torch.utils import timing
 
 log = logging.getLogger("upsp_tpu")
 
@@ -124,6 +125,7 @@ def native_library():
     proc = subprocess.run(["make", "-C", _CPP_DIR], capture_output=True,
                           text=True)
     native = importlib.reload(native)
+    timing.count("kernel_builds")
     if proc.returncode != 0 or not native.available():
         raise RuntimeError(
             f"the native BVH library {_CPP_DIR}/libupsp_native.so is missing "
@@ -304,36 +306,36 @@ def run_phase0(
         walk = "device" if native_or_none() is None else "native"
     log.warning("phase 0: visibility rays take the %s walk%s", walk,
                 f" on {device}" if walk == "device" else "")
-    if model is None:
-        model = load_model(cfg.grid, tolerance=cfg.grid_tol)
-    if cfg.x_max is not None:
-        model.mark_nondata_x_max(cfg.x_max)
-    if cfg.active_comps:
-        from upsp_tpu_torch.io.comps import apply_active_comps
-
-        n_masked = apply_active_comps(model, cfg.active_comps)
-        if n_masked:
-            log.info("active_comps: masked %d nodes of inactive components",
-                     n_masked)
-    if cfg.normals:
-        _apply_normals_file(model, cfg.normals)
-
     H, W = first_frames[0].shape
     image_hw = (H, W)
     bit_depths = bit_depths or [12] * len(first_frames)
-    bvh = _build_bvh(model, max_leaf)
-    if walk == "device":
-        bvh_dev = bvh_to_device(bvh, device=device)
-        mesh = dict(
-            triangles=torch.from_numpy(np.asarray(model.triangles, np.int64)).to(device),
-            vertices=torch.from_numpy(np.asarray(model.vertices)).to(device),
-            normals=torch.from_numpy(np.asarray(model.normals)).to(device),
-            is_datanode=torch.from_numpy(np.asarray(model.is_datanode, bool)).to(device),
-        )
-    else:
-        bvh_dev = None
-        mesh = dict(triangles=model.triangles, vertices=model.vertices,
-                    normals=model.normals, is_datanode=model.is_datanode)
+    with timing.span("phase0.model"):
+        if model is None:
+            model = load_model(cfg.grid, tolerance=cfg.grid_tol)
+        if cfg.x_max is not None:
+            model.mark_nondata_x_max(cfg.x_max)
+        if cfg.active_comps:
+            from upsp_tpu_torch.io.comps import apply_active_comps
+
+            n_masked = apply_active_comps(model, cfg.active_comps)
+            if n_masked:
+                log.info("active_comps: masked %d nodes of inactive components",
+                         n_masked)
+        if cfg.normals:
+            _apply_normals_file(model, cfg.normals)
+        bvh = _build_bvh(model, max_leaf)
+        if walk == "device":
+            bvh_dev = bvh_to_device(bvh, device=device)
+            mesh = dict(
+                triangles=torch.from_numpy(np.asarray(model.triangles, np.int64)).to(device),
+                vertices=torch.from_numpy(np.asarray(model.vertices)).to(device),
+                normals=torch.from_numpy(np.asarray(model.normals)).to(device),
+                is_datanode=torch.from_numpy(np.asarray(model.is_datanode, bool)).to(device),
+            )
+        else:
+            bvh_dev = None
+            mesh = dict(triangles=model.triangles, vertices=model.vertices,
+                        normals=model.normals, is_datanode=model.is_datanode)
 
     cam_params: List[CameraParams] = []
     raw_projs: List[NodeProjection] = []
@@ -344,20 +346,22 @@ def run_phase0(
         params = make_camera_params(cal.rmat, cal.tvec, cal.camera_matrix,
                                     cal.dist_coeffs, dtype=torch.float32)
         cam_params.append(params)
-        if walk == "device":
-            raw_projs.append(build_node_projection(
-                params, bvh_dev, oblique_angle_deg=cfg.oblique_angle, height=H,
-                width=W, max_leaf=max_leaf, **mesh))
-        else:
-            raw_projs.append(build_node_projection_host(
-                params, bvh, oblique_angle_deg=cfg.oblique_angle, height=H,
-                width=W, **mesh))
+        with timing.span("phase0.walk"):
+            if walk == "device":
+                raw_projs.append(build_node_projection(
+                    params, bvh_dev, oblique_angle_deg=cfg.oblique_angle, height=H,
+                    width=W, max_leaf=max_leaf, **mesh))
+            else:
+                raw_projs.append(build_node_projection_host(
+                    params, bvh, oblique_angle_deg=cfg.oblique_angle, height=H,
+                    width=W, **mesh))
         if cfg.target_patcher == "polynomial" and cam.targets:
-            op, diag = build_patcher_for_camera(
-                cfg, params, bvh_dev, model, first_frames[c], cam.targets, image_hw,
-                bit_depth=bit_depths[c], max_leaf=max_leaf,
-                flat_bvh=None if walk == "device" else bvh,
-            )
+            with timing.span("phase0.patches"):
+                op, diag = build_patcher_for_camera(
+                    cfg, params, bvh_dev, model, first_frames[c], cam.targets,
+                    image_hw, bit_depth=bit_depths[c], max_leaf=max_leaf,
+                    flat_bvh=None if walk == "device" else bvh,
+                )
         else:
             op, diag = None, None
         patch_ops.append(op)
@@ -366,32 +370,33 @@ def run_phase0(
     # the weights, the skip mask and the templates where the projections
     # are: on the device walk's device, on the host for the native walk
     where = device if walk == "device" else torch.device("cpu")
-    projs = adjust_projection_for_weights(
-        raw_projs, [cam_center(p).to(where) for p in cam_params],
-        torch.from_numpy(np.asarray(model.vertices)).to(where),
-        torch.from_numpy(np.asarray(model.normals)).to(where), overlap=cfg.overlap,
-    )
-    skipped = identify_skipped_nodes(projs)
-    # the ECC template is the hot-pixel-FIXED first frame (phase 1 repairs
-    # every input frame, so template and input see the same pixels)
-    ref_frames = torch.stack([
-        fix_hot_pixels(torch.tensor(np.asarray(f, np.float32), device=where))
-        for f in first_frames
-    ])
-    return Phase0State(
-        model=model,
-        bvh=bvh,
-        cam_params=cam_params,
-        projections=[p.to(device) for p in projs],
-        skipped=skipped.to(device),
-        patch_ops=[None if op is None else op.to(device) for op in patch_ops],
-        ref_frames=ref_frames.to(device),
-        superseded_by=torch.as_tensor(
-            np.asarray(model.superseded_by), dtype=torch.int64, device=device
-        ),
-        image_hw=image_hw,
-        config=cfg,
-        patch_diags=patch_diags,
-        device=device,
-        bvh_dev=bvh_dev,
-    )
+    with timing.span("phase0.weights"):
+        projs = adjust_projection_for_weights(
+            raw_projs, [cam_center(p).to(where) for p in cam_params],
+            torch.from_numpy(np.asarray(model.vertices)).to(where),
+            torch.from_numpy(np.asarray(model.normals)).to(where), overlap=cfg.overlap,
+        )
+        skipped = identify_skipped_nodes(projs)
+        # the ECC template is the hot-pixel-FIXED first frame (phase 1 repairs
+        # every input frame, so template and input see the same pixels)
+        ref_frames = torch.stack([
+            fix_hot_pixels(torch.tensor(np.asarray(f, np.float32), device=where))
+            for f in first_frames
+        ])
+        return Phase0State(
+            model=model,
+            bvh=bvh,
+            cam_params=cam_params,
+            projections=[p.to(device) for p in projs],
+            skipped=skipped.to(device),
+            patch_ops=[None if op is None else op.to(device) for op in patch_ops],
+            ref_frames=ref_frames.to(device),
+            superseded_by=torch.as_tensor(
+                np.asarray(model.superseded_by), dtype=torch.int64, device=device
+            ),
+            image_hw=image_hw,
+            config=cfg,
+            patch_diags=patch_diags,
+            device=device,
+            bvh_dev=bvh_dev,
+        )

@@ -79,6 +79,7 @@ from upsp_tpu_torch.ops.registration import (
 )
 from upsp_tpu_torch.ops.unpack_kernels import make_unpacker
 from upsp_tpu_torch.ops.warp import MAX_INTEGER_SHIFT, integer_shift
+from upsp_tpu_torch.utils import timing
 
 ECC_GAUSS_SIZE = 5  # the ECC pre-blur (registration.py default)
 ECC_ITERS = 2  # fixed Gauss-Newton steps of fft mode (phase1.py:702-703)
@@ -489,7 +490,8 @@ def make_chunk_processor(state, with_telemetry: bool = False,
     cfg = state.config
     cdtype = _as_compute_dtype(compute_dtype)
     route = ecc_route(ecc_impl)
-    p = phase1_params(state)
+    with timing.span("phase1.params"):
+        p = phase1_params(state)
     n_cams = int(p.ref_frames.shape[0])
     pixel = cfg.registration == "pixel"
     mode = warm_start if pixel else False
@@ -574,13 +576,18 @@ def make_chunk_processor(state, with_telemetry: bool = False,
         return process_frames_core(shifted, p, warp_init=init, valid_shift=t_int,
                                    fix_hot=False, **static)
 
+    def to_device(frames: torch.Tensor) -> torch.Tensor:
+        if frames.device.type == "cpu" and state.device.type != "cpu":
+            timing.count("bytes.h2d.pageable", frames.numel() * frames.element_size())
+        return frames.to(state.device, torch.float32)
+
     def scan_chunk(x: torch.Tensor):
         """The chunk's frames in order, each solve from the last one's
         warps; identity at the chunk's first frame."""
         carry = identity_warp(batch=n_cams, device=state.device)
         sols, teles = [], []
         for f in range(x.shape[0]):
-            frame = x[f : f + 1].to(state.device, torch.float32)
+            frame = to_device(x[f : f + 1])
             sol, warps, tele = process_frames_core(frame, p, warp_init=carry[None],
                                                    **static)
             carry = warps[0]
@@ -598,7 +605,7 @@ def make_chunk_processor(state, with_telemetry: bool = False,
             sols, teles = [], []
             step = max(frame_batch, 1)
             for s in range(0, x.shape[0], step):
-                frames = x[s : s + step].to(state.device, torch.float32)
+                frames = to_device(x[s : s + step])
                 if mode == "fft":
                     sol, _, tele = fft_batch(frames)
                 else:

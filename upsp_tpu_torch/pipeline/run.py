@@ -64,6 +64,7 @@ from upsp_tpu_torch.pipeline.phase2 import (
 from upsp_tpu_torch.ops.polyfit import make_detrender
 from upsp_tpu_torch.parallel import mesh as M
 from upsp_tpu_torch.parallel.launcher import chunk_plan
+from upsp_tpu_torch.utils import timing
 from upsp_tpu_torch.utils.timing import StageClock
 
 log = logging.getLogger("upsp_tpu")
@@ -158,10 +159,12 @@ def _resolve_mesh(mesh, device):
 
 def _stage_clock(device: torch.device, stage_times: Optional[dict], mesh=None):
     """A StageClock whose points wait for the device (and, on a mesh, for
-    every rank) and record their wall seconds in ``stage_times``."""
+    every rank) and record their wall seconds in ``stage_times`` and, while
+    recording, as stage spans."""
     sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else None
     barrier = None if mesh is None else (lambda: M.barrier(mesh))
-    return StageClock(barrier=barrier, enabled=False, sync=sync, times=stage_times)
+    return StageClock(barrier=barrier, enabled=False, sync=sync, times=stage_times,
+                      spans=True)
 
 
 class _StreamClock:
@@ -260,6 +263,7 @@ class _HostBuffer:
             self.buffer = torch.empty(n, dtype=t.dtype, pin_memory=True)
         host = self.buffer[:n].view(t.shape)
         host.copy_(t)
+        timing.count("bytes.d2h.pinned", host.nbytes)
         return host.numpy()
 
 
@@ -281,10 +285,12 @@ class _PinnedStaging:
                                             pin_memory=True)
         elif self.copied is not None:
             self.copied.synchronize()
+            timing.count("host_syncs.staging")
         host = buf[: shape[0]]
         for c, a in enumerate(per_cam):
             host[:, c].copy_(torch.from_numpy(a))
         dev = host.to(self.device, non_blocking=True)
+        timing.count("bytes.h2d.pinned", host.nbytes)
         self.copied = torch.cuda.Event()
         self.copied.record()
         return dev
@@ -322,15 +328,19 @@ def _chunk_iter(frames_array, readers, n_frames, start0, frames_per_chunk,
     ]
     staging = _PinnedStaging(device) if packed and device.type == "cuda" else None
     for c in plan:
-        per_cam = [next(p) for p in prefetchers]
+        with timing.span("phase1.ingest_wait"):
+            per_cam = [next(p) for p in prefetchers]
         if not c.local_valid:
             yield c, None
-        elif staging is not None:
-            yield c, staging.to_device(per_cam)
-        elif packed:
-            yield c, torch.from_numpy(np.stack(per_cam, axis=1)).to(device)
-        else:
-            yield c, np.stack(per_cam, axis=1)
+            continue
+        with timing.span("phase1.stage"):
+            if staging is not None:
+                chunk = staging.to_device(per_cam)
+            elif packed:
+                chunk = torch.from_numpy(np.stack(per_cam, axis=1)).to(device)
+            else:
+                chunk = np.stack(per_cam, axis=1)
+        yield c, chunk
 
 
 def _run_block(fn, chunk, n_nodes, n_cams, device, with_telemetry=True):
@@ -348,6 +358,20 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
         return t
     pad = t.new_zeros((rows - t.shape[0],) + tuple(t.shape[1:]))
     return torch.cat([t, pad])
+
+
+def _count_fetch(t: torch.Tensor) -> None:
+    """Count a blocking copy of ``t`` from a card as a host sync."""
+    if t.device.type != "cpu":
+        timing.count("host_syncs.fetch")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array: from a card, a blocking copy to pageable
+    host memory (its bytes counted)."""
+    if t.device.type != "cpu":
+        timing.count("bytes.d2h.pageable", t.numel() * t.element_size())
+    return t.cpu().numpy()
 
 
 def _gather_chunk(mesh, t: torch.Tensor, c) -> Optional[np.ndarray]:
@@ -368,6 +392,7 @@ def _exchange_chunk(mesh, out: torch.Tensor, c, n_pad: int,
         M.global_transpose(mesh, block)[:, : c.valid])
 
 
+@timing.datapoint
 def run_datapoint(
     cfg: ProcessingConfig,
     device="cuda",
@@ -436,8 +461,9 @@ def run_datapoint(
         device = mesh.device
     rank0 = mesh is None or mesh.rank == 0
     clock = _stage_clock(device, stage_times, mesh)
-    frames_array, readers, n_frames, start0, first_frames, bit_depths = (
-        _open_inputs(cfg, frames_array))
+    with timing.span("phase0.inputs"):
+        frames_array, readers, n_frames, start0, first_frames, bit_depths = (
+            _open_inputs(cfg, frames_array))
     use_packed, packed_kw = packed_ingest_config(readers, frames_array,
                                                  device_unpack)
     if use_packed:
@@ -482,9 +508,10 @@ def run_datapoint(
                                    clock, write_outputs, mesh)
         log.info("resume requested but no consistent intensity file; running")
 
-    fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
-                              compute_dtype=compute_dtype, warm_start=warm_start,
-                              frame_batch=frame_batch, **packed_kw)
+    with timing.span("phase1.processor"):
+        fn = make_chunk_processor(state, with_telemetry=True, packed=use_packed,
+                                  compute_dtype=compute_dtype, warm_start=warm_start,
+                                  frame_batch=frame_batch, **packed_kw)
     clock.split("phase1_setup")  # part of phase 1: parameters, templates
     intensity = np.empty((n_frames, n_nodes), np.float32) if rank0 else None
     reg_telemetry = it_local = None
@@ -496,19 +523,27 @@ def run_datapoint(
         egress = 0
     for c, chunk in _chunk_iter(frames_array, readers, n_frames, start0,
                                 frames_per_chunk, use_packed, device, mesh):
-        out, tele = _run_block(fn, chunk, n_nodes, state.n_cameras, device)
+        timing.count("frames.phase1", c.local_valid)
+        with timing.span("phase1.program"):
+            out, tele = _run_block(fn, chunk, n_nodes, state.n_cameras, device)
         if mesh is None:
-            rows, tele_np = out.cpu().numpy(), tele.cpu().numpy()
+            with timing.span("phase1.fetch"):
+                rows, tele_np = _to_host(out), _to_host(tele)
+            _count_fetch(out)
+            _count_fetch(tele)
         else:
-            _exchange_chunk(mesh, out, c, n_pad, it_local)
+            with timing.span("phase1.exchange"):
+                _exchange_chunk(mesh, out, c, n_pad, it_local)
             egress += 4 * c.local_rows * n_pad * (mesh.world - 1) // mesh.world
-            rows, tele_np = _gather_chunk(mesh, out, c), _gather_chunk(mesh, tele, c)
+            with timing.span("phase1.fetch"):
+                rows, tele_np = _gather_chunk(mesh, out, c), _gather_chunk(mesh, tele, c)
         if rank0:
-            if reg_telemetry is None:
-                reg_telemetry = np.empty((n_frames,) + tele_np.shape[1:],
-                                         np.float32)
-            reg_telemetry[c.start : c.start + c.valid] = tele_np
-            intensity[c.start : c.start + c.valid] = rows
+            with timing.span("phase1.store"):
+                if reg_telemetry is None:
+                    reg_telemetry = np.empty((n_frames,) + tele_np.shape[1:],
+                                             np.float32)
+                reg_telemetry[c.start : c.start + c.valid] = tele_np
+                intensity[c.start : c.start + c.valid] = rows
         if c.start % (frames_per_chunk * 8) == 0:
             log.info("phase1: processed frame %d / %d", c.start, n_frames)
     if mesh is not None:
@@ -518,9 +553,10 @@ def run_datapoint(
                  "egress from rank %d", mesh.world, mesh.backend, egress / 1e6,
                  mesh.rank)
     if readers:
+        decoded = sum(r.frames_decoded for r in readers)
+        timing.count("frames.decoded", decoded)
         log.info("phase1: rank %d decoded %d frames across %d cameras",
-                 0 if mesh is None else mesh.rank,
-                 sum(r.frames_decoded for r in readers), len(readers))
+                 0 if mesh is None else mesh.rank, decoded, len(readers))
     _close(readers)
 
     if registration_telemetry and reg_telemetry is not None:
@@ -546,6 +582,7 @@ def run_datapoint(
                                   clock=clock, write_outputs=write_outputs)
 
 
+@timing.datapoint
 def run_datapoint_streaming(
     cfg: ProcessingConfig,
     device="cuda",
@@ -610,8 +647,9 @@ def run_datapoint_streaming(
         device = mesh.device
     clock = _StreamClock(_stage_clock(device, stage_times, mesh),
                          StageClock() if stage_clock is None else stage_clock)
-    frames_array, readers, n_frames, start0, first_frames, bit_depths = (
-        _open_inputs(cfg, frames_array))
+    with timing.span("phase0.inputs"):
+        frames_array, readers, n_frames, start0, first_frames, bit_depths = (
+            _open_inputs(cfg, frames_array))
     try:
         state = run_phase0(cfg, first_frames, bit_depths, device=device)
         camset = _camera_settings(readers, cfg, state)
@@ -619,10 +657,11 @@ def run_datapoint_streaming(
         n_nodes = state.n_nodes
         use_packed, packed_kw = packed_ingest_config(readers, frames_array,
                                                      device_unpack)
-        fn = make_chunk_processor(state, packed=use_packed,
-                                  compute_dtype=compute_dtype,
-                                  warm_start=warm_start, frame_batch=frame_batch,
-                                  **packed_kw)
+        with timing.span("phase1.processor"):
+            fn = make_chunk_processor(state, packed=use_packed,
+                                      compute_dtype=compute_dtype,
+                                      warm_start=warm_start, frame_batch=frame_batch,
+                                      **packed_kw)
         clock.split("phase1_setup")
         ffs = FlatFileSet(cfg.out_dir)
         chunks = _chunk_iter(frames_array, readers, n_frames, start0,
@@ -637,13 +676,20 @@ def run_datapoint_streaming(
         host = _HostBuffer()
         with native.AsyncWriter(ffs.path("intensity")) as writer:
             for c, chunk in chunks:
-                out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
-                                 with_telemetry=False)
-                writer.submit(c.start * n_nodes * 4, host.fetch(out))
-                sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
-                sumsq_i += out.double().square_().sum(dim=0)
-                if c.start == 0:
-                    ratio0_src = out[0].clone()
+                timing.count("frames.phase1", c.local_valid)
+                with timing.span("phase1.program"):
+                    out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
+                                     with_telemetry=False)
+                with timing.span("phase1.fetch"):
+                    rows = host.fetch(out)
+                _count_fetch(out)
+                with timing.span("phase1.store"):
+                    writer.submit(c.start * n_nodes * 4, rows)
+                with timing.span("phase1.program"):
+                    sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
+                    sumsq_i += out.double().square_().sum(dim=0)
+                    if c.start == 0:
+                        ratio0_src = out[0].clone()
                 if c.start % (frames_per_chunk * 8) == 0:
                     log.info("phase1: processed frame %d / %d", c.start, n_frames)
     finally:
@@ -785,13 +831,20 @@ def _streaming_multiprocess(cfg, state, camset, chunks, fn, n_frames,
         for c, chunk in chunks:
             if chunk is None:
                 continue
-            out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
-                             with_telemetry=False)
-            writer.submit(c.local_start * n_nodes * 4, host.fetch(out))
-            sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
-            sumsq_i += out.double().square_().sum(dim=0)
-            if c.local_start == 0:
-                ratio0_src = out[0].clone()
+            timing.count("frames.phase1", c.local_valid)
+            with timing.span("phase1.program"):
+                out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
+                                 with_telemetry=False)
+            with timing.span("phase1.fetch"):
+                rows = host.fetch(out)
+            _count_fetch(out)
+            with timing.span("phase1.store"):
+                writer.submit(c.local_start * n_nodes * 4, rows)
+            with timing.span("phase1.program"):
+                sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
+                sumsq_i += out.double().square_().sum(dim=0)
+                if c.local_start == 0:
+                    ratio0_src = out[0].clone()
     clock.point("phase1")  # every rank's rows of intensity are on disk
     sum_i = M.all_reduce(mesh, sum_i)
     sumsq_i = M.all_reduce(mesh, sumsq_i)
@@ -871,17 +924,19 @@ def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
                            clock=None, write_outputs=True) -> DatapointOutputs:
     """Statistics + coverage + phase 2 + outputs, from a (F, N) intensity."""
     n_frames = intensity.shape[0]
-    with np.errstate(invalid="ignore"):
-        # f64 accumulation of both moments (psp_process.cpp:1725-1730)
-        sol_avg = intensity.mean(axis=0, dtype=np.float64).astype(np.float32)
-        sol_rms = np.sqrt(
-            np.einsum("fn,fn->n", intensity, intensity, dtype=np.float64)
-            / n_frames
-        ).astype(np.float32)
-    cov_t = proj_coverage(state.projections, *state.image_hw)
-    cov = cov_t.cpu().numpy()[state.superseded_by.cpu().numpy()]
-    with np.errstate(invalid="ignore", divide="ignore"):
-        ratio0 = sol_avg / intensity[0] - 1.0
+    with timing.span("phase2.host_stats"):
+        with np.errstate(invalid="ignore"):
+            # f64 accumulation of both moments (psp_process.cpp:1725-1730)
+            sol_avg = intensity.mean(axis=0, dtype=np.float64).astype(np.float32)
+            sol_rms = np.sqrt(
+                np.einsum("fn,fn->n", intensity, intensity, dtype=np.float64)
+                / n_frames
+            ).astype(np.float32)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            ratio0 = sol_avg / intensity[0] - 1.0
+    with timing.span("phase2.coverage"):
+        cov_t = proj_coverage(state.projections, *state.image_hw)
+        cov = _to_host(cov_t)[_to_host(state.superseded_by)]
 
     phase2 = None
     if not (cfg.sds and cfg.paint_cal):
@@ -892,16 +947,17 @@ def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
         cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
         pcal = PaintCalibration.read(cfg.paint_cal)
         dev = state.device
-        phase2 = run_phase2(
-            cfg,
-            torch.as_tensor(np.ascontiguousarray(intensity.T), device=dev),
-            torch.as_tensor(sol_avg, device=dev),
-            torch.as_tensor(cov, device=dev),
-            cond, pcal, model=state.model,
-        )
-        phase2 = Phase2Outputs(*(
-            None if v is None else v.cpu().numpy() for v in phase2
-        ))
+        with timing.span("phase2.upload"):
+            inputs = [np.ascontiguousarray(intensity.T), sol_avg, cov]
+            if dev.type != "cpu":
+                timing.count("bytes.h2d.pageable", sum(a.nbytes for a in inputs))
+            inputs = [torch.as_tensor(a, device=dev) for a in inputs]
+        with timing.span("phase2.device"):
+            phase2 = run_phase2(cfg, *inputs, cond, pcal, model=state.model)
+        with timing.span("phase2.download"):
+            phase2 = Phase2Outputs(*(
+                None if v is None else _to_host(v) for v in phase2
+            ))
     if clock is not None:
         clock.point("phase2")
     if write_outputs and cfg.out_dir:
@@ -952,10 +1008,13 @@ def _finish_sharded(cfg, state, it_local: torch.Tensor,
     and writes the files."""
     n_nodes, n_frames = state.n_nodes, it_local.shape[1]
     rank0 = mesh.rank == 0
-    avg_loc, rms_loc = _node_statistics(it_local)
-    cov = proj_coverage(state.projections, *state.image_hw)[
-        state.superseded_by].cpu().numpy()
-    sol_avg, sol_rms = (M.gather(mesh, t, "cpu") for t in (avg_loc, rms_loc))
+    with timing.span("phase2.stats"):
+        avg_loc, rms_loc = _node_statistics(it_local)
+    with timing.span("phase2.coverage"):
+        cov = _to_host(proj_coverage(state.projections, *state.image_hw)[
+            state.superseded_by])
+    with timing.span("phase2.download"):
+        sol_avg, sol_rms = (M.gather(mesh, t, "cpu") for t in (avg_loc, rms_loc))
     phase2 = None
     if not (cfg.sds and cfg.paint_cal):
         log.warning("phase 2 skipped: missing %s — intensity outputs only",
@@ -963,9 +1022,10 @@ def _finish_sharded(cfg, state, it_local: torch.Tensor,
     else:
         cond = read_wtd(cfg.sds)
         cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
-        phase2 = run_phase2_sharded(cfg, it_local, avg_loc, cov, cond,
-                                    PaintCalibration.read(cfg.paint_cal), mesh,
-                                    model=state.model)
+        with timing.span("phase2.device"):
+            phase2 = run_phase2_sharded(cfg, it_local, avg_loc, cov, cond,
+                                        PaintCalibration.read(cfg.paint_cal), mesh,
+                                        model=state.model)
     clock.point("phase2")
     if not rank0:
         clock.point("outputs")
@@ -974,8 +1034,9 @@ def _finish_sharded(cfg, state, it_local: torch.Tensor,
     with np.errstate(invalid="ignore", divide="ignore"):
         ratio0 = sol_avg / intensity[0] - 1.0
     if phase2 is not None:
-        phase2 = Phase2Outputs(*(None if v is None else v.cpu().numpy()
-                                 for v in phase2))
+        with timing.span("phase2.download"):
+            phase2 = Phase2Outputs(*(None if v is None else _to_host(v)
+                                     for v in phase2))
     if write_outputs and cfg.out_dir:
         _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
                        phase2, camset)
