@@ -15,7 +15,11 @@ From the root of a checkout, on a machine with a CUDA device:
    in bfloat16, K1 bit for bit, with K1-K3 called twice for bit-identical
    output and K2 and K4 also on a 1.6x scale warp (their global-memory
    route) and on a shear that moves the frame's corners by 2.9 px, K2 and
-   K3 on a 40 px, -25 px translation with the mask warp the warp; K9
+   K3 on a 40 px, -25 px translation with the mask warp the warp; K3 with
+   the Gauss-Newton update in its reduce stage (the step's launch) on the
+   same frames, its new warps, rho and drho bit for bit with the twin's
+   update of its own statistics, also on lanes that take the update's
+   guards; K9
    (the fused GN step) on 8 frames of each in both, also against K2 then
    K3 and on the 2.9 px shear, bit-identical from call to call, with its
    registers; K5-K8 at the full configuration's shapes (8 frames x 4
@@ -170,7 +174,9 @@ their time before the redesign printed on a line of its own; K5 also
 pooling GEMMs, and its bf16 instantiation ``kernel_phase_only`` (the
 phase correlation pools f32 frames in both compute dtypes); K9 also ``split_ms``/``split_device_ms``, the
 time of K2 then K3, ``registers`` and ``local_bytes`` a thread, and
-``kernel_phase_only``: no datapoint path runs it), the card's name and
+``kernel_phase_only``: no datapoint path runs it; K3 as the Gauss-Newton
+step launches it, with the update in its reduce stage, is
+``moments_update``, and K3 alone ``kernel_phase_only``), the card's name and
 power limit, then as the last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when CUDA is unavailable, the
 repository is missing, or any phase fails.
@@ -195,6 +201,10 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "blur": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:829"),
     "warp": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:285"),
     "moments": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:587"),
+    # K3 with the Gauss-Newton update in its reduce stage: the kernel and
+    # the XLA update after it (body_pallas)
+    "moments_update": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:587 + "
+                       "upsp_tpu/ops/registration.py:298-343"),
     "warp_filter": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:444"),
     "gn_fused": (ECC_CU, "upsp_tpu/ops/pallas_ecc.py:1044"),
     "gather": (GATHER_CU, "upsp_tpu/ops/pallas_gather.py:251"),
@@ -205,11 +215,15 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "pool": ("upsp_tpu_torch/csrc/fftreg.cu", "upsp_tpu/ops/fftreg.py:74"),
 }
 # the bfloat16 instantiations replace the same TPU kernels (out_dtype=imgs.dtype)
-for _k in ("blur", "warp", "moments", "warp_filter", "gn_fused", "gather", "pool"):
+for _k in ("blur", "warp", "moments", "moments_update", "warp_filter", "gn_fused",
+           "gather", "pool"):
     KERNEL_INFO[f"{_k}_bf16"] = KERNEL_INFO[_k]
 # no datapoint path runs K9, nor K10 on bf16 frames (the phase correlation
-# takes the f32 frames in both compute dtypes)
-KERNEL_PHASE_ONLY = ("gn_fused", "gn_fused_bf16", "pool_bf16")
+# takes the f32 frames in both compute dtypes), nor K3 without the update
+# (the Gauss-Newton step launches ``moments_update``; ``moments`` is the
+# statistics alone, for the tools and the statistics' own check)
+KERNEL_PHASE_ONLY = ("gn_fused", "gn_fused_bf16", "pool_bf16", "moments",
+                     "moments_bf16")
 # the least time of a call: bytes over the HBM rate, operations over the
 # f32 (CUDA-core) rate -- every kernel computes in f32 -- whichever is
 # larger (NVIDIA H100 SXM data sheet)
@@ -231,6 +245,15 @@ F32_FLOPS_PER_S = 67e12
 # k), then k products and k - 1 sums: 2k^2 + k - 1 (:func:`pool_flops`).
 FLOPS = {"blur": 2 * 9, "warp": 9 + 27, "warp_filter": 36 + 2 * 5, "moments": 61,
          "gn_fused": 36 + 61, "gather": 1, "hot": 2, "unpack12": 0, "unpack10": 0}
+# K3's update epilogue, per lane (every rounded op, clamp, compare and
+# select of ``gn_update_lane``): the statistics 39 (two means 2, the
+# projections 24, the two variances and the correlation 9, the area's and
+# the norm's clamps 4), the regularisation 8, the 6x6 Cholesky 139 (21
+# entries of 2, their 70 products and differences, 6 square roots with
+# their clamps, 15 quotients), two triangular solves of 72, the two dot
+# products, num, den, its floor and lam 26, the increments with their
+# finiteness selects 24, rho and |drho| 8
+UPDATE_FLOPS = 39 + 8 + 139 + 2 * 72 + 26 + 24 + 8
 
 
 def pool_flops(k):
@@ -241,7 +264,8 @@ FULL_C, FULL_H, FULL_W = 4, 1200, 1800
 # 1800-px rows end in partial tiles
 ECC_SHAPES = ((1024, 1024), (FULL_H, FULL_W))
 N_DISTINCT, N_TARGETS = 16, 12
-F32_ECC = ("blur", "warp", "moments", "warp_filter")
+# the datapoint paths' K3 is the Gauss-Newton step's, with the update
+F32_ECC = ("blur", "warp", "moments_update", "warp_filter")
 FRAME_KERNELS = F32_ECC + ("gather", "hot")
 BF16_KERNELS = tuple(f"{k}_bf16" for k in F32_ECC + ("gather",)) + ("hot",)
 # (label, write_datapoint arguments, frames of the card-vs-CPU batch,
@@ -283,7 +307,7 @@ H_PATH = ("h: 2 x 1024x1024 cine10, 32 frames, 81,920 nodes, pixel_interpolation
           "nearest, --ecc-init scan",
           dict(n_cameras=2, image_hw=(1024, 1024), n_frames=32, grid_shape=(320, 256),
                video_format="cine10", options=["pixel_interpolation = nearest"]),
-          slice(0, 8), ("blur", "warp", "moments", "gather", "hot", "unpack10"))
+          slice(0, 8), ("blur", "warp", "moments_update", "gather", "hot", "unpack10"))
 # (e)'s outputs against (b)'s: what phase 1 writes exactly, the frame
 # statistics (summed in f64 in another order) within rtol 1e-5, carried to
 # ratio_0 as atol 1e-5 since avg / I0 is near 1, phase 2 within
@@ -530,14 +554,17 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
     whose taps they read from global memory instead of their staged
     window, and on a shear that moves the frame's corners by 2.9 px; K2
     and K3 also on a 40 px, -25 px translation with the mask warp the warp
-    (what the while loop gives them from identity).  K1's yardstick,
-    conv2d over a reflect pad, runs with cuDNN's TF32 off (its default for
-    f32 convolutions is TF32)."""
+    (what the while loop gives them from identity).  K3 also as the
+    Gauss-Newton step launches it (``moments_update``): its update bit for
+    bit with the twin's of its own statistics, guard lanes included.  K1's
+    yardstick, conv2d over a reflect pad, runs with cuDNN's TF32 off (its
+    default for f32 convolutions is TF32)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from upsp_tpu_torch.ops import ecc_kernels as K
+    from upsp_tpu_torch.ops import registration as R
 
     dtype = getattr(torch, dtype_name)
     sfx = "" if dtype == torch.float32 else "_bf16"
@@ -653,6 +680,63 @@ def kernel_phase_ecc(rows, H, W, dtype_name):
             lambda: K.moments_plain(imgs, tmpl, warps, mask),
             e * (px + H * W) + B * 128 * 4, FLOPS["moments"] * px,
             **redesign("moments" + sfx))
+
+    # K3 as the Gauss-Newton step launches it: the pre-shift composed into
+    # the mask warp in the kernel, the update in its reduce stage.  Its
+    # statistics are K3's (bit for bit against the host-composed mask, and
+    # within the bound of the twin); its new warps, rho and drho equal the
+    # twin's update of those statistics bit for bit, on the step's inputs,
+    # on the 40 px translation without a pre-shift, and on a batch whose
+    # lanes 5-7 take the update's guards: 5 has no valid pixel, 6 is the
+    # brightness shift everywhere under the identity warp (no gradient, a
+    # zero denominator), 7 overflows its statistics (a non-finite update
+    # refused, rho -1)
+    kshift = K.template_shift(tmpl)
+    vs = torch.tensor([[1.0, -1.0]], device=DEVICE).repeat(B, 1)
+    rho_prev = torch.linspace(-1.0, 0.9, B, device=DEVICE)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def update_case(iw, wp, shift, mask_w, what):
+        got = K.ecc_gn_moments_update(iw, tmpl, wp, shift, kshift, rho_prev)
+        mom = K.ecc_gn_moments(iw, tmpl, wp, mask_w, kshift)
+        check(torch.equal(bits(got[3]), bits(mom)), f"moments_update{sfx} statistics "
+              f"equal K3's bit for bit {what} at {shape}")
+        want = R._gn_update(mom, wp, rho_prev)
+        check(all(torch.equal(bits(g), bits(w_)) for g, w_ in zip(got[:3], want)),
+              f"moments_update{sfx} new warps, rho and drho equal the twin's bit for "
+              f"bit {what} at {shape}")
+        return got
+
+    got = update_case(imgs, warps, vs, mask, "with the pre-shift")
+    check(all(torch.equal(bits(g), bits(h)) for g, h in zip(
+        got, K.ecc_gn_moments_update(imgs, tmpl, warps, vs, kshift, rho_prev))),
+        f"moments_update{sfx} bit-identical from call to call at {shape}")
+    err, rel = stats_err(got[3], K.moments_plain(imgs, tmpl, warps, mask, kshift))
+    update_case(iw40, t40, None, t40, "on the 40 px translation, no pre-shift")
+    ig, wg = imgs.clone(), warps.clone()
+    wg[5, :, 2] = torch.tensor([4.0e4, -3.0e4], device=DEVICE)
+    ig[6] = kshift.to(dtype)  # the shift is in the images' dtype
+    wg[6] = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], device=DEVICE)
+    ig[7] = ig[7].float().mul(1e18).to(dtype)
+    gg = update_case(ig, wg, vs, R._mask_warp(wg, vs), "with lanes 5-7 on the guards")
+    _, i_proj, _, _, corr, _, _ = K.ecc_statistics_from_moments(gg[3])
+    check(gg[3][5, 36] == 0 and corr[6] == 0 and not i_proj[6].any()
+          and not torch.isfinite(gg[3][7]).all(),
+          f"moments_update{sfx} guard lanes: no valid pixel, zero correlation and "
+          f"projections, overflowed statistics at {shape}")
+    check(all(torch.equal(gg[0][k], wg[k]) for k in (5, 6, 7))
+          and gg[1][5] == 0 and gg[1][6] == 0 and gg[1][7] == -1.0
+          and bool(torch.isfinite(gg[0]).all()),
+          f"moments_update{sfx} guard lanes keep their warps, rho 0, 0, -1 at {shape}")
+    add_row(rows, "moments_update" + sfx, shape, err, rel <= 2e-4,
+            f"statistics max rel {rel:.3g} <= 2e-4, update bit for bit",
+            lambda: K.ecc_gn_moments_update(imgs, tmpl, warps, vs, kshift, rho_prev),
+            lambda: R._gn_update(K.moments_plain(imgs, tmpl, warps, mask, kshift),
+                                 warps, rho_prev),
+            e * (px + H * W) + B * (128 + 6 + 2) * 4,
+            FLOPS["moments"] * px + UPDATE_FLOPS * B)
 
     o1 = K.warp_filter(imgs, warps, taps3)
     o2, iw = K.warp_filter(imgs, warps, taps3, with_warped=True)
@@ -2007,7 +2091,7 @@ def camera_batch_path(dp, state):
     print(f"  launches of the batched run: {counts}", flush=True)
     for k in ("blur", "warp", "gather", "hot", "pool"):
         check(counts[k] > 0, f"kernel {k} launched by the batched run")
-    for k in ("moments", "warp_filter", "gn_fused"):
+    for k in ("moments", "moments_update", "warp_filter", "gn_fused"):
         check(counts[k] == 0 and counts[f"{k}_bf16"] == 0,
               f"kernel {k} not launched by the batched run")
     (sv, tv), (sl, tl) = out["batched"], out["loop, dense step"]

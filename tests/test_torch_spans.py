@@ -294,6 +294,8 @@ def test_datapoint_counts_and_outputs(datapoints, mode):
         assert c["gn.lane_steps"] >= c["gn.steps"]
     else:
         assert "gn.steps" not in c
+    # no card: every Gauss-Newton update is the host's twin
+    assert c["gn.update.host"] > 0 and "gn.update.kernel" not in c
     # no card: nothing crosses a bus and no host waits on a device
     assert not [k for k in c if k.startswith(("host_syncs.", "bytes."))]
     np.testing.assert_array_equal(got, plain)

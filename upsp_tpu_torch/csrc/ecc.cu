@@ -6,7 +6,10 @@
 //   K1 blur         <- _blur_kernel via _blur_batched / make_blur
 //   K2 warp         <- _warp_kernel via _warp_banded_batched /
 //                      warp_affine_banded
-//   K3 GN moments   <- _moments_kernel via _moments_batched / ecc_gn_moments
+//   K3 GN moments   <- _moments_kernel via _moments_batched / ecc_gn_moments;
+//                      its reduce stage may also do the step's closed-form
+//                      update (upsp_ecc_moments_update), which the JAX
+//                      package does in XLA after the kernel
 //   K4 warp+filter  <- _warp_filter_kernel via _warp_filter_batched /
 //                      make_warp_filter
 //   K6 hot pixels   <- _hot_kernel via _hot_batched / fix_hot_pixels_pallas
@@ -1166,6 +1169,7 @@ moments_kernel(const T* __restrict__ iws, const T* __restrict__ tmpl,
                const float* __restrict__ warps,
                const float* __restrict__ mask_warps,
                const float* __restrict__ kshift_p,
+               const float* __restrict__ mask_shift,
                double* __restrict__ partials, int H, int W, int cw) {
   extern __shared__ __align__(16) unsigned char mom_smem[];
   __shared__ double red[MOM_THREADS / 32][NSTAT];
@@ -1182,7 +1186,11 @@ moments_kernel(const T* __restrict__ iws, const T* __restrict__ tmpl,
   const int ns = min(c1 + 1, W) - s0;
   const T* iw = iws + (size_t)b * H * W;
   const WarpP w = load_warp(warps, b);
-  const WarpP m = load_warp(mask_warps, b);
+  WarpP m = load_warp(mask_warps, b);
+  if (mask_shift != nullptr) {  // the integer pre-shift, composed as
+    m.tx = __fadd_rn(m.tx, mask_shift[2 * b]);  // registration._mask_warp
+    m.ty = __fadd_rn(m.ty, mask_shift[2 * b + 1]);
+  }
   const float kshift = *kshift_p;
   const float inv_det = 1.f / (w.a00 * w.a11 - w.a01 * w.a10);
   const float cy = (H - 1) * 0.5f;
@@ -1259,9 +1267,149 @@ moments_kernel(const T* __restrict__ iws, const T* __restrict__ tmpl,
       partials + ((size_t)b * gridDim.y * gridDim.z + blk) * NSTAT);
 }
 
-// fixed-order f64 sum of the per-block partials -> (B, 128) f32
+// K3's update epilogue: the closed-form Gauss-Newton update of one lane
+// from its 42 f32 statistics, in one thread.  Its twin is
+// ecc_kernels.ecc_statistics_from_moments then registration._solve_update
+// (torch ops on (B,) tensors, ~420 host launches a step).  Every product,
+// sum, quotient and square root is rounded on its own in the twin's order
+// (_sum6 left to right, chol_*_unrolled's loops), never contracted into an
+// FMA, so the new warp, rho and |drho| equal the twin's on the card to the
+// bit.  As torch's CUDA kernels do, `x / 6.0` is x times the f32
+// reciprocal of 6 (torch on the CPU divides), and clamp_min passes NaN
+// through.
+struct GnUpdate {  // (B, 2, 3) warps and (B,) rho in; new warps, rho, drho out
+  const float* warps;
+  const float* rho_prev;
+  float* new_warps;
+  float* rho;
+  float* drho;
+};
+
+__device__ __forceinline__ float clamp_min_f(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+
+__device__ __forceinline__ float sum6(const float* v) {
+  float s = __fadd_rn(v[0], v[1]);
+#pragma unroll
+  for (int k = 2; k < 6; ++k) s = __fadd_rn(s, v[k]);
+  return s;
+}
+
+__device__ __forceinline__ float dot6(const float* a, const float* b) {
+  float p[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) p[k] = __fmul_rn(a[k], b[k]);
+  return sum6(p);
+}
+
+// (L L^T) x = rhs by registration.chol_solve_unrolled's loops
+__device__ __forceinline__ void chol_solve6(const float (*L)[6],
+                                            const float* rhs, float* x) {
+  float y[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float s = rhs[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = __fsub_rn(s, __fmul_rn(L[i][k], y[k]));
+    y[i] = __fdiv_rn(s, L[i][i]);
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float s = y[i];
+#pragma unroll
+    for (int k = i + 1; k < 6; ++k) s = __fsub_rn(s, __fmul_rn(L[k][i], x[k]));
+    x[i] = __fdiv_rn(s, L[i][i]);
+  }
+}
+
+__device__ __noinline__ void gn_update_lane(const float* st, int b,
+                                            const GnUpdate& u) {
+  // ecc_statistics_from_moments: the Hessian from the 18 moments of
+  // a = gx gx, b = gx gy, c = gy gy, each [xx, xy, yy, x, y, 1]
+  const float* a = st;
+  const float* bb = st + 6;
+  const float* c = st + 12;
+  const float h[6][6] = {
+      {a[0], bb[0], a[1], bb[1], a[3], bb[3]},
+      {bb[0], c[0], bb[1], c[1], bb[3], c[3]},
+      {a[1], bb[1], a[2], bb[2], a[4], bb[4]},
+      {bb[1], c[1], bb[2], c[2], bb[4], c[4]},
+      {a[3], bb[3], a[4], bb[4], a[5], bb[5]},
+      {bb[3], c[3], bb[4], c[4], bb[5], c[5]}};
+  const float area = clamp_min_f(st[36], 1.f);
+  const float s_t = st[37], s_i = st[38], s_tt = st[39], s_ii = st[40],
+              s_ti = st[41];
+  const float t_mean = __fdiv_rn(s_t, area);
+  const float i_mean = __fdiv_rn(s_i, area);
+  float t_proj[6], i_proj[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    t_proj[k] = __fsub_rn(st[18 + k], __fmul_rn(t_mean, st[30 + k]));
+    i_proj[k] = __fsub_rn(st[24 + k], __fmul_rn(i_mean, st[30 + k]));
+  }
+  const float iw_norm2 = __fsub_rn(s_ii, __fdiv_rn(__fmul_rn(s_i, s_i), area));
+  const float corr = __fsub_rn(s_ti, __fdiv_rn(__fmul_rn(s_t, s_i), area));
+  const float tmpl_norm = clamp_min_f(
+      __fsqrt_rn(clamp_min_f(
+          __fsub_rn(s_tt, __fdiv_rn(__fmul_rn(s_t, s_t), area)), 0.f)),
+      (float)1e-12);
+
+  // _solve_update: the regularised Cholesky, pivots clamped at 1e-30
+  float diag[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) diag[i] = h[i][i];
+  const float reg =
+      __fadd_rn(__fmul_rn(__fmul_rn(sum6(diag), (float)1e-9),
+                          __fdiv_rn(1.f, 6.f)),
+                (float)1e-12);
+  float L[6][6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      float s = __fadd_rn(h[i][j], __fmul_rn(reg, i == j ? 1.f : 0.f));
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = __fsub_rn(s, __fmul_rn(L[i][k], L[j][k]));
+      L[i][j] = i == j ? __fsqrt_rn(clamp_min_f(s, (float)1e-30))
+                       : __fdiv_rn(s, L[j][j]);
+    }
+  }
+  float hinv_i[6], hinv_t[6];
+  chol_solve6(L, i_proj, hinv_i);
+  chol_solve6(L, t_proj, hinv_t);
+  const float num = __fsub_rn(iw_norm2, dot6(i_proj, hinv_i));
+  float den = __fsub_rn(corr, dot6(t_proj, hinv_i));
+  den = fabsf(den) > (float)1e-12 ? den : (float)1e-12;  // NaN too
+  const float lam = __fdiv_rn(num, den);
+
+  // dp = [a00 a10 a01 a11 tx ty] increments; a non-finite entry keeps its
+  // warp's value
+  const float* w = u.warps + 6 * b;
+  float* nw = u.new_warps + 6 * b;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const int e = (k & 1) * 3 + (k >> 1);  // dp[k]'s warp entry
+    const float dp = __fsub_rn(__fmul_rn(lam, hinv_t[k]), hinv_i[k]);
+    const float v = __fadd_rn(w[e], dp);
+    nw[e] = isfinite(v) ? v : w[e];
+  }
+  float rho = __fdiv_rn(
+      corr, clamp_min_f(__fmul_rn(tmpl_norm,
+                                  __fsqrt_rn(clamp_min_f(iw_norm2, 0.f))),
+                        (float)1e-12));
+  rho = isfinite(rho) ? rho : -1.f;
+  u.rho[b] = rho;
+  u.drho[b] = fabsf(__fsub_rn(rho, u.rho_prev[b]));
+}
+
+// fixed-order f64 sum of the per-block partials -> (B, 128) f32; with
+// UPDATE, then the lane's Gauss-Newton update from those f32 statistics
+template <bool UPDATE>
 __global__ void moments_reduce_kernel(const double* __restrict__ partials,
-                                      float* __restrict__ out, int nblk) {
+                                      float* __restrict__ out, int nblk,
+                                      GnUpdate u) {
+  __shared__ float st[NSTAT];
   const int b = blockIdx.x;
   const int k = threadIdx.x;
   float v = 0.f;
@@ -1270,8 +1418,13 @@ __global__ void moments_reduce_kernel(const double* __restrict__ partials,
     const double* p = partials + (size_t)b * nblk * NSTAT + k;
     for (int i = 0; i < nblk; ++i) s += p[(size_t)i * NSTAT];
     v = (float)s;
+    if (UPDATE) st[k] = v;
   }
   out[(size_t)b * 128 + k] = v;
+  if (UPDATE) {
+    __syncthreads();
+    if (k == 0) gn_update_lane(st, b, u);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1863,11 +2016,14 @@ dim3 mom_grid(int B, int H, int W, int* cw) {
   return dim3(B, (H + MOM_ROWS - 1) / MOM_ROWS, ncol);
 }
 
+// K3; with u.warps set (upsp_ecc_moments_update), the reduce stage's
+// update epilogue too, the statistics masked by `warps` with `mask_shift`
+// (nullable) composed into its translation
 template <typename T>
 int launch_moments(const T* iws, const T* tmpl, const float* warps,
-                   const float* mask_warps, const float* kshift,
-                   double* partials, float* out, int B, int H, int W,
-                   void* stream) {
+                   const float* mask_warps, const float* mask_shift,
+                   const float* kshift, double* partials, float* out,
+                   const GnUpdate& u, int B, int H, int W, void* stream) {
   static size_t allowed = 0;
   int cw;
   const dim3 grid = mom_grid(B, H, W, &cw);
@@ -1876,11 +2032,16 @@ int launch_moments(const T* iws, const T* tmpl, const float* warps,
   cudaError_t err = allow_smem(moments_kernel<T>, smem, &allowed);
   if (err != cudaSuccess) return (int)err;
   moments_kernel<T><<<grid, MOM_THREADS, smem, (cudaStream_t)stream>>>(
-      iws, tmpl, warps, mask_warps, kshift, partials, H, W, cw);
+      iws, tmpl, warps, mask_warps, kshift, mask_shift, partials, H, W, cw);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  moments_reduce_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
-      partials, out, grid.y * grid.z);
+  if (u.warps != nullptr) {
+    moments_reduce_kernel<true><<<B, 128, 0, (cudaStream_t)stream>>>(
+        partials, out, grid.y * grid.z, u);
+  } else {
+    moments_reduce_kernel<false><<<B, 128, 0, (cudaStream_t)stream>>>(
+        partials, out, grid.y * grid.z, u);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1911,8 +2072,8 @@ int launch_gn_fused(const T* imgs, const T* tmpl, const float* warps,
       imgs, tmpl, warps, mask_warps, kshift, partials, H, W, band, cw);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  moments_reduce_kernel<<<B, 128, 0, (cudaStream_t)stream>>>(
-      partials, out, grid.y * grid.z);
+  moments_reduce_kernel<false><<<B, 128, 0, (cudaStream_t)stream>>>(
+      partials, out, grid.y * grid.z, GnUpdate{});
   return (int)cudaGetLastError();
 }
 
@@ -2034,15 +2195,42 @@ int upsp_ecc_moments(const float* iws, const float* tmpl, const float* warps,
                      const float* mask_warps, const float* kshift,
                      double* partials, float* out, int B, int H, int W,
                      void* stream) {
-  return launch_moments(iws, tmpl, warps, mask_warps, kshift, partials, out,
-                        B, H, W, stream);
+  return launch_moments(iws, tmpl, warps, mask_warps, nullptr, kshift,
+                        partials, out, GnUpdate{}, B, H, W, stream);
 }
 int upsp_ecc_moments_bf16(const bf16* iws, const bf16* tmpl,
                           const float* warps, const float* mask_warps,
                           const float* kshift, double* partials, float* out,
                           int B, int H, int W, void* stream) {
-  return launch_moments(iws, tmpl, warps, mask_warps, kshift, partials, out,
-                        B, H, W, stream);
+  return launch_moments(iws, tmpl, warps, mask_warps, nullptr, kshift,
+                        partials, out, GnUpdate{}, B, H, W, stream);
+}
+
+// One Gauss-Newton step after K2: K3's statistics of the warped images
+// (masked by `warps` with the (B, 2) pre-shift `valid_shift` composed in;
+// nullable) into `out`, and the update from them: the (B, 2, 3) new
+// warps, (B,) rho and |rho - rho_prev|
+int upsp_ecc_moments_update(const float* iws, const float* tmpl,
+                            const float* warps, const float* valid_shift,
+                            const float* kshift, const float* rho_prev,
+                            double* partials, float* out, float* new_warps,
+                            float* rho, float* drho, int B, int H, int W,
+                            void* stream) {
+  return launch_moments(iws, tmpl, warps, warps, valid_shift, kshift,
+                        partials, out,
+                        GnUpdate{warps, rho_prev, new_warps, rho, drho}, B, H,
+                        W, stream);
+}
+int upsp_ecc_moments_update_bf16(const bf16* iws, const bf16* tmpl,
+                                 const float* warps, const float* valid_shift,
+                                 const float* kshift, const float* rho_prev,
+                                 double* partials, float* out,
+                                 float* new_warps, float* rho, float* drho,
+                                 int B, int H, int W, void* stream) {
+  return launch_moments(iws, tmpl, warps, warps, valid_shift, kshift,
+                        partials, out,
+                        GnUpdate{warps, rho_prev, new_warps, rho, drho}, B, H,
+                        W, stream);
 }
 
 int upsp_ecc_gn_fused(const float* imgs, const float* tmpl,

@@ -16,6 +16,7 @@ wrapper here that
 | :func:`blur` | K1 ``blur_kernel<T, R>`` | ``_blur_batched`` (pallas_ecc.py:829) |
 | :func:`warp_affine_banded` | K2 ``warp_kernel`` | ``_warp_banded_batched`` (:285) |
 | :func:`ecc_gn_moments` | K3 ``moments_kernel`` | ``_moments_batched`` (:587) |
+| :func:`ecc_gn_moments_update` | K3 with the update in ``moments_reduce_kernel<true>`` | ``_moments_batched`` and the update after it (``body_pallas``) |
 | :func:`warp_filter` | K4 ``warp_filter_kernel`` | ``_warp_filter_batched`` (:444) |
 | :func:`fix_hot_pixels_kernel` | K6 ``hot_scan_kernel`` + ``hot_repair_kernel`` | ``_hot_batched`` (:739) |
 | :func:`ecc_gn_fused` | K9 ``gn_fused_kernel`` | ``_gn_fused_batched`` (:1044) |
@@ -26,8 +27,10 @@ rounds once at its store (round to nearest even); warps and statistics
 stay f32.  The plain twins do the same: they widen bf16 to f32, compute as
 for f32 and round the output once (never bf16 arithmetic op by op).  The
 launch counts tell the instantiations apart (``blur`` and ``blur_bf16``,
-...).  ``registration._gn_step`` runs K2 then K3 in both dtypes; K9 runs
-in no datapoint path (it lost to the pair at 1200x1800 on the H100).
+...).  ``registration._gn_step`` runs K2 then K3 in both dtypes, K3 as
+:func:`ecc_gn_moments_update` (counts ``moments_update`` and
+``moments_update_bf16``); K9 runs in no datapoint path (it lost to the
+pair at 1200x1800 on the H100).
 
 The library is compiled from ``csrc/ecc.cu`` with ``nvcc`` for ``sm_90a``
 at first use, into ``build/torch_kernels/`` at the repository root
@@ -64,7 +67,10 @@ HOT_THRESH, HOT_MIN_CHANGE, HOT_MAX = 4064, 512, 5  # fix_hot_pixels defaults
 
 # the image-type kernels: (kernel, its bf16 instantiation) each
 TYPED = ("blur", "warp", "moments", "warp_filter", "gn_fused")
-KERNELS = register_kernels(TYPED + ("hot",) + tuple(f"{k}_bf16" for k in TYPED))
+# K3 with the Gauss-Newton update in its reduce stage
+UPDATE = ("moments_update", "moments_update_bf16")
+KERNELS = register_kernels(TYPED + ("hot",) + tuple(f"{k}_bf16" for k in TYPED)
+                           + UPDATE)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -77,11 +83,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         "warp": [p, p, p, i, i, i, p],
         "warp_filter": [p, p, p, p, i, i, i] + taps + [p],
         "moments": [p] * 7 + [i, i, i, p],
+        "moments_update": [p] * 11 + [i, i, i, p],
         "gn_fused": [p] * 7 + [i, i, i, p],
         "hot": [p, p, p, i, i, i, f, f, i, p],
     }
     for name, args in argtypes.items():
-        for suffix in ("", "_bf16") if name in TYPED else ("",):
+        for suffix in ("", "_bf16") if name in TYPED + UPDATE else ("",):
             fn = getattr(lib, f"upsp_ecc_{name}{suffix}")
             fn.argtypes = args
             fn.restype = i
@@ -366,6 +373,35 @@ def ecc_gn_moments(iw: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
                          LIBRARY.lib().upsp_ecc_moments_blocks(*iw.shape[1:]))
 
 
+def ecc_gn_moments_update(iw: torch.Tensor, tmpl: torch.Tensor,
+                          warps: torch.Tensor, valid_shift: Optional[torch.Tensor],
+                          kshift: torch.Tensor, rho_prev: torch.Tensor):
+    """K3 and the Gauss-Newton update in one launch, CUDA tensors only:
+    the statistics of :func:`ecc_gn_moments` (masked by ``warps`` with the
+    (B, 2) integer pre-shift ``valid_shift`` composed into its
+    translation, or by ``warps`` when None), then, in the reduce stage,
+    the closed-form update from them.  Returns (new warps (B, 2, 3), rho
+    (B,), |rho - rho_prev| (B,), statistics (B, 128)), equal on the card
+    to ``registration._gn_update`` of the statistics, its twin, bit for
+    bit; on a CPU tensor call the twin (``registration._gn_step`` does)."""
+    _check_stats_args(iw, tmpl, warps, warps, "moments_update")
+    b = iw.shape[0]
+    if iw.device.type != "cuda":
+        raise ValueError("moments_update: CUDA tensors only (its twin is "
+                         "registration._gn_update of ecc_gn_moments)")
+    for name, t, shape in (("valid_shift", valid_shift, (b, 2)),
+                           ("rho_prev", rho_prev, (b,))):
+        if t is None and name == "valid_shift":
+            continue
+        if (t is None or t.shape != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != iw.device):
+            raise ValueError(f"moments_update: {name} must be a contiguous "
+                             f"float32 {shape} on the images' device")
+    return _launch_stats("moments_update", iw, tmpl, warps, valid_shift, kshift,
+                         LIBRARY.lib().upsp_ecc_moments_blocks(*iw.shape[1:]),
+                         rho_prev)
+
+
 def ecc_gn_fused(imgs: torch.Tensor, tmpl: torch.Tensor, warps: torch.Tensor,
                  mask_warps: torch.Tensor,
                  kshift: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -407,19 +443,34 @@ def _check_stats_args(imgs, tmpl, warps, mask_warps, name: str) -> None:
         raise ValueError(f"{name}: template must be contiguous, same device")
 
 
-def _launch_stats(name, imgs, tmpl, warps, mask_warps, kshift, nblk: int):
-    """K3 or K9: per-block f64 partials, then their fixed-order sum."""
-    b, h, w = imgs.shape
+def _check_kshift(kshift, imgs, name: str) -> None:
     if (kshift.shape != (1,) or kshift.dtype != torch.float32
             or kshift.device != imgs.device):
         raise ValueError(f"{name}: kshift must be (1,) float32 on the images' device")
-    partials = torch.empty((b, nblk, NSTAT), dtype=torch.float64,
-                           device=imgs.device)
-    out = torch.empty((b, 128), dtype=torch.float32, device=imgs.device)
+
+
+def _launch_stats(name, imgs, tmpl, warps, mask, kshift, nblk: int,
+                  rho_prev=None):
+    """K3 or K9: per-block f64 partials, then their fixed-order sum, the
+    (B, 128) statistics.  With ``rho_prev``, K3 with the update in its
+    reduce stage (``mask`` is then the (B, 2) pre-shift or None): (new
+    warps, rho, drho, statistics)."""
+    b, h, w = imgs.shape
+    _check_kshift(kshift, imgs, name)
+    dev = imgs.device
+    partials = torch.empty((b, nblk, NSTAT), dtype=torch.float64, device=dev)
+    out = torch.empty((b, 128), dtype=torch.float32, device=dev)
+    upd, prev = (), ()
+    if rho_prev is not None:
+        upd = (torch.empty((b, 2, 3), dtype=torch.float32, device=dev),
+               torch.empty((b,), dtype=torch.float32, device=dev),
+               torch.empty((b,), dtype=torch.float32, device=dev))
+        prev = (rho_prev.data_ptr(),)
     _launch(name, imgs, imgs.data_ptr(), tmpl.data_ptr(), warps.data_ptr(),
-            mask_warps.data_ptr(), kshift.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), b, h, w)
-    return out
+            None if mask is None else mask.data_ptr(), kshift.data_ptr(), *prev,
+            partials.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in upd),
+            b, h, w)
+    return (*upd, out) if upd else out
 
 
 def warp_filter(imgs: torch.Tensor, warps: torch.Tensor, taps: Sequence[float],

@@ -22,14 +22,20 @@ The Gauss-Newton step, ``impl``:
 
 - ``"auto"`` = ``"kernels"`` (the JAX package's ``"pallas"``): K2 warp,
   K3 statistics, then the closed-form update (``body_pallas``,
-  registration.py:298-343); on a CPU tensor the kernels' plain twins.
-  K2 has no band limit, so this route serves every start, identity
-  included: the JAX package's while loop takes its dense step only
-  because its banded Pallas warp needs bounded displacements
-  (registration.py:249-255).
+  registration.py:298-343).  On the card the update runs in K3's reduce
+  stage (``ecc_gn_moments_update``: one launch after K2, which also
+  composes the pre-shift into the mask warp); :func:`_solve_update` is
+  its twin, equal to it bit for bit there, and runs on a CPU tensor
+  after the kernels' plain twins.  K2 has no band limit, so this route
+  serves every start, identity included: the JAX package's while loop
+  takes its dense step only because its banded Pallas warp needs bounded
+  displacements (registration.py:249-255).
 - ``"jnp"``: the JAX package's dense ``body`` (:345-455) in plain
-  PyTorch, statistics summed in f32 as XLA sums them; the kernel route's
-  oracle.
+  PyTorch, statistics summed in f32 as XLA sums them, then
+  :func:`_solve_update` on the host; the kernel route's oracle.
+
+A recording (``utils.timing``) counts each update as ``gn.update.kernel``
+(K3's epilogue) or ``gn.update.host`` (:func:`_solve_update`).
 
 Conventions (as the reference): the warp maps template pixel coordinates
 to input coordinates, ``out(x) = input(W @ [x, y, 1])``; zero outside
@@ -56,6 +62,7 @@ from upsp_tpu_torch.ops.ecc_kernels import (
     MAX_TAPS,
     blur,
     ecc_gn_moments,
+    ecc_gn_moments_update,
     ecc_statistics_from_moments,
     template_shift,
     warp_affine_banded,
@@ -205,7 +212,10 @@ def _dot6(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _solve_update(hmat, i_proj, t_proj, iw_norm2, corr, tmpl_norm, warp,
                   rho_prev):
     """The closed-form ECC update from a step's statistics: (new warps,
-    rho, |rho - rho_prev|)."""
+    rho, |rho - rho_prev|).  The twin of K3's update epilogue
+    (``csrc/ecc.cu`` ``gn_update_lane``), which rounds as torch's CUDA
+    kernels round these ops."""
+    timing.count("gn.update.host")
     eye = torch.eye(6, dtype=hmat.dtype, device=hmat.device)
     reg = 1e-9 * _sum6(hmat.diagonal(dim1=1, dim2=2)) / 6.0 + 1e-12
     lc = chol_factor_unrolled(hmat + reg[:, None, None] * eye)
@@ -244,11 +254,19 @@ def _mask_warp(warp, valid_shift):
 def _gn_step(img, tmpl, kshift, warp, rho_prev, valid_shift):
     """One Gauss-Newton step of the kernel route (``body_pallas``): K2
     warp, K3 statistics (``kshift``: the template's brightness shift),
-    closed-form update.  K2 then K3, not K9 (``ecc_gn_fused``, the same
-    statistics in one kernel): on the H100 K9 is the faster of the two at
-    1024x1024 but not at the full configuration's 1200x1800 (PERF.md
-    section 6)."""
+    closed-form update.  On the card the update is K3's reduce stage
+    (``ecc_gn_moments_update``), so a step is two wrapper calls and six
+    allocations on the host; on a CPU tensor it is :func:`_solve_update`,
+    the epilogue's twin, after the plain twins of K2 and K3.  K2 then K3,
+    not K9 (``ecc_gn_fused``, the same statistics in one kernel): on the
+    H100 K9 is the faster of the two at 1024x1024 but not at the full
+    configuration's 1200x1800 (PERF.md section 6)."""
     iw = warp_affine_banded(img, warp)
+    if iw.device.type == "cuda":
+        out = ecc_gn_moments_update(iw, tmpl, warp, valid_shift, kshift,
+                                    rho_prev)
+        timing.count("gn.update.kernel")
+        return out[:3]
     return _gn_update(
         ecc_gn_moments(iw, tmpl, warp, _mask_warp(warp, valid_shift), kshift),
         warp, rho_prev)
@@ -455,7 +473,7 @@ def ecc_affine(
         else warp_init.to(torch.float32).contiguous()
     )
     if valid_shift is not None:
-        valid_shift = valid_shift.to(torch.float32)
+        valid_shift = valid_shift.to(torch.float32).contiguous()
     if unroll and coarse_iters > 0:
         wc, _, _ = _ecc_core(
             downsample2(ref.to(torch.float32)),

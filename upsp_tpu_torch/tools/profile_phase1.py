@@ -49,8 +49,10 @@ from upsp_tpu_torch.tools.bench import WARM, bench_inputs, parse_pair
 KERNELS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "blur_kernel": ("K1", ("blur", "blur_bf16")),
     "warp_kernel": ("K2", ("warp", "warp_bf16")),
-    "moments_kernel": ("K3", ("moments", "moments_bf16")),
-    "moments_reduce_kernel": ("K3", ("moments", "moments_bf16", "gn_fused",
+    "moments_kernel": ("K3", ("moments", "moments_bf16", "moments_update",
+                              "moments_update_bf16")),
+    "moments_reduce_kernel": ("K3", ("moments", "moments_bf16", "moments_update",
+                                     "moments_update_bf16", "gn_fused",
                                      "gn_fused_bf16")),
     "warp_filter_kernel": ("K4", ("warp_filter", "warp_filter_bf16")),
     "gather_kernel": ("K5", ("gather", "gather_bf16")),
