@@ -59,9 +59,12 @@ From the root of a checkout, on a machine with a CUDA device:
    the fft warm start;
    right after (b), on its files and outputs, in this process:
    (m) ``run_phase0(walk="device")`` against ``walk="native"``, each
-       timed: visible masks that differ only on grazing rays (as (l)
-       bounds its walks), pixel_index, u and v equal up to the f32
-       projection's rounding, equal patch operators and skip masks; then
+       timed: visible masks and best-view weights equal on every node
+       (the native route's recheck recovers the plate-edge nodes its rays
+       miss), pixel_index, u and v equal up to the f32 projection's
+       rounding, equal patch operators and skip masks, and the native
+       walk's recheck against the walk (their ``stage_times`` seconds);
+       then
        ``keyframe_mapping`` of all 1,048,576 nodes of each camera on the
        card against a float64 CPU evaluation on 4,096 of them, and
        ``remap_error_bound`` at a pose step of 1e-3;
@@ -1908,35 +1911,14 @@ def nccl_path():
     return ms
 
 
-def _grazing_bound(bvh, flat, tris, verts, center, differ):
-    """(l)'s bound on the nodes where the device and the native walk
-    disagree: none whose unjittered ray saw it on both walks, and no more
-    than the nodes the jittered retries recovered on either.  Returns (ok,
-    the recovered count)."""
-    import torch
-
-    from upsp_tpu_torch.ops import raycast as R
-
-    nodes = torch.arange(verts.shape[0], device=verts.device)
-    res = []
-    for fn in (None, R.native_intersector(flat)):
-        stats = {}
-        vis, _ = R.node_visibility(bvh, tris, verts, nodes, center, stats=stats,
-                                   intersect=fn)
-        res.append((vis, stats["primary"]))
-    (dv, dp_), (nv, np_) = res
-    recovered = min(int((dv & ~dp_).sum()), int((nv & ~np_).sum()))
-    return (not bool((differ & dp_ & np_).any())
-            and int(differ.sum()) <= recovered), recovered
-
-
 def device_phase0_path(dp):
     """Path (m): ``run_phase0(walk="device")`` against ``walk="native"`` on
-    (b)'s files, each timed: per camera the visible masks may differ only
-    as (l)'s walks may (``_grazing_bound``), ``pixel_index`` only where
-    the f32 and the f64 projection round to other pixels (the f64 position
-    within M_HALF_PX of a half pixel), ``u``/``v`` within M_UV_PX px, the
-    patch operators exactly and ``skipped`` outside the disagreeing nodes.
+    (b)'s files, each timed: per camera ``visible`` and the best-view
+    ``weight`` equal on every node, ``pixel_index`` only where the f32 and
+    the f64 projection round to other pixels (the f64 position within
+    M_HALF_PX of a half pixel), ``u``/``v`` within M_UV_PX px, the patch
+    operators and ``skipped`` exactly, and the native walk's readings
+    (``phase0.walk``, ``phase0.walk_recheck``, ``phase0.walk_rechecked``).
     Then ``keyframe_mapping`` of every node of each camera on the card
     against a float64 CPU evaluation on M_SAMPLE nodes (M_KEY_TOL), and
     ``remap_error_bound`` at a pose step of M_POSE_STEP.  Returns (the
@@ -1945,7 +1927,7 @@ def device_phase0_path(dp):
     import numpy as np
     import torch
 
-    from upsp_tpu_torch.camera.model import CameraParams, cam_center, project_points
+    from upsp_tpu_torch.camera.model import CameraParams, project_points
     from upsp_tpu_torch.ops import cuda_lib
     from upsp_tpu_torch.ops.node_pixel_mapping import keyframe_mapping, remap_error_bound
     from upsp_tpu_torch.pipeline.config import read_input_deck
@@ -1964,51 +1946,46 @@ def device_phase0_path(dp):
         for r in readers:
             r.close()
     cuda_lib.reset_launch_counts()
-    sec, st = {}, {}
+    sec, st, times = {}, {}, {}
     for walk in ("device", "native"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st[walk] = run_phase0(cfg, first, bits, device=DEVICE, walk=walk)
+        times[walk] = {}
+        st[walk] = run_phase0(cfg, first, bits, device=DEVICE, walk=walk,
+                              stage_times=times[walk])
         torch.cuda.synchronize()
         sec[walk] = time.perf_counter() - t0
     counts = cuda_lib.launch_counts()
     dev, nat = st["device"], st["native"]
     check(dev.bvh_dev is not None and dev.bvh_dev.leaf_v0.is_cuda and nat.bvh_dev is None,
           f"phase 0: device walk {sec['device']:.3f} s (BVH on {dev.bvh_dev.leaf_v0.device}), "
-          f"native walk {sec['native']:.3f} s")
+          f"native walk {sec['native']:.3f} s; the native walk's readings "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times["native"].items()))
     model = nat.model
     h, w = nat.image_hw
-    tris = torch.from_numpy(model.triangles.astype(np.int64)).to(DEVICE)
     verts = torch.from_numpy(model.vertices).to(DEVICE)
     verts64 = torch.from_numpy(model.vertices.astype(np.float64))
-    differ_any = torch.zeros(model.size, dtype=torch.bool, device=DEVICE)
-    res = dict(differ=[], recovered=[], moved=[], key_err=[], remap_px=[])
+    res = dict(moved=[], key_err=[], remap_px=[],
+               rechecked=times["native"]["phase0.walk_rechecked"])
     for c, (pd, pn) in enumerate(zip(dev.projections, nat.projections)):
-        differ = pd.visible != pn.visible
-        differ_any |= differ
-        center = cam_center(nat.cam_params[c]).to(DEVICE)
-        ok, recovered = _grazing_bound(dev.bvh_dev, nat.bvh, tris, verts, center, differ)
         both = (pd.visible & pn.visible).cpu().numpy()
         moved = both & (pd.pixel_index != pn.pixel_index).cpu().numpy()
         pix = project_points(nat.cam_params[c], verts64).numpy()
         half = np.abs(pix - np.floor(pix) - 0.5).min(axis=1)
         d_uv = max(float((torch.abs(pd.u - pn.u) * w).cpu().numpy()[both].max()),
                    float((torch.abs(pd.v - pn.v) * h).cpu().numpy()[both].max()))
-        n_diff = int(differ.sum())
-        res["differ"].append(n_diff)
-        res["recovered"].append(recovered)
         res["moved"].append(int(moved.sum()))
-        check(ok and bool((half[moved] < M_HALF_PX).all()) and d_uv < M_UV_PX,
-              f"camera {c + 1}: visible differs on {n_diff} of {model.size:,} nodes "
-              f"(the retries recovered {recovered}; none seen by both unjittered rays), "
-              f"pixel_index on {int(moved.sum())} seen by both, each within "
-              f"{M_HALF_PX} px of a half pixel; u, v within {d_uv:.2e} px")
+        check(torch.equal(pd.visible, pn.visible) and torch.equal(pd.weight, pn.weight)
+              and bool((half[moved] < M_HALF_PX).all()) and d_uv < M_UV_PX,
+              f"camera {c + 1}: visible and weight equal on all {model.size:,} nodes "
+              f"({int(pn.visible.sum()):,} seen), pixel_index differs on "
+              f"{int(moved.sum())}, each within {M_HALF_PX} px of a half pixel; u, v "
+              f"within {d_uv:.2e} px")
     for a, b in zip(dev.patch_ops, nat.patch_ops):
         check((a is None) == (b is None) and (a is None or all(
             torch.equal(x, y) for x, y in zip(a[:3], b[:3]))), "patch operators equal")
-    keep = ~differ_any
-    check(torch.equal(dev.skipped[keep], nat.skipped[keep]),
-          f"skipped equal outside the {int(differ_any.sum())} disagreeing nodes")
+    check(torch.equal(dev.skipped, nat.skipped),
+          f"skipped equal ({int(nat.skipped.sum())} nodes no camera sees)")
     # keyframe mapping of every node on the card, f64 on the CPU on a sample
     rng = np.random.default_rng(3)
     sample = np.sort(rng.choice(model.size, M_SAMPLE, replace=False))
@@ -2035,9 +2012,13 @@ def device_phase0_path(dp):
         b = bound.cpu().numpy()
         res["remap_px"].append((float(b.min()), float(np.median(b)), float(b.max())))
     res.update(sec=sec, key_s=time.perf_counter() - t0, state=nat, fs=fs)
+    wk = times["native"]
     print(f"  path m: phase 0 device walk {sec['device']:.3f} s, native walk "
-          f"{sec['native']:.3f} s; visible differs on {res['differ']} nodes a camera "
-          f"(retries recovered {res['recovered']}), pixel_index on {res['moved']}; "
+          f"{sec['native']:.3f} s; visible and weight equal on every node, the recheck "
+          f"recast {res['rechecked']:.0f} nodes in {wk['phase0.walk_recheck']:.4f} s of the "
+          f"{len(nat.cam_params)} cameras' walk {wk['phase0.walk']:.4f} s "
+          f"({wk['phase0.walk_recheck'] / wk['phase0.walk']:.2%}); pixel_index on "
+          f"{res['moved']}; "
           f"keyframe mapping of {model.size:,} nodes x {len(nat.cam_params)} cameras "
           f"{res['key_s']:.3f} s (worst error {max(res['key_err']):.2e} of the largest); "
           f"remap_error_bound at a pose step of {M_POSE_STEP} (min, median, max px): "

@@ -210,7 +210,8 @@ def test_streaming_frame_batch_and_stage_clock(sub_pixel, tmp_path):
                      read_flat(str(tmp_path / "jax" / name)))
     assert [r[0] for r in j_clock.records] == JAX_STREAM_LABELS
     assert [r[0] for r in t_clock.records] == JAX_STREAM_LABELS
-    assert list(times) == ["phase0", "phase1_setup", "phase1", "disk_transpose",
+    assert list(times) == ["phase0.walk", "phase0.walk_recheck", "phase0.walk_rechecked",
+                           "phase0", "phase1_setup", "phase1", "disk_transpose",
                            "phase2", "outputs"]
 
 

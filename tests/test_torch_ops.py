@@ -163,7 +163,8 @@ def test_patch_node_correction(ft, ks):
     tc = TP.build_patch_node_correction(top, (H, W), ft, ks)
     np.testing.assert_array_equal(tc.pix_idx.numpy(), np.asarray(jc.pix_idx))
     np.testing.assert_array_equal(tc.src_flat.numpy(), np.asarray(jc.src_flat))
-    np.testing.assert_array_equal(tc.C.numpy(), np.asarray(jc.C))
+    assert tc.C.dtype == torch.float64  # rounded once, it is the JAX package's
+    np.testing.assert_array_equal(tc.C.numpy().astype(np.float32), np.asarray(jc.C))
     x = scene(6, [(0, 0), (0.2, 0.9)])
     got = TP.patch_correction_values(torch.tensor(x), tc).numpy()
     for i in range(2):

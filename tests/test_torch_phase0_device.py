@@ -248,7 +248,7 @@ def test_build_node_projection_against_native_walk(scene, device_projections):
         dev = device_projections[cam]
         host = TP.build_node_projection_host(
             _params(scene, cam), flat, model.triangles, model.vertices, model.normals,
-            scene["datanode"], OBLIQUE, H, W)
+            scene["datanode"], OBLIQUE, H, W).projection
         differ = (dev.visible != host.visible).numpy()
         assert differ.sum() <= 0.01 * differ.size, (cam, int(differ.sum()))
         if differ.any():

@@ -180,6 +180,35 @@ def test_bvh_intersect_matches_jax(scene, ref, intersector):
     assert box.any() and (~box).any()  # the occluder takes some rays
 
 
+def test_flat_intersector_is_the_whole_mesh_watertight_test(scene):
+    """The host query over the flat BVH gives every ray the nearest hit of
+    the watertight test over all the triangles (the lowest slot on a tie),
+    t, prim and hit exactly; and node_visibility through it sees the nodes
+    the device walk sees (the walk, pruning its boxes in f32, may take
+    another triangle an ulp farther at a shared vertex)."""
+    flat = t_build_bvh(scene["verts"], scene["tris"], 4)
+    o, d = torch.from_numpy(scene["o"]).float(), torch.from_numpy(scene["d"]).float()
+    rows = (torch.from_numpy(a)[None].expand(len(o), flat.n_tris, 3)
+            for a in (flat.tri_v0, flat.tri_e1, flat.tri_e2))
+    t, ok = T.watertight_intersect(o, d, *rows)
+    t = torch.where(ok, t, torch.full_like(t, float("inf")))
+    j = t.argmin(1)
+    want_t = t.gather(1, j[:, None])[:, 0]
+    want_hit = torch.isfinite(want_t)
+    want_prim = torch.where(want_hit, torch.from_numpy(flat.tri_id)[j], -1)
+    got_t, got_prim, got_hit = T.flat_intersector(flat)(o, d)
+    assert torch.equal(got_t, want_t) and torch.equal(got_hit, want_hit)
+    assert torch.equal(got_prim, want_prim.int())
+    assert 0.3 < float(got_hit.float().mean()) < 0.95
+    verts, tris, nodes = (torch.from_numpy(scene[k]) for k in ("verts", "tris", "nodes"))
+    for cam in CAMS:
+        cam = torch.from_numpy(cam).float()
+        v, _ = T.node_visibility(None, tris, verts, nodes, cam,
+                                 intersect=T.flat_intersector(flat))
+        wv, _ = T.node_visibility(scene["t_bvh"], tris, verts, nodes, cam)
+        assert torch.equal(v, wv) and 0 < int(v.sum()) < len(nodes)
+
+
 def test_oracles_and_any_hit(scene, ref):
     """brute_force_intersect, bvh_any_hit_before and oblique_cos_filter
     against the JAX functions."""

@@ -11,7 +11,8 @@ and the spans the pipeline records, on the CPU.
   ``.mraw``, 12 frames in chunks of 5), fft and identity starts: the span
   tree under one datapoint identifier, the prefetch threads' reads, the
   children of phase 1 covering at least 90% of its frames' time, each
-  stage span equal to its ``stage_times`` entry within 1 ms, the counts,
+  stage span equal to its ``stage_times`` entry within 1 ms, the walk's
+  ``stage_times`` readings equal to its spans and counters, the counts,
   and the same intensities as without a recording.
 - Under ``torch.profiler`` (CPU), a span around a torch op holds the op's
   event once mapped through the ``upsp.clock`` anchor.
@@ -39,6 +40,7 @@ from upsp_tpu_torch.utils import timing
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_FRAMES, CHUNK = 12, 5
 STAGES = ("phase0", "phase1_setup", "phase1", "phase2", "outputs")
+WALK = ("phase0.walk", "phase0.walk_recheck", "phase0.walk_rechecked")  # run_phase0's
 PHASE1 = ("phase1.ingest_wait", "phase1.stage", "phase1.program", "phase1.fetch",
           "phase1.store")
 
@@ -240,7 +242,7 @@ def test_datapoint_span_tree(datapoints, mode):
     by_id = {s.id: s for s in rec.spans}
     root, = rec.of(0, "datapoint")
     stage = {s.name: s for s in rec.spans if s.name in STAGES}
-    assert set(stage) == set(STAGES) and set(st) == set(STAGES)
+    assert set(stage) == set(STAGES) and set(st) == set(STAGES) | set(WALK)
     for name in ("phase0", "phase1", "phase2", "outputs"):
         assert stage[name].parent == root.id
     assert stage["phase1_setup"].parent == stage["phase1"].id
@@ -250,6 +252,7 @@ def test_datapoint_span_tree(datapoints, mode):
 
     want = {"phase0.inputs": "phase0", "phase0.model": "phase0", "phase0.walk": "phase0",
             "phase0.patches": "phase0", "phase0.weights": "phase0",
+            "phase0.walk.recheck": "phase0.walk",
             "phase1.processor": "phase1_setup", "phase1.params": "phase1.processor",
             "phase2.host_stats": "phase2", "phase2.coverage": "phase2",
             "phase2.upload": "phase2", "phase2.device": "phase2",
@@ -265,6 +268,7 @@ def test_datapoint_span_tree(datapoints, mode):
         if s.name == "ingest.read":
             assert s.parent is None and s.thread != root.thread
     assert len(rec.of(0, "phase0.walk")) == 2  # a camera each
+    assert len(rec.of(0, "phase0.walk.recheck")) == 2
     chunks = -(-N_FRAMES // CHUNK)
     for n in PHASE1:
         assert len(rec.of(0, n)) == chunks, n
@@ -281,6 +285,25 @@ def test_datapoint_stage_spans_and_coverage(datapoints, mode):
     p1, lo = stage["phase1"], stage["phase1_setup"].end_ns
     kids = [k for k in rec.children(p1) if k.name != "phase1_setup"]
     assert timing.covered_ns(kids, lo, p1.end_ns) >= 0.9 * (p1.end_ns - lo)
+
+
+@pytest.mark.parametrize("mode", ["fft", "identity"])
+def test_datapoint_walk_readings(datapoints, mode):
+    """``stage_times``' walk readings are the walk's spans and counters,
+    read off the same clock."""
+    rec, st, got, plain = datapoints[mode]
+
+    def seconds(name):
+        total = 0.0
+        for s in rec.of(0, name):
+            total += (s.end_ns - s.start_ns) / 1e9
+        return total
+
+    assert st["phase0.walk"] == seconds("phase0.walk") > 0
+    assert st["phase0.walk_recheck"] == seconds("phase0.walk.recheck")
+    c = rec.counters[0]
+    assert st["phase0.walk_rechecked"] == float(c["walk.rechecked"])
+    assert 0 <= c["walk.recovered"] <= c["walk.rechecked"]
 
 
 @pytest.mark.parametrize("mode", ["fft", "identity"])

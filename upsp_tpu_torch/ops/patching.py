@@ -12,6 +12,16 @@ time, as the JAX package's per-frame ``einsum`` under ``vmap``: one
 matmul over the whole batch makes the frames a GEMM's columns, whose
 blocking depends on their count, so a frame's fill would change with the
 frames beside it.
+
+The products are summed in float64 and rounded to float32 once, and the
+node-level correction keeps its composed operator in float64.  A cluster
+whose boundary the threshold has cut to a few pixels on one side fits a
+cubic that extrapolates: its operator's rows reach 1e5 in absolute sum,
+and the fill, tens of thousands of counts below zero, is the difference
+of terms a thousand times larger.  Rounded or summed in float32 it moves
+by up to tens of counts; in float64 it is the exact product of the
+float32 operator and pixels, rounded once, as the deck defines it.  (The
+JAX package rounds the correction's operator and sums in float32.)
 """
 
 from __future__ import annotations
@@ -241,7 +251,7 @@ class PatchNodeCorrection(NamedTuple):
     """
 
     src_flat: torch.Tensor  # (S,) int64 flat source pixels
-    C: torch.Tensor  # (K, A_max, S_max) float32 affected-value operator
+    C: torch.Tensor  # (K, A_max, S_max) float64 affected-value operator
     src_slot: torch.Tensor  # (K, S_max) int64 into the (S,) sampled vector
     pix_idx: torch.Tensor  # (K, A_max) int64 flat affected pixel (H*W = pad)
     n_clusters: int
@@ -312,8 +322,9 @@ def build_patch_node_correction(op: Optional[PatchOperator],
     the filter is unsupported or two clusters' windows interact.
 
     Source pixels take slots in the order the reference's loop meets them,
-    and each coefficient sums its contributions in that order in f64, so
-    the result equals ``upsp_tpu.ops.patching.build_patch_node_correction``
+    and each coefficient sums its contributions in that order in f64 and
+    stays f64, so its f32 rounding equals
+    ``upsp_tpu.ops.patching.build_patch_node_correction``'s operator
     exactly; the loop itself is vectorised per cluster."""
     if op is None:
         return None
@@ -367,7 +378,7 @@ def build_patch_node_correction(op: Optional[PatchOperator],
         local.append((aff, ent_a, np.searchsorted(slots, s_uq)[inv.ravel()],
                       ent_v, slots))
     s_max = max(e[4].size for e in local)
-    C = np.zeros((k_n, a_max, s_max), np.float32)
+    C = np.zeros((k_n, a_max, s_max), np.float64)
     src_slot = np.zeros((k_n, s_max), np.int64)
     pix = np.full((k_n, a_max), h * w, np.int64)
     for k, (aff, ent_a, pos, ent_v, slots) in enumerate(local):
@@ -388,14 +399,15 @@ def build_patch_node_correction(op: Optional[PatchOperator],
 
 
 def _frame_products(mat: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
-    """(B, K, R) products of the (K, R, S) cluster operators with each
-    frame's (K, S) gathered pixels in (B, K, S) ``vecs``, a frame at a
-    time, each row's products summed along S.  Every frame takes the same
-    call, so its sums do not depend on the frames beside it, and the one
-    intermediate, (K, R, S), is the operator's own size.  (A
-    matrix-vector GEMM a frame rounds further from the JAX package's sums
-    than this reduction does.)"""
-    return torch.stack([(mat * v.unsqueeze(1)).sum(-1) for v in vecs])
+    """(B, K, R) float32 products of the (K, R, S) cluster operators with
+    each frame's (K, S) gathered pixels in (B, K, S) ``vecs``, a frame at a
+    time, each row's products summed along S in float64 and rounded once.
+    Every frame takes the same call, so its sums do not depend on the
+    frames beside it, and the one intermediate, (K, R, S), is the
+    operator's own size."""
+    mat = mat.to(torch.float64)
+    vecs = vecs.to(torch.float64)
+    return torch.stack([(mat * v.unsqueeze(1)).sum(-1) for v in vecs]).to(torch.float32)
 
 
 def patch_correction_values(warped: torch.Tensor,
@@ -411,7 +423,7 @@ def patch_correction_values(warped: torch.Tensor,
 def apply_patches(frames: torch.Tensor,
                   op: Optional[PatchOperator]) -> torch.Tensor:
     """Patch all clusters of (B, H, W) frames: gather boundaries, the f32
-    operator product a frame at a time (:func:`_frame_products`), scatter
+    operator's product, summed in f64, a frame at a time (:func:`_frame_products`), scatter
     interiors (pad slots are dropped).
     bfloat16 frames stay bfloat16, the fill rounded once; others are f32."""
     frames = frames.to(image_dtype(frames))

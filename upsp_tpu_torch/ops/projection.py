@@ -7,6 +7,19 @@ multiply.  Visibility is built one of two ways, as in the JAX package:
 (``upsp_tpu_torch.native``, built from ``cpp/``) and projects in f64 on the
 host; :func:`build_node_projection` runs on the device of its tensors,
 projects in their dtype and walks ``ops/raycast.py``'s device BVH.
+
+The native walk tests triangles with f32 Moller-Trumbore and no
+tolerance.  Its rays start at the camera, far from a node's small
+triangles, so a ray that lands within about 1e-6 of a triangle edge can
+fail the test on both triangles of a shared edge, and on the one
+triangle of a boundary edge.  On a flat axis-aligned plate the jittered
+retries land on the grid lines through the node, so a boundary node can
+lose every ray.  :func:`build_node_projection_host` therefore rechecks
+the nodes that every test but the rays passes, and whose native rays hit
+nothing or hit a triangle at their targets' distance, with the port's
+watertight test over the whole mesh (``ops/raycast.py``
+``flat_intersector``; the test's band of a few ulps counts an edge as
+inside).
 """
 
 from __future__ import annotations
@@ -17,7 +30,14 @@ import numpy as np
 import torch
 
 from upsp_tpu_torch.camera.model import CameraParams, cam_center, project_points
-from upsp_tpu_torch.ops.raycast import BVHArrays, node_visibility, oblique_cos_filter
+from upsp_tpu_torch.ops.raycast import (
+    BVHArrays, flat_intersector, node_visibility, oblique_cos_filter)
+from upsp_tpu_torch.utils import timing
+
+# a native hit farther than this x the distance from the ray's target
+# (nearer: an occluder; beyond: the ray passed the node) settles the node,
+# and the recheck leaves it
+SETTLED_REL = 1e-4
 
 
 class NodeProjection(NamedTuple):
@@ -77,16 +97,50 @@ def build_node_projection(
     )
 
 
+class HostWalk(NamedTuple):
+    """:func:`build_node_projection_host`'s result: the projection and the
+    recheck's readings, as its span and counters take them."""
+
+    projection: NodeProjection
+    recheck_s: float  # seconds of the span ``phase0.walk.recheck``
+    rechecked: int  # nodes recast (the counter ``walk.rechecked``)
+    recovered: int  # of them, nodes made visible (``walk.recovered``)
+
+
+def _recast(cand: np.ndarray, flat_bvh, triangles: np.ndarray, vertices: np.ndarray,
+            center: torch.Tensor, n_jitter: int, jitter: float) -> np.ndarray:
+    """(K,) bool: :func:`~upsp_tpu_torch.ops.raycast.node_visibility` of
+    the nodes ``cand`` over the whole mesh, on the CPU, by the watertight
+    test (:func:`~upsp_tpu_torch.ops.raycast.flat_intersector`)."""
+    verts = torch.from_numpy(np.asarray(vertices))
+    seen, _ = node_visibility(None, torch.from_numpy(np.asarray(triangles)), verts,
+                              torch.from_numpy(cand), center.to(verts.dtype),
+                              n_jitter=n_jitter, jitter=jitter,
+                              intersect=flat_intersector(flat_bvh))
+    return seen.numpy()
+
+
 def build_node_projection_host(
     params: CameraParams, flat_bvh, triangles: np.ndarray,
     vertices: np.ndarray, normals: np.ndarray, is_datanode: np.ndarray,
     oblique_angle_deg: float, height: int, width: int, n_jitter: int = 6,
     jitter: float = 1e-4,
-) -> NodeProjection:
+) -> HostWalk:
     """Visibility-tested nearest-pixel assignment for every node: in-frame,
     the closest hit of the camera->node ray lands on a triangle of the node
     (6 jittered retries), then the oblique-angle cull
-    (psp_process.cpp:167-355 semantics)."""
+    (psp_process.cpp:167-355 semantics).
+
+    The recheck (the module docstring): a data node in the frame and
+    facing the camera that no native ray owned, and whose native rays hit
+    nothing or hit within ``SETTLED_REL`` of their targets' distance, is
+    recast by :func:`~upsp_tpu_torch.ops.raycast.node_visibility` over
+    the whole mesh with the watertight test (:func:`_recast`).  Only its
+    ownership can change: its pixel and ``u``, ``v`` are the f64
+    projection's.  The recheck is the span ``phase0.walk.recheck``; the
+    counters ``walk.rechecked`` and ``walk.recovered`` take the nodes
+    recast and those it made visible, and the result carries the same
+    readings."""
     from upsp_tpu_torch import native
 
     n = vertices.shape[0]
@@ -104,34 +158,47 @@ def build_node_projection_host(
     origins = np.broadcast_to(center.astype(np.float32), vertices.shape)
 
     node_ids = np.arange(n)
-    _, prim, hit = native.bvh_intersect(flat_bvh, origins, dirs)
+    t, prim, hit = native.bvh_intersect(flat_bvh, origins, dirs)
     own = hit & np.any(triangles[np.maximum(prim, 0)] == node_ids[:, None], axis=1)
+    settled = hit & (np.abs(t - dist[:, 0]) > SETTLED_REL * dist[:, 0])
     offsets = np.array(
         [[-jitter, 0, 0], [jitter, 0, 0], [0, -jitter, 0],
          [0, jitter, 0], [0, 0, -jitter], [0, 0, jitter]], np.float64,
     )
     for k in range(n_jitter):
-        missing = ~own
-        if not missing.any():
+        (missing,) = np.nonzero(~own)
+        if not missing.size:
             break
         dk = vertices[missing].astype(np.float64) + offsets[k] - center
-        dk = (dk / np.linalg.norm(dk, axis=1, keepdims=True)).astype(np.float32)
-        _, prim_k, hit_k = native.bvh_intersect(flat_bvh, origins[missing], dk)
+        norm = np.linalg.norm(dk, axis=1)
+        dk = (dk / norm[:, None]).astype(np.float32)
+        t_k, prim_k, hit_k = native.bvh_intersect(flat_bvh, origins[missing], dk)
         trik = triangles[np.maximum(prim_k, 0)]
-        own[missing] |= hit_k & np.any(trik == node_ids[missing][:, None], axis=1)
+        own[missing] = hit_k & np.any(trik == missing[:, None], axis=1)
+        settled[missing] |= hit_k & (np.abs(t_k - norm) > SETTLED_REL * norm)
 
     thresh = np.cos(np.deg2rad(180.0 - oblique_angle_deg))
     forward = np.sum(normals * dirs, axis=-1) < thresh
-    visible = np.asarray(is_datanode, bool) & in_frame & own & forward
+    tested = np.asarray(is_datanode, bool) & in_frame & forward
+    with timing.timed("phase0.walk.recheck") as clock:
+        (cand,) = np.nonzero(tested & ~own & ~settled)
+        if cand.size:
+            own[cand] = _recast(cand, flat_bvh, triangles, vertices, cam_center(params),
+                                n_jitter, jitter)
+        recovered = int(own[cand].sum())
+    timing.count("walk.rechecked", int(cand.size))
+    timing.count("walk.recovered", recovered)
+    visible = tested & own
     col = np.clip(np.rint(pix[:, 0]), 0, width - 1).astype(np.int64)
     row = np.clip(np.rint(pix[:, 1]), 0, height - 1).astype(np.int64)
-    return NodeProjection(
+    proj = NodeProjection(
         pixel_index=torch.from_numpy(np.where(visible, row * width + col, 0)),
         weight=torch.from_numpy(visible.astype(np.float32)),
         u=torch.from_numpy(np.where(visible, pix[:, 0] / width, 0).astype(np.float32)),
         v=torch.from_numpy(np.where(visible, pix[:, 1] / height, 0).astype(np.float32)),
         visible=torch.from_numpy(visible),
     )
+    return HostWalk(proj, clock.seconds, int(cand.size), recovered)
 
 
 def view_angles_deg(vertices: torch.Tensor, normals: torch.Tensor,

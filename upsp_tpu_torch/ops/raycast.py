@@ -278,6 +278,61 @@ def native_intersector(flat: FlatBVH) -> Intersector:
     return walk
 
 
+def flat_intersector(flat: FlatBVH) -> Intersector:
+    """The closest hit over every triangle of ``flat`` by
+    :func:`watertight_intersect`, on the host, for a handful of rays (the
+    native walk's recheck, ``ops/projection.py``), without the copy of the
+    whole tree that :func:`bvh_to_device` makes.  Every ray goes down the
+    tree at once (an internal node ``i`` has the children ``i + 1`` and
+    ``escape[i + 1]``) through the boxes it crosses, each widened by 1e-5
+    of the root box's largest coordinate, so every triangle it can hit is
+    in a leaf it reaches; those leaves' triangles are tested in f32 and
+    the nearest hit taken (the lowest slot on a tie): the test of every
+    triangle's result, which :func:`bvh_intersect`'s walk, pruning its
+    boxes in f32, can miss by an ulp.  Rays in, (t, prim, hit) tensors out
+    on the rays' device, as :func:`native_intersector`."""
+    pad = 1e-5 * float(np.abs(np.concatenate([flat.bbox_min[0], flat.bbox_max[0]])).max())
+
+    def walk(origins, directions):
+        dev = origins.device
+        o32 = origins.detach().to("cpu", torch.float32)
+        d32 = directions.detach().to("cpu", torch.float32)
+        o, d = o32.double().numpy(), d32.double().numpy()
+        with np.errstate(divide="ignore"):
+            inv = np.where(np.abs(d) > 1e-30, 1.0 / d, np.where(d < 0, -1e30, 1e30))
+        node, ray = np.zeros(len(o), np.int64), np.arange(len(o))
+        found = []
+        while node.size:
+            t0 = (flat.bbox_min[node] - o[ray] - pad) * inv[ray]
+            t1 = (flat.bbox_max[node] - o[ray] + pad) * inv[ray]
+            near = np.minimum(t0, t1).max(1)
+            cross = np.maximum(t0, t1).min(1) >= np.maximum(near, 0.0)
+            node, ray = node[cross], ray[cross]
+            leaf = flat.leaf_start[node] >= 0
+            found.append(np.stack([node[leaf], ray[leaf]]))
+            inner, ray = node[~leaf] + 1, ray[~leaf]
+            node = np.concatenate([inner, flat.escape[inner].astype(np.int64)])
+            ray = np.concatenate([ray, ray])
+        leaves, ray = np.concatenate(found, 1)
+        best_t = torch.full((len(o),), float("inf"))
+        best_prim = torch.full((len(o),), -1, dtype=torch.int32)
+        n = flat.leaf_count[leaves].astype(np.int64)
+        slot = np.repeat(flat.leaf_start[leaves] - np.cumsum(n) + n, n) + np.arange(n.sum())
+        ray = np.repeat(ray, n)
+        t, ok = watertight_intersect(
+            o32[ray], d32[ray], *(torch.from_numpy(a[slot])[:, None]
+                                  for a in (flat.tri_v0, flat.tri_e1, flat.tri_e2)))
+        t = torch.where(ok, t, torch.full_like(t, float("inf")))[:, 0].numpy()
+        order = np.lexsort((slot, t, ray))  # a ray's hits, nearest first
+        first = order[np.diff(ray[order], prepend=-1) != 0]
+        first = first[np.isfinite(t[first])]
+        best_t[ray[first]] = torch.from_numpy(t[first])
+        best_prim[ray[first]] = torch.from_numpy(flat.tri_id[slot[first]].astype(np.int32))
+        return best_t.to(dev), best_prim.to(dev), (best_prim >= 0).to(dev)
+
+    return walk
+
+
 def node_visibility(
     bvh: Optional[BVHArrays],
     triangles: torch.Tensor,  # (T, 3) node indices per original tri id

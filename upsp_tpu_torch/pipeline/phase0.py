@@ -4,8 +4,11 @@ Port of ``upsp_tpu/pipeline/phase0.py``, with its two routes for the
 visibility rays (``run_phase0(walk=)``):
 
 - native: the rays walk the BVH through ``upsp_tpu_torch.native`` (built
-  from ``cpp/``); the camera model and projections are host torch/numpy
-  (f64 projection), and the finished state is moved to ``device``;
+  from ``cpp/``), and the nodes its rays missed without hitting anything
+  away from them are rechecked with the port's watertight test
+  (``projection.build_node_projection_host``);
+  the camera model and projections are host torch/numpy (f64 projection),
+  and the finished state is moved to ``device``;
 - device: the BVH goes to ``device`` (``ops/raycast.bvh_to_device``) and
   the projections, the walks, the weights and the skip mask are computed
   there (``projection.build_node_projection``, f32 projection, as the JAX
@@ -292,11 +295,16 @@ def run_phase0(
     cfg: ProcessingConfig, first_frames: Sequence[np.ndarray],
     bit_depths: Optional[Sequence[int]] = None, device="cuda",
     model: Optional[SurfaceModel] = None, max_leaf: int = 4, walk: str = "auto",
+    stage_times: Optional[dict] = None,
 ) -> Phase0State:
     """Build the phase-0 state from the config and per-camera first frames,
     its tensors on ``device`` (the card unless the caller asks for the
     CPU).  ``walk``: "native", "device" or "auto" (the module docstring);
-    "native" raises when the library cannot be built."""
+    "native" raises when the library cannot be built.  ``stage_times``,
+    when a dict, receives the walk's readings over all cameras, as its
+    spans and counters take them: ``phase0.walk`` and
+    ``phase0.walk_recheck`` (seconds) and ``phase0.walk_rechecked`` (the
+    nodes recast, a float; the device walk rechecks none)."""
     device = torch.device(device)
     if walk not in ("auto", "native", "device"):
         raise ValueError(f"walk must be auto|native|device, got {walk!r}")
@@ -337,6 +345,7 @@ def run_phase0(
             mesh = dict(triangles=model.triangles, vertices=model.vertices,
                         normals=model.normals, is_datanode=model.is_datanode)
 
+    walk_s, recheck_s, rechecked = 0.0, 0.0, 0
     cam_params: List[CameraParams] = []
     raw_projs: List[NodeProjection] = []
     patch_ops: List[Optional[PatchOperator]] = []
@@ -346,15 +355,19 @@ def run_phase0(
         params = make_camera_params(cal.rmat, cal.tvec, cal.camera_matrix,
                                     cal.dist_coeffs, dtype=torch.float32)
         cam_params.append(params)
-        with timing.span("phase0.walk"):
+        with timing.timed("phase0.walk") as clock:
             if walk == "device":
                 raw_projs.append(build_node_projection(
                     params, bvh_dev, oblique_angle_deg=cfg.oblique_angle, height=H,
                     width=W, max_leaf=max_leaf, **mesh))
             else:
-                raw_projs.append(build_node_projection_host(
+                host = build_node_projection_host(
                     params, bvh, oblique_angle_deg=cfg.oblique_angle, height=H,
-                    width=W, **mesh))
+                    width=W, **mesh)
+                raw_projs.append(host.projection)
+                recheck_s += host.recheck_s
+                rechecked += host.rechecked
+        walk_s += clock.seconds
         if cfg.target_patcher == "polynomial" and cam.targets:
             with timing.span("phase0.patches"):
                 op, diag = build_patcher_for_camera(
@@ -366,6 +379,10 @@ def run_phase0(
             op, diag = None, None
         patch_ops.append(op)
         patch_diags.append(diag)
+
+    if stage_times is not None:
+        stage_times.update({"phase0.walk": walk_s, "phase0.walk_recheck": recheck_s,
+                            "phase0.walk_rechecked": float(rechecked)})
 
     # the weights, the skip mask and the templates where the projections
     # are: on the device walk's device, on the host for the native walk

@@ -440,7 +440,9 @@ def run_datapoint(
     phase 1 (ingest included; ``phase1_setup`` is its set-up part, before
     the first frame), phase 2 and the output writes, each ended by a
     device synchronise (and on a mesh by a barrier, whose waits go under
-    ``"barrier"``).
+    ``"barrier"``), and before them phase 0's walk readings
+    (:func:`~upsp_tpu_torch.pipeline.phase0.run_phase0`: ``phase0.walk``,
+    ``phase0.walk_recheck``, ``phase0.walk_rechecked``).
 
     ``mesh``: None (one device), "auto" or a
     :class:`~upsp_tpu_torch.parallel.mesh.Mesh` (:func:`_resolve_mesh`).
@@ -472,7 +474,8 @@ def run_datapoint(
     else:
         log.info("phase1: frames decode on the host")
 
-    state = run_phase0(cfg, first_frames, bit_depths, device=device)
+    state = run_phase0(cfg, first_frames, bit_depths, device=device,
+                       stage_times=stage_times)
     camset = _camera_settings(readers, cfg, state)
     diag_dir = cfg.add_out_dir or cfg.out_dir
     if write_outputs and diag_dir and rank0:
@@ -651,7 +654,8 @@ def run_datapoint_streaming(
         frames_array, readers, n_frames, start0, first_frames, bit_depths = (
             _open_inputs(cfg, frames_array))
     try:
-        state = run_phase0(cfg, first_frames, bit_depths, device=device)
+        state = run_phase0(cfg, first_frames, bit_depths, device=device,
+                           stage_times=stage_times)
         camset = _camera_settings(readers, cfg, state)
         clock.point("phase0")
         n_nodes = state.n_nodes

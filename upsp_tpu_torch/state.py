@@ -52,7 +52,7 @@ def _patch_corr(corr, device):
         return None
     return PatchNodeCorrection(
         src_flat=_t(corr.src_flat, device, np.int64),
-        C=_t(corr.C, device, np.float32),
+        C=_t(corr.C, device, np.float64),
         src_slot=_t(corr.src_slot, device, np.int64),
         pix_idx=_t(corr.pix_idx, device, np.int64),
         n_clusters=int(corr.n_clusters),

@@ -16,6 +16,8 @@ a :func:`recording` is open, which keeps them in memory, each span with
 its parent, its thread and the datapoint it belongs to (each call of a
 function decorated with :func:`datapoint` is one).  Off, ``span``
 returns one shared no-op context manager and ``count`` returns at once.
+:func:`timed` is a span whose seconds the caller reads after the block,
+recording or not, from the span's own clock readings.
 """
 
 from __future__ import annotations
@@ -149,7 +151,7 @@ _OFF = contextlib.nullcontext()  # the span of a process that is not recording
 
 
 class _On:
-    __slots__ = ("rec", "name", "id", "parent", "start")
+    __slots__ = ("rec", "name", "id", "parent", "start", "end")
 
     def __init__(self, rec: Recording, name: str):
         self.rec, self.name = rec, name
@@ -163,11 +165,31 @@ class _On:
         return self
 
     def __exit__(self, *exc):
-        end = time.perf_counter_ns()
+        self.end = time.perf_counter_ns()
         _stack().pop()
-        self.rec._add(Span(self.id, self.name, self.start, end, self.parent,
+        self.rec._add(Span(self.id, self.name, self.start, self.end, self.parent,
                            threading.get_ident(), getattr(_local, "datapoint", None)))
         return False
+
+    @property
+    def seconds(self) -> float:
+        return (self.end - self.start) / 1e9
+
+
+class _Clock:
+    """:class:`_On`'s readings without a recording."""
+
+    __slots__ = ("start", "end")
+
+    def __enter__(self):
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end = time.perf_counter_ns()
+        return False
+
+    seconds = _On.seconds
 
 
 def span(name: str):
@@ -177,6 +199,14 @@ def span(name: str):
     if rec is None:
         return _OFF
     return _On(rec, name)
+
+
+def timed(name: str):
+    """:func:`span` ``name`` whose ``seconds`` the caller reads after the
+    block, recorded or not: the span and the reading are the same two
+    clock readings."""
+    rec = _recording
+    return _Clock() if rec is None else _On(rec, name)
 
 
 def count(name: str, n: int = 1) -> None:
