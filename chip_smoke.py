@@ -31,7 +31,10 @@ From the root of a checkout, on a machine with a CUDA device:
    correlation's k x k pooling) at 8 x 4 x 1200x1800, k = 4, f32 and
    bf16, bit for bit, also on a camera's strided slice, with
    ``F.avg_pool2d`` as its yardstick and the parent's two pooling GEMMs
-   timed beside it;
+   timed beside it; K11 (phase 0's visibility walk) over the full
+   configuration's 1,048,576 nodes from its 4 camera centres, bit for bit
+   with the native library's rays, with the native rays' time, the rays a
+   second and the scene's upload;
 4. drives four synthetic datapoints through scripts/upsp-process-torch,
    each run (and (e), (f) below) with the kernel launch counts reset just
    before and read just after, packed ingest on and hot pixels injected, in this order:
@@ -58,8 +61,11 @@ From the root of a checkout, on a machine with a CUDA device:
    uses polynomial patches, gaussian 3, best view and, but (g) and (h),
    the fft warm start;
    right after (b), on its files and outputs, in this process:
-   (m) ``run_phase0(walk="device")`` against ``walk="native"``, each
-       timed: visible masks and best-view weights equal on every node
+   (m) ``run_phase0(walk="device")`` against ``walk="native"`` (its
+       rays on K11, once a camera), each timed, then ``walk="native"`` on
+       the CPU (the host's rays): every field of K11's route equal to the
+       host's on every node, both walks' seconds and nodes rechecked;
+       visible masks and best-view weights equal on every node
        (the native route's recheck recovers the plate-edge nodes its rays
        miss), pixel_index, u and v equal up to the f32 projection's
        rounding, equal patch operators and skip masks, and the native
@@ -173,7 +179,8 @@ measured shape under ``shapes``; ``bound_share``, the bound over
 ``device_ms``; the redesigned K1-K6 and K9 also ``redesigned``, with
 their time before the redesign printed on a line of its own; K5 also
 ``sector_floor_ms``, ``stacked_device_ms`` and
-``model_order_device_ms``; K10 also ``gemm_ms``, the parent's two
+``model_order_device_ms``; K11 also ``rays``, ``rays_per_s`` and
+``upload_s``; K10 also ``gemm_ms``, the parent's two
 pooling GEMMs, and its bf16 instantiation ``kernel_phase_only`` (the
 phase correlation pools f32 frames in both compute dtypes); K9 also ``split_ms``/``split_device_ms``, the
 time of K2 then K3, ``registers`` and ``local_bytes`` a thread, and
@@ -216,6 +223,9 @@ KERNEL_INFO = {  # name -> (source, the TPU kernel it replaces)
     "unpack10": ("upsp_tpu_torch/csrc/unpack.cu", "upsp_tpu/ops/pallas_unpack.py:76"),
     # K10 replaces no Pallas kernel: the XLA dot of decimate_image
     "pool": ("upsp_tpu_torch/csrc/fftreg.cu", "upsp_tpu/ops/fftreg.py:74"),
+    # K11 replaces no Pallas kernel: the native walk's rays, retries and tests
+    # in numpy around cpp/'s upsp_bvh_intersect
+    "walk": ("upsp_tpu_torch/csrc/walk.cu", "upsp_tpu/ops/projection.py:118"),
 }
 # the bfloat16 instantiations replace the same TPU kernels (out_dtype=imgs.dtype)
 for _k in ("blur", "warp", "moments", "moments_update", "warp_filter", "gn_fused",
@@ -270,17 +280,19 @@ N_DISTINCT, N_TARGETS = 16, 12
 # the datapoint paths' K3 is the Gauss-Newton step's, with the update
 F32_ECC = ("blur", "warp", "moments_update", "warp_filter")
 FRAME_KERNELS = F32_ECC + ("gather", "hot")
+# phase 0 on the card casts its visibility rays with K11, once a camera
+PHASE0_KERNELS = ("walk",)
 BF16_KERNELS = tuple(f"{k}_bf16" for k in F32_ECC + ("gather",)) + ("hot",)
 # (label, write_datapoint arguments, frames of the card-vs-CPU batch,
 #  kernels the path must launch), f32
 PATHS = [
     ("a: 2 x 1024x1024 mraw12, 64 frames, 81,920 nodes",
      dict(n_cameras=2, image_hw=(1024, 1024), n_frames=64, grid_shape=(320, 256)),
-     slice(0, 8), FRAME_KERNELS + ("pool", "unpack12")),
+     slice(0, 8), FRAME_KERNELS + ("pool", "unpack12") + PHASE0_KERNELS),
     ("c: 2 x 1024x1024 cine10, 32 frames, 81,920 nodes",
      dict(n_cameras=2, image_hw=(1024, 1024), n_frames=32, grid_shape=(320, 256),
           video_format="cine10"),
-     slice(0, 8), FRAME_KERNELS + ("pool", "unpack10")),
+     slice(0, 8), FRAME_KERNELS + ("pool", "unpack10") + PHASE0_KERNELS),
 ]
 # the full configuration, written once and run as (b) in f32 and (d) in
 # bf16: (label, compute dtype, kernels the path must launch)
@@ -296,10 +308,10 @@ P2_NODE_BLOCK = 65536
 TALL = (4096, 32768)
 FULL_PATHS = (
     ("b: full config, 4 x 1200x1800 mraw12, 64 frames, 1,048,576 nodes",
-     "float32", FRAME_KERNELS + ("pool", "unpack12")),
+     "float32", FRAME_KERNELS + ("pool", "unpack12") + PHASE0_KERNELS),
     # the phase correlation pools the f32 frames in both dtypes: K10 in f32
     ("d: full config in bfloat16 (--compute-dtype bfloat16), path (b)'s files",
-     "bfloat16", BF16_KERNELS + ("pool", "unpack12")),
+     "bfloat16", BF16_KERNELS + ("pool", "unpack12") + PHASE0_KERNELS),
 )
 # path (g): (b)'s files again, reference parity (identity starts, the while
 # loop), into an output directory of its own
@@ -310,7 +322,8 @@ H_PATH = ("h: 2 x 1024x1024 cine10, 32 frames, 81,920 nodes, pixel_interpolation
           "nearest, --ecc-init scan",
           dict(n_cameras=2, image_hw=(1024, 1024), n_frames=32, grid_shape=(320, 256),
                video_format="cine10", options=["pixel_interpolation = nearest"]),
-          slice(0, 8), ("blur", "warp", "moments_update", "gather", "hot", "unpack10"))
+          slice(0, 8), ("blur", "warp", "moments_update", "gather", "hot", "unpack10")
+          + PHASE0_KERNELS)
 # (e)'s outputs against (b)'s: what phase 1 writes exactly, the frame
 # statistics (summed in f64 in another order) within rtol 1e-5, carried to
 # ratio_0 as atol 1e-5 since avg / I0 is near 1, phase 2 within
@@ -1050,6 +1063,93 @@ def kernel_phase_pool(rows):
     torch.cuda.synchronize()
 
 
+def walk_rig():
+    """The full configuration's plate and cameras as write_datapoint writes
+    them (1,048,576 nodes, FULL_C cameras of FULL_H x FULL_W) and the flat
+    BVH run_phase0 builds over them: (model, flat BVH, camera parameters,
+    oblique angle)."""
+    import torch
+
+    from upsp_tpu_torch.camera.model import make_camera_params
+    from upsp_tpu_torch.geometry.grids import load_model
+    from upsp_tpu_torch.io.camera_json import read_camera_json
+    from upsp_tpu_torch.pipeline import phase0 as P0
+    from upsp_tpu_torch.pipeline.config import read_input_deck
+    from upsp_tpu_torch.pipeline.synthetic import write_datapoint
+
+    dp = write_datapoint(os.path.join(WORK, "walk"), n_cameras=FULL_C,
+                         image_hw=(FULL_H, FULL_W), n_frames=1, n_distinct=1,
+                         grid_shape=FULL["grid_shape"])
+    cfg = read_input_deck(dp["deck"])
+    model = load_model(cfg.grid, tolerance=cfg.grid_tol)
+    P0.native_library()
+    params = []
+    for cam in cfg.cameras:
+        cal = read_camera_json(cam.calibration, dims_hw=(FULL_H, FULL_W))
+        params.append(make_camera_params(cal.rmat, cal.tvec, cal.camera_matrix,
+                                         cal.dist_coeffs, dtype=torch.float32))
+    return model, P0._build_bvh(model, 4), params, cfg.oblique_angle
+
+
+def kernel_phase_walk(rows):
+    """K11, phase 0's visibility walk, against the native rays the host
+    route casts (``projection._native_rays``: numpy around cpp/'s
+    multithreaded walk) on the full configuration (:func:`walk_rig`: the
+    SAH BVH of 2,093,058 triangles): every node's last ray ``t`` and
+    ``prim``, ``own``, ``settled``, the oblique test and the retries, bit
+    for bit, from each camera centre.  A call is the FULL_C cameras' walks;
+    ``plain_ms`` is the native rays over them, no library call.  The bound
+    is the scene read once and a byte a node and camera written: the boxes
+    and triangles a ray visits depend on its path and are not counted, so
+    it is a floor far below the walk.  ``rays_per_s``: the rays cast
+    (primary and retries) over ``device_ms``; ``upload_s`` the scene's copy
+    to the card."""
+    import numpy as np
+    import torch
+
+    from upsp_tpu_torch.camera.model import cam_center
+    from upsp_tpu_torch.ops import projection as TP
+    from upsp_tpu_torch.ops import walk_kernels as WK
+
+    model, flat, params, oblique = walk_rig()
+    th = TP._oblique_threshold(oblique)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = WK.upload_scene(flat, model.triangles, model.vertices, model.normals, DEVICE)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    centers = [cam_center(p) for p in params]
+    c64 = [c.numpy().astype(np.float64) for c in centers]
+
+    def host():
+        return [TP._native_rays(flat, model.triangles, model.vertices, model.normals, c,
+                                th, WK.MAX_JITTER, 1e-4) for c in c64]
+
+    differ, rays = 0, 0
+    for c, want in zip(centers, host()):
+        got = WK.walk_nodes(scene, c, th, detail=True)
+        bad = torch.zeros(model.size, dtype=torch.bool)
+        for k in WK.NodeRays._fields:
+            bad |= getattr(got, k).cpu() != getattr(want, k)
+        differ += int(bad.sum())
+        rays += model.size + int(want.retries.sum())
+    nbytes = sum(t.numel() * t.element_size() for t in scene) + model.size * FULL_C
+    shape = f"{model.size:,} nodes x {FULL_C} cameras, {flat.n_tris:,} triangles"
+    add_row(rows, "walk", shape, float(differ), differ == 0,
+            "nodes differing from the native rays: t, prim, own, settled, forward, retries",
+            lambda: [WK.walk_nodes(scene, c, th) for c in centers], host, nbytes, 0,
+            rays=rays, upload_s=upload_s)
+    row = next(r for r in rows if r["name"] == "walk")
+    row["rays_per_s"] = row["shapes"][-1]["rays_per_s"] = rays / row["device_ms"] * 1e3
+    print(f"  walk: {rays:,} rays ({rays - FULL_C * model.size:,} retries) in "
+          f"{row['device_ms']:.3f} device ms, {row['rays_per_s']:.4g} rays/s; the "
+          f"native rays {row['plain_ms']:.1f} ms; scene upload {upload_s:.4f} s "
+          f"({nbytes / 1e6:.1f} MB)", flush=True)
+    del scene
+    shutil.rmtree(os.path.join(WORK, "walk"), ignore_errors=True)
+    torch.cuda.synchronize()
+
+
 def run_cli(argv):
     """Run the script ``argv[0]`` in this process with ``argv``."""
     saved = sys.argv
@@ -1429,7 +1529,7 @@ def streaming_cli_path(dp, n_nodes):
     stages = cli_run(e_dp, "float32", streaming=True)
     counts = cuda_lib.launch_counts()
     print(f"  launches on this path: {counts}", flush=True)
-    for name in FRAME_KERNELS + ("unpack12",):
+    for name in FRAME_KERNELS + ("unpack12",) + PHASE0_KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on this path")
     for name in FLAT_FILES:
         check(os.path.exists(os.path.join(out, name)), f"output {name}")
@@ -1913,7 +2013,11 @@ def nccl_path():
 
 def device_phase0_path(dp):
     """Path (m): ``run_phase0(walk="device")`` against ``walk="native"`` on
-    (b)'s files, each timed: per camera ``visible`` and the best-view
+    (b)'s files, each timed (on the card the native walk's rays are K11's,
+    so the pair launches K11 once a camera); then ``walk="native"`` on the
+    CPU, the host's rays: every ``NodeProjection`` field and the skip mask
+    equal to K11's route on every node, the walk's seconds and nodes
+    rechecked of both.  Per camera ``visible`` and the best-view
     ``weight`` equal on every node, ``pixel_index`` only where the f32 and
     the f64 projection round to other pixels (the f64 position within
     M_HALF_PX of a half pixel), ``u``/``v`` within M_UV_PX px, the patch
@@ -1956,7 +2060,23 @@ def device_phase0_path(dp):
         torch.cuda.synchronize()
         sec[walk] = time.perf_counter() - t0
     counts = cuda_lib.launch_counts()
+    # the native walk's rays on the host, as on the CPU: K11's must equal them
+    times["host"] = {}
+    t0 = time.perf_counter()
+    host = run_phase0(cfg, first, bits, device="cpu", walk="native",
+                      stage_times=times["host"])
+    sec["host"] = time.perf_counter() - t0
     dev, nat = st["device"], st["native"]
+    k11_t, host_t = times["native"], times["host"]
+    check(all(torch.equal(a.cpu(), b) for pn, ph in zip(nat.projections, host.projections)
+              for a, b in zip(pn, ph)) and torch.equal(nat.skipped.cpu(), host.skipped)
+          and k11_t["phase0.walk_rechecked"] == host_t["phase0.walk_rechecked"],
+          f"the native walk on K11 equals it on the host, every NodeProjection field of "
+          f"all {nat.n_nodes:,} nodes x {nat.n_cameras} cameras and the skip mask; walk "
+          f"{k11_t['phase0.walk']:.4f} s on K11, {host_t['phase0.walk']:.4f} s on the host; "
+          f"nodes rechecked {k11_t['phase0.walk_rechecked']:.0f} / "
+          f"{host_t['phase0.walk_rechecked']:.0f}")
+    del host
     check(dev.bvh_dev is not None and dev.bvh_dev.leaf_v0.is_cuda and nat.bvh_dev is None,
           f"phase 0: device walk {sec['device']:.3f} s (BVH on {dev.bvh_dev.leaf_v0.device}), "
           f"native walk {sec['native']:.3f} s; the native walk's readings "
@@ -2012,12 +2132,13 @@ def device_phase0_path(dp):
         b = bound.cpu().numpy()
         res["remap_px"].append((float(b.min()), float(np.median(b)), float(b.max())))
     res.update(sec=sec, key_s=time.perf_counter() - t0, state=nat, fs=fs)
-    wk = times["native"]
     print(f"  path m: phase 0 device walk {sec['device']:.3f} s, native walk "
-          f"{sec['native']:.3f} s; visible and weight equal on every node, the recheck "
-          f"recast {res['rechecked']:.0f} nodes in {wk['phase0.walk_recheck']:.4f} s of the "
-          f"{len(nat.cam_params)} cameras' walk {wk['phase0.walk']:.4f} s "
-          f"({wk['phase0.walk_recheck'] / wk['phase0.walk']:.2%}); pixel_index on "
+          f"{sec['native']:.3f} s (rays on K11; on the host {sec['host']:.3f} s, its walk "
+          f"{host_t['phase0.walk']:.4f} s against K11's {k11_t['phase0.walk']:.4f} s, equal on "
+          f"every node); visible and weight equal on every node, the recheck "
+          f"recast {res['rechecked']:.0f} nodes in {k11_t['phase0.walk_recheck']:.4f} s of the "
+          f"{len(nat.cam_params)} cameras' walk {k11_t['phase0.walk']:.4f} s "
+          f"({k11_t['phase0.walk_recheck'] / k11_t['phase0.walk']:.2%}); pixel_index on "
           f"{res['moved']}; "
           f"keyframe mapping of {model.size:,} nodes x {len(nat.cam_params)} cameras "
           f"{res['key_s']:.3f} s (worst error {max(res['key_err']):.2e} of the largest); "
@@ -2176,7 +2297,7 @@ def drop_in_path(dp, state, by_path, b_stages, n_fps):
     wall = time.perf_counter() - t0
     by_path["s1"] = cuda_lib.launch_counts()
     print(f"  launches on this path: {by_path['s1']}", flush=True)
-    for name in FRAME_KERNELS + ("pool", "unpack12"):
+    for name in FRAME_KERNELS + ("pool", "unpack12") + PHASE0_KERNELS:
         check(by_path["s1"][name] > 0, f"kernel {name} launched on this path")
     times["n_frames"] = FULL["n_frames"]
     print_stages(f"run_datapoint(frame_batch={S_FRAME_BATCH})", wall, times)
@@ -2663,7 +2784,7 @@ def tree_path(dp):
         t = json.load(fh)
     counts = t["launches"]
     print(f"  launches on this path: {counts}", flush=True)
-    for name in FRAME_KERNELS + ("unpack12",):
+    for name in FRAME_KERNELS + ("unpack12",) + PHASE0_KERNELS:
         check(counts[name] > 0, f"kernel {name} launched on this path")
     for name in FLAT_FILES:
         check(os.path.exists(os.path.join(out, name)), f"output {name}")
@@ -2935,7 +3056,10 @@ def full_config_paths(by_path, phase_s):
         by_path["p"], p_res = psd_path(dp, m_res["fs"])
         phase_s["path p"] = time.perf_counter() - t0
         for p in "mop":
-            check(not any(by_path[p].values()), f"path {p} launched no K1-K9 kernel")
+            walks = FULL["n_cameras"] if p == "m" else 0
+            check(by_path[p]["walk"] == walks
+                  and not any(v for k, v in by_path[p].items() if k != "walk"),
+                  f"path {p} launched K11 {walks} times and no other kernel")
         t0 = time.perf_counter()
         by_path["e"], e_stages, b_out, e_dp = streaming_cli_path(dp, n_nodes)
         phase_s["path e"] = time.perf_counter() - t0
@@ -3037,6 +3161,9 @@ def main() -> int:
         t0 = time.perf_counter()
         kernel_phase_pool(rows)
         phase_s["K10"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kernel_phase_walk(rows)
+        phase_s["K11"] = time.perf_counter() - t0
         print("[3/3] datapoints through scripts/upsp-process-torch", flush=True)
         by_path = {}  # "a".."f" -> the launch counts of its run
         for label, spec, batch, expect in PATHS:

@@ -158,7 +158,8 @@ def build_all(verbose: bool = False) -> List[str]:
     """Build every source at once (one nvcc each), wait for all of them,
     and load them; raises the first failure."""
     # the modules whose wrappers declare the libraries
-    from upsp_tpu_torch.ops import ecc_kernels, fftreg, gather_kernels, unpack_kernels  # noqa: F401
+    from upsp_tpu_torch.ops import (  # noqa: F401
+        ecc_kernels, fftreg, gather_kernels, unpack_kernels, walk_kernels)
 
     started = [(lib, lib._start(verbose)) for lib in LIBRARIES]
     errors = []

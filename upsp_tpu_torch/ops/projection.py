@@ -3,10 +3,16 @@
 Port of ``upsp_tpu/ops/projection.py``.  Each camera carries, per node, a
 flat pixel index and a weight; a frame projects by one gather and a
 multiply.  Visibility is built one of two ways, as in the JAX package:
-:func:`build_node_projection_host` walks the BVH with the native walker
+:func:`build_node_projection_host` casts the native walker's rays
 (``upsp_tpu_torch.native``, built from ``cpp/``) and projects in f64 on the
 host; :func:`build_node_projection` runs on the device of its tensors,
 projects in their dtype and walks ``ops/raycast.py``'s device BVH.
+:func:`build_node_projection_card` is the native route with its rays on
+the card: K11 (``ops/walk_kernels.py``) casts every node's ray, retries
+and tests bit for bit with the native walker while the host projects in
+f64, and the host rechecks and assembles as
+:func:`build_node_projection_host` does (``_settle``), so the two give
+the same projection on every node.
 
 The native walk tests triangles with f32 Moller-Trumbore and no
 tolerance.  Its rays start at the camera, far from a node's small
@@ -32,6 +38,7 @@ import torch
 from upsp_tpu_torch.camera.model import CameraParams, cam_center, project_points
 from upsp_tpu_torch.ops.raycast import (
     BVHArrays, flat_intersector, node_visibility, oblique_cos_filter)
+from upsp_tpu_torch.ops.walk_kernels import NodeRays, WalkScene, decode, walk_nodes
 from upsp_tpu_torch.utils import timing
 
 # a native hit farther than this x the distance from the ray's target
@@ -120,38 +127,23 @@ def _recast(cand: np.ndarray, flat_bvh, triangles: np.ndarray, vertices: np.ndar
     return seen.numpy()
 
 
-def build_node_projection_host(
-    params: CameraParams, flat_bvh, triangles: np.ndarray,
-    vertices: np.ndarray, normals: np.ndarray, is_datanode: np.ndarray,
-    oblique_angle_deg: float, height: int, width: int, n_jitter: int = 6,
-    jitter: float = 1e-4,
-) -> HostWalk:
-    """Visibility-tested nearest-pixel assignment for every node: in-frame,
-    the closest hit of the camera->node ray lands on a triangle of the node
-    (6 jittered retries), then the oblique-angle cull
-    (psp_process.cpp:167-355 semantics).
+def _project64(params: CameraParams, vertices: np.ndarray) -> torch.Tensor:
+    """(N, 2) f64 pixel positions of the nodes (the host's projection)."""
+    return project_points(params, torch.from_numpy(np.asarray(vertices, np.float64)))
 
-    The recheck (the module docstring): a data node in the frame and
-    facing the camera that no native ray owned, and whose native rays hit
-    nothing or hit within ``SETTLED_REL`` of their targets' distance, is
-    recast by :func:`~upsp_tpu_torch.ops.raycast.node_visibility` over
-    the whole mesh with the watertight test (:func:`_recast`).  Only its
-    ownership can change: its pixel and ``u``, ``v`` are the f64
-    projection's.  The recheck is the span ``phase0.walk.recheck``; the
-    counters ``walk.rechecked`` and ``walk.recovered`` take the nodes
-    recast and those it made visible, and the result carries the same
-    readings."""
+
+def _native_rays(flat_bvh, triangles: np.ndarray, vertices: np.ndarray,
+                 normals: np.ndarray, center: np.ndarray, thresh: float,
+                 n_jitter: int, jitter: float) -> NodeRays:
+    """Every node's rays on the native walk from the f64 camera centre
+    ``center``: the ray to the node, then, while no ray has landed on one
+    of the node's triangles, up to ``n_jitter`` jittered ones (only the
+    nodes still missing cast a round's rays), and the oblique test.  K11
+    (``ops/walk_kernels.py``) is its twin on the card.  Counts the rays
+    cast as ``walk.rays.host``."""
     from upsp_tpu_torch import native
 
     n = vertices.shape[0]
-    center = cam_center(params).numpy().astype(np.float64)
-    pix = project_points(
-        params, torch.from_numpy(np.asarray(vertices, np.float64))
-    ).numpy()
-    in_frame = (
-        (pix[:, 0] >= 0) & (pix[:, 0] < width)
-        & (pix[:, 1] >= 0) & (pix[:, 1] < height)
-    )
     d = vertices.astype(np.float64) - center
     dist = np.linalg.norm(d, axis=1, keepdims=True)
     dirs = (d / np.maximum(dist, 1e-30)).astype(np.float32)
@@ -161,6 +153,7 @@ def build_node_projection_host(
     t, prim, hit = native.bvh_intersect(flat_bvh, origins, dirs)
     own = hit & np.any(triangles[np.maximum(prim, 0)] == node_ids[:, None], axis=1)
     settled = hit & (np.abs(t - dist[:, 0]) > SETTLED_REL * dist[:, 0])
+    retries = np.zeros(n, np.uint8)
     offsets = np.array(
         [[-jitter, 0, 0], [jitter, 0, 0], [0, -jitter, 0],
          [0, jitter, 0], [0, 0, -jitter], [0, 0, jitter]], np.float64,
@@ -176,29 +169,103 @@ def build_node_projection_host(
         trik = triangles[np.maximum(prim_k, 0)]
         own[missing] = hit_k & np.any(trik == missing[:, None], axis=1)
         settled[missing] |= hit_k & (np.abs(t_k - norm) > SETTLED_REL * norm)
-
-    thresh = np.cos(np.deg2rad(180.0 - oblique_angle_deg))
+        retries[missing] += 1
+        t[missing], prim[missing] = t_k, prim_k
     forward = np.sum(normals * dirs, axis=-1) < thresh
-    tested = np.asarray(is_datanode, bool) & in_frame & forward
+    timing.count("walk.rays.host", n + int(retries.sum()))
+    return NodeRays(*(torch.from_numpy(a) for a in (own, settled, forward, retries,
+                                                     t, prim)))
+
+
+def _settle(params: CameraParams, flat_bvh, triangles: np.ndarray,
+            vertices: np.ndarray, is_datanode: np.ndarray, pix: torch.Tensor,
+            own: torch.Tensor, settled: torch.Tensor, forward: torch.Tensor,
+            height: int, width: int, n_jitter: int, jitter: float) -> HostWalk:
+    """The rays' tests ((N,) bool tensors on the host) to the projection:
+    the recheck of the tested nodes no ray owned and none settled, then
+    ``visible`` and the pixels of the f64 projection ``pix``."""
+    px, py = pix[:, 0], pix[:, 1]
+    in_frame = (px >= 0) & (px < width) & (py >= 0) & (py < height)
+    tested = torch.from_numpy(np.asarray(is_datanode, bool)) & in_frame & forward
     with timing.timed("phase0.walk.recheck") as clock:
-        (cand,) = np.nonzero(tested & ~own & ~settled)
-        if cand.size:
-            own[cand] = _recast(cand, flat_bvh, triangles, vertices, cam_center(params),
-                                n_jitter, jitter)
+        (cand,) = torch.nonzero(tested & ~own & ~settled, as_tuple=True)
+        if cand.numel():
+            own[cand] = torch.from_numpy(_recast(cand.numpy(), flat_bvh, triangles,
+                                                 vertices, cam_center(params),
+                                                 n_jitter, jitter))
         recovered = int(own[cand].sum())
-    timing.count("walk.rechecked", int(cand.size))
+    timing.count("walk.rechecked", int(cand.numel()))
     timing.count("walk.recovered", recovered)
     visible = tested & own
-    col = np.clip(np.rint(pix[:, 0]), 0, width - 1).astype(np.int64)
-    row = np.clip(np.rint(pix[:, 1]), 0, height - 1).astype(np.int64)
+    col = torch.round(px).clamp(0, width - 1).to(torch.int64)
+    row = torch.round(py).clamp(0, height - 1).to(torch.int64)
+    zero = torch.zeros((), dtype=pix.dtype)
     proj = NodeProjection(
-        pixel_index=torch.from_numpy(np.where(visible, row * width + col, 0)),
-        weight=torch.from_numpy(visible.astype(np.float32)),
-        u=torch.from_numpy(np.where(visible, pix[:, 0] / width, 0).astype(np.float32)),
-        v=torch.from_numpy(np.where(visible, pix[:, 1] / height, 0).astype(np.float32)),
-        visible=torch.from_numpy(visible),
+        pixel_index=torch.where(visible, row * width + col, 0),
+        weight=visible.to(torch.float32),
+        u=torch.where(visible, px / width, zero).to(torch.float32),
+        v=torch.where(visible, py / height, zero).to(torch.float32),
+        visible=visible,
     )
-    return HostWalk(proj, clock.seconds, int(cand.size), recovered)
+    return HostWalk(proj, clock.seconds, int(cand.numel()), recovered)
+
+
+def _oblique_threshold(oblique_angle_deg: float) -> float:
+    """The oblique test's bound on cos(normal, ray) (an f64 scalar)."""
+    return np.cos(np.deg2rad(180.0 - oblique_angle_deg))
+
+
+def build_node_projection_host(
+    params: CameraParams, flat_bvh, triangles: np.ndarray,
+    vertices: np.ndarray, normals: np.ndarray, is_datanode: np.ndarray,
+    oblique_angle_deg: float, height: int, width: int, n_jitter: int = 6,
+    jitter: float = 1e-4,
+) -> HostWalk:
+    """Visibility-tested nearest-pixel assignment for every node: in-frame,
+    the closest hit of the camera->node ray lands on a triangle of the node
+    (6 jittered retries), then the oblique-angle cull
+    (psp_process.cpp:167-355 semantics).  The rays take the native walk
+    (:func:`_native_rays`); :func:`build_node_projection_card` casts the
+    same rays with K11.
+
+    The recheck (the module docstring): a data node in the frame and
+    facing the camera that no native ray owned, and whose native rays hit
+    nothing or hit within ``SETTLED_REL`` of their targets' distance, is
+    recast by :func:`~upsp_tpu_torch.ops.raycast.node_visibility` over
+    the whole mesh with the watertight test (:func:`_recast`).  Only its
+    ownership can change: its pixel and ``u``, ``v`` are the f64
+    projection's.  The recheck is the span ``phase0.walk.recheck``; the
+    counters ``walk.rechecked`` and ``walk.recovered`` take the nodes
+    recast and those it made visible, and the result carries the same
+    readings."""
+    center = cam_center(params).numpy().astype(np.float64)
+    pix = _project64(params, vertices)
+    rays = _native_rays(flat_bvh, triangles, vertices, normals, center,
+                        _oblique_threshold(oblique_angle_deg), n_jitter, jitter)
+    return _settle(params, flat_bvh, triangles, vertices, is_datanode, pix,
+                   rays.own, rays.settled, rays.forward, height, width, n_jitter, jitter)
+
+
+def build_node_projection_card(
+    params: CameraParams, scene: WalkScene, flat_bvh, triangles: np.ndarray,
+    vertices: np.ndarray, is_datanode: np.ndarray, oblique_angle_deg: float,
+    height: int, width: int, n_jitter: int = 6, jitter: float = 1e-4,
+) -> HostWalk:
+    """:func:`build_node_projection_host` with the rays on ``scene``'s
+    device (``ops/walk_kernels.py`` :func:`~upsp_tpu_torch.ops.walk_kernels.walk_nodes`,
+    ``scene`` made by ``upload_scene`` from ``flat_bvh`` and the mesh): K11
+    on the card, its plain twin on the CPU.  K11 runs while the host
+    projects the nodes in f64; one byte a node comes back, and the recheck
+    and the assembly are the host's, so the result is the native route's
+    on every node.  Counts the rays K11 cast as ``walk.rays.card``."""
+    flags = walk_nodes(scene, cam_center(params), _oblique_threshold(oblique_angle_deg),
+                       n_jitter, jitter, SETTLED_REL)
+    pix = _project64(params, vertices)
+    own, settled, forward, retries = decode(flags.cpu().numpy())
+    timing.count("walk.rays.card", scene.n_nodes + int(retries.sum(dtype=np.int64)))
+    return _settle(params, flat_bvh, triangles, vertices, is_datanode, pix,
+                   *(torch.from_numpy(a) for a in (own, settled, forward)), height, width,
+                   n_jitter, jitter)
 
 
 def view_angles_deg(vertices: torch.Tensor, normals: torch.Tensor,

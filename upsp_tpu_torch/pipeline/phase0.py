@@ -3,12 +3,18 @@
 Port of ``upsp_tpu/pipeline/phase0.py``, with its two routes for the
 visibility rays (``run_phase0(walk=)``):
 
-- native: the rays walk the BVH through ``upsp_tpu_torch.native`` (built
-  from ``cpp/``), and the nodes its rays missed without hitting anything
-  away from them are rechecked with the port's watertight test
-  (``projection.build_node_projection_host``);
-  the camera model and projections are host torch/numpy (f64 projection),
-  and the finished state is moved to ``device``;
+- native: the rays are the native walk's over the flat BVH that
+  ``upsp_tpu_torch.native`` (built from ``cpp/``) builds, and the nodes its
+  rays missed without hitting anything away from them are rechecked with
+  the port's watertight test; the camera model and projections are host
+  torch/numpy (f64 projection), and the finished state is moved to
+  ``device``.  Where the rays are cast follows ``device``: on a CUDA
+  device K11 casts them (``ops/walk_kernels.py``; the flat BVH and the mesh
+  go to the card once, shared by the cameras) while the host projects, bit
+  for bit with the native library
+  (``projection.build_node_projection_card``); on the CPU the native
+  library casts them (``projection.build_node_projection_host``).  The
+  recheck and the assembly are the host's either way;
 - device: the BVH goes to ``device`` (``ops/raycast.bvh_to_device``) and
   the projections, the walks, the weights and the skip mask are computed
   there (``projection.build_node_projection``, f32 projection, as the JAX
@@ -53,10 +59,12 @@ from upsp_tpu_torch.ops.projection import (
     NodeProjection,
     adjust_projection_for_weights,
     build_node_projection,
+    build_node_projection_card,
     build_node_projection_host,
     identify_skipped_nodes,
 )
 from upsp_tpu_torch.ops.raycast import BVHArrays, bvh_intersect, bvh_to_device
+from upsp_tpu_torch.ops.walk_kernels import upload_scene
 from upsp_tpu_torch.utils import timing
 
 log = logging.getLogger("upsp_tpu")
@@ -300,7 +308,8 @@ def run_phase0(
     """Build the phase-0 state from the config and per-camera first frames,
     its tensors on ``device`` (the card unless the caller asks for the
     CPU).  ``walk``: "native", "device" or "auto" (the module docstring);
-    "native" raises when the library cannot be built.  ``stage_times``,
+    "native" raises when the library cannot be built, and casts its rays
+    with K11 when ``device`` is a CUDA device.  ``stage_times``,
     when a dict, receives the walk's readings over all cameras, as its
     spans and counters take them: ``phase0.walk`` and
     ``phase0.walk_recheck`` (seconds) and ``phase0.walk_rechecked`` (the
@@ -312,8 +321,10 @@ def run_phase0(
         native_library()
     elif walk == "auto":
         walk = "device" if native_or_none() is None else "native"
+    card = walk == "native" and device.type == "cuda"
     log.warning("phase 0: visibility rays take the %s walk%s", walk,
-                f" on {device}" if walk == "device" else "")
+                f" on {device}" if walk == "device" else
+                f" (K11 on {device})" if card else "")
     H, W = first_frames[0].shape
     image_hw = (H, W)
     bit_depths = bit_depths or [12] * len(first_frames)
@@ -346,6 +357,7 @@ def run_phase0(
                         normals=model.normals, is_datanode=model.is_datanode)
 
     walk_s, recheck_s, rechecked = 0.0, 0.0, 0
+    scene = None  # K11's copy of the BVH and the mesh (the first camera's walk)
     cam_params: List[CameraParams] = []
     raw_projs: List[NodeProjection] = []
     patch_ops: List[Optional[PatchOperator]] = []
@@ -361,9 +373,18 @@ def run_phase0(
                     params, bvh_dev, oblique_angle_deg=cfg.oblique_angle, height=H,
                     width=W, max_leaf=max_leaf, **mesh))
             else:
-                host = build_node_projection_host(
-                    params, bvh, oblique_angle_deg=cfg.oblique_angle, height=H,
-                    width=W, **mesh)
+                if card and scene is None:
+                    scene = upload_scene(bvh, model.triangles, model.vertices,
+                                         model.normals, device)
+                if card:
+                    host = build_node_projection_card(
+                        params, scene, bvh, mesh["triangles"], mesh["vertices"],
+                        mesh["is_datanode"], oblique_angle_deg=cfg.oblique_angle,
+                        height=H, width=W)
+                else:
+                    host = build_node_projection_host(
+                        params, bvh, oblique_angle_deg=cfg.oblique_angle, height=H,
+                        width=W, **mesh)
                 raw_projs.append(host.projection)
                 recheck_s += host.recheck_s
                 rechecked += host.rechecked
