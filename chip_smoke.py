@@ -61,9 +61,11 @@ From the root of a checkout, on a machine with a CUDA device:
    uses polynomial patches, gaussian 3, best view and, but (g) and (h),
    the fft warm start;
    right after (b), on its files and outputs, in this process:
-   (m) ``run_phase0(walk="device")`` against ``walk="native"`` (its
-       rays on K11, once a camera), each timed, then ``walk="native"`` on
-       the CPU (the host's rays): every field of K11's route equal to the
+   (m) ``run_phase0`` on the device walk (the library's loader made to
+       report it missing, as the tests do; the flat BVH still builds
+       natively) against the native walk (its rays on K11, once a camera),
+       each timed, then the native walk on the CPU (the host's rays):
+       every field of K11's route equal to the
        host's on every node, both walks' seconds and nodes rechecked;
        visible masks and best-view weights equal on every node
        (the native route's recheck recovers the plate-edge nodes its rays
@@ -412,8 +414,8 @@ DEVICE = "cuda"
 # written, K1/K2 before their own redesign, on 8 frames of each of
 # ECC_SHAPES; K5/K6 before their redesign, at the full configuration's shapes;
 # K9 as first written, on 8 frames of each of ECC_SHAPES, 1024x1024 from
-# ``upsp_tpu_torch/tools/k9_sweep.py --tree`` on that commit, the mean of
-# two runs), printed beside this run's ``ms`` and kept out of the kernels
+# a sweep of that commit's K9 by a tool since removed, the mean of two
+# runs), printed beside this run's ``ms`` and kept out of the kernels
 # line
 PREV_MS = {"moments": (0.1356, 0.2357), "moments_bf16": (0.1224, 0.2481),
            "warp_filter": (0.1645, 0.3355), "warp_filter_bf16": (0.1642, 0.3349),
@@ -1073,6 +1075,7 @@ def walk_rig():
     from upsp_tpu_torch.camera.model import make_camera_params
     from upsp_tpu_torch.geometry.grids import load_model
     from upsp_tpu_torch.io.camera_json import read_camera_json
+    from upsp_tpu_torch import native
     from upsp_tpu_torch.pipeline import phase0 as P0
     from upsp_tpu_torch.pipeline.config import read_input_deck
     from upsp_tpu_torch.pipeline.synthetic import write_datapoint
@@ -1082,7 +1085,7 @@ def walk_rig():
                          grid_shape=FULL["grid_shape"])
     cfg = read_input_deck(dp["deck"])
     model = load_model(cfg.grid, tolerance=cfg.grid_tol)
-    P0.native_library()
+    native.native_library()
     params = []
     for cam in cfg.cameras:
         cal = read_camera_json(cam.calibration, dims_hw=(FULL_H, FULL_W))
@@ -1852,7 +1855,7 @@ def calibration_path():
     from upsp_tpu_torch.io.camera_json import read_camera_json
     from upsp_tpu_torch.ops import cuda_lib
     from upsp_tpu_torch.ops import raycast as R
-    from upsp_tpu_torch.pipeline.phase0 import native_library
+    from upsp_tpu_torch.native import native_library
     from upsp_tpu_torch.pipeline.synthetic import (
         target_positions, write_calibration_inputs, write_datapoint)
 
@@ -2012,10 +2015,12 @@ def nccl_path():
 
 
 def device_phase0_path(dp):
-    """Path (m): ``run_phase0(walk="device")`` against ``walk="native"`` on
-    (b)'s files, each timed (on the card the native walk's rays are K11's,
-    so the pair launches K11 once a camera); then ``walk="native"`` on the
-    CPU, the host's rays: every ``NodeProjection`` field and the skip mask
+    """Path (m): ``run_phase0`` on the device walk (``native.native_library``
+    made to raise, so ``ops/projection.py`` ``NodeWalk`` finds no library;
+    the loaded library still builds the flat BVH) against the native walk
+    on (b)'s files, each timed (on the card the native walk's rays are
+    K11's, so the pair launches K11 once a camera); then the native walk
+    on the CPU, the host's rays: every ``NodeProjection`` field and the skip mask
     equal to K11's route on every node, the walk's seconds and nodes
     rechecked of both.  Per camera ``visible`` and the best-view
     ``weight`` equal on every node, ``pixel_index`` only where the f32 and
@@ -2031,6 +2036,7 @@ def device_phase0_path(dp):
     import numpy as np
     import torch
 
+    from upsp_tpu_torch import native
     from upsp_tpu_torch.camera.model import CameraParams, project_points
     from upsp_tpu_torch.ops import cuda_lib
     from upsp_tpu_torch.ops.node_pixel_mapping import keyframe_mapping, remap_error_bound
@@ -2049,22 +2055,29 @@ def device_phase0_path(dp):
     finally:
         for r in readers:
             r.close()
+    def missing():
+        raise RuntimeError("the native library is made unavailable for the device walk")
+
     cuda_lib.reset_launch_counts()
     sec, st, times = {}, {}, {}
+    loader = native.native_library
     for walk in ("device", "native"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         times[walk] = {}
-        st[walk] = run_phase0(cfg, first, bits, device=DEVICE, walk=walk,
-                              stage_times=times[walk])
+        native.native_library = missing if walk == "device" else loader
+        try:
+            st[walk] = run_phase0(cfg, first, bits, device=DEVICE,
+                                  stage_times=times[walk])
+        finally:
+            native.native_library = loader
         torch.cuda.synchronize()
         sec[walk] = time.perf_counter() - t0
     counts = cuda_lib.launch_counts()
     # the native walk's rays on the host, as on the CPU: K11's must equal them
     times["host"] = {}
     t0 = time.perf_counter()
-    host = run_phase0(cfg, first, bits, device="cpu", walk="native",
-                      stage_times=times["host"])
+    host = run_phase0(cfg, first, bits, device="cpu", stage_times=times["host"])
     sec["host"] = time.perf_counter() - t0
     dev, nat = st["device"], st["native"]
     k11_t, host_t = times["native"], times["host"]

@@ -30,6 +30,7 @@ from upsp_tpu.camera.visibility import VisibilityChecker as JVis
 from upsp_tpu.geometry.grids import load_model as j_load_model
 from upsp_tpu.io import read_test_config as j_read_test_config
 from upsp_tpu.io import read_tgts as j_read_tgts
+from upsp_tpu_torch import native
 from upsp_tpu_torch.camera import external as TE
 from upsp_tpu_torch.camera.visibility import VisibilityChecker as TVis
 from upsp_tpu_torch.geometry.grids import load_model
@@ -158,7 +159,17 @@ def test_cli_needs_cuda_unless_cpu(case):
         TVis(None, debug_nogrid=True)
 
 
-def test_visibility_walks_and_bumping(case):
+def _no_library(mp):
+    """The JAX package's rule without the library: none loaded, none to be
+    built."""
+    def fail():
+        raise RuntimeError("the native BVH library is missing and cannot be built")
+
+    mp.setattr(native, "native_library", fail)
+    mp.setattr(native, "_LIB", None)
+
+
+def test_visibility_walks_and_bumping(case, monkeypatch):
     """The checker's native and device walks agree on the targets; its incal
     filter and orientation helpers equal the JAX checker's; target bumping
     pushes a target sunk under the plate back above it and rewrites the
@@ -171,16 +182,19 @@ def test_visibility_walks_and_bumping(case):
     tgts = TE.targets_to_dicts(read_tgts(f"{root}/plate.tgts"))
     true = read_camera_json(case["cams"][0], HW)
     seen = {}
-    vis = TVis(model, 70.0, epsilon=1e-4, device="cpu")
     for walk in ("native", "device"):
-        if walk == "device":
-            vis._native = None  # the JAX package's rule without the library
+        with monkeypatch.context() as mp:
+            if walk == "device":
+                _no_library(mp)
+            vis = TVis(model, 70.0, epsilon=1e-4, device="cpu")
         assert vis.walk == walk
         seen[walk] = [t["name"] for t in TE.get_visible_targets(true.rmat, true.tvec,
                                                                tgts, vis)]
     assert seen["native"] == seen["device"] and len(seen["native"]) == 12
-    nogrid = TVis(None, debug_nogrid=True, device="cpu")
-    nogrid._native = None
+    with monkeypatch.context() as mp:
+        _no_library(mp)
+        nogrid = TVis(None, debug_nogrid=True, device="cpu")
+    assert nogrid.walk == "device"
     assert nogrid.is_visible(np.array([5.0, 4.0, 20.0]), np.zeros((3, 3)),
                              np.tile([0, 0, 1.0], (3, 1))).tolist() == [0, 1, 2]
     # the incal filter and the orientation helpers against the JAX checker's

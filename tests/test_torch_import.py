@@ -288,16 +288,23 @@ def test_every_script_has_a_port_twin():
                       "upsp-vv-compare", "upsp-xyz-scalar-to-tbl"]
 
 
-def _import_roots(path):
+def _imported_modules(path):
+    """Every module an import statement of ``path`` names, function-level
+    ones included (``from a import b`` names ``a`` and ``a.b``)."""
     with open(os.path.join(REPO, path)) as fh:
         tree = ast.parse(fh.read())
-    roots = set()
+    names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            roots.update(a.name.split(".")[0] for a in node.names)
+            names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            roots.add(node.module.split(".")[0])
-    return roots
+            names.add(node.module)
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def _import_roots(path):
+    return {name.split(".")[0] for name in _imported_modules(path)}
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -312,6 +319,16 @@ def test_port_source_imports_no_jax_package(path):
     """Every import statement of the port, its CLI and chip_smoke.py,
     function-level ones included."""
     assert not _import_roots(path) & {"jax", "jaxlib", "upsp_tpu"}
+
+
+@pytest.mark.parametrize("path", [p for p in PORT_SOURCES if p.startswith(
+    ("upsp_tpu_torch/ops/", "upsp_tpu_torch/camera/"))])
+def test_ops_and_camera_import_no_pipeline(path):
+    """``ops/`` and ``camera/`` sit below the pipeline: no import of theirs,
+    function-level ones included, names ``upsp_tpu_torch.pipeline``."""
+    up = {m for m in _imported_modules(path) if m == "upsp_tpu_torch.pipeline"
+          or m.startswith("upsp_tpu_torch.pipeline.")}
+    assert not up, up
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
 """Phase 0 on the device walk: ``projection.build_node_projection`` and
-``run_phase0(walk="device")`` against the JAX package's device route, and
-against the port's native route.
+``run_phase0`` without the native library against the JAX package's
+device route, and against the port's native route.
 
 The JAX functions run in a subprocess whose XLA may not use FMA
 instructions (``--xla_cpu_max_isa=AVX``), as tests/test_torch_raycast.py
@@ -241,7 +241,7 @@ def test_build_node_projection_matches_jax(scene, device_projections, cam):
 def test_build_node_projection_against_native_walk(scene, device_projections):
     """The device route against ``build_node_projection_host`` (native
     walk, f64 projection) on the same scene."""
-    native = P0.native_library()
+    native = t_native.native_library()
     flat = native.build_bvh(scene["verts"], scene["tris"])
     model = scene["model"]
     for cam in range(len(CAMERAS)):
@@ -310,7 +310,7 @@ def _unbuildable(monkeypatch):
     def fail():
         raise RuntimeError("the native BVH library is missing and cannot be built")
 
-    monkeypatch.setattr(P0, "native_library", fail)
+    monkeypatch.setattr(t_native, "native_library", fail)
     monkeypatch.setattr(t_native, "_LIB", None)
 
 
@@ -348,12 +348,14 @@ def test_run_phase0_device_route_matches_jax(scene, monkeypatch, caplog):
     assert moved.bvh_dev is not None and torch.equal(moved.bvh_dev.escape, st.bvh_dev.escape)
 
 
-def test_run_phase0_device_walk_against_native(scene):
-    """``walk="device"`` against ``walk="native"`` (the default with the
-    library present) on the same datapoint."""
+def test_run_phase0_device_walk_against_native(scene, monkeypatch):
+    """The device walk (the library unbuildable) against the native walk
+    (the library present) on the same datapoint."""
     cfg = read_input_deck(str(scene["deck"]))
     first = list(scene["first"])
-    dev = P0.run_phase0(cfg, first, [12] * len(first), device="cpu", walk="device")
+    with monkeypatch.context() as mp:
+        _unbuildable(mp)
+        dev = P0.run_phase0(cfg, first, [12] * len(first), device="cpu")
     nat = P0.run_phase0(cfg, first, [12] * len(first), device="cpu")
     assert dev.bvh_dev is not None and nat.bvh_dev is None
     for d, n in zip(dev.projections, nat.projections):
@@ -373,8 +375,6 @@ def test_run_phase0_device_walk_against_native(scene):
             np.testing.assert_array_equal(a.boundary_idx.numpy(), b.boundary_idx.numpy())
             np.testing.assert_array_equal(a.M.numpy(), b.M.numpy())
     np.testing.assert_array_equal(dev.ref_frames.numpy(), nat.ref_frames.numpy())
-    with pytest.raises(ValueError, match="walk"):
-        P0.run_phase0(cfg, first, device="cpu", walk="gpu")
 
 
 @pytest.mark.parametrize("overlap", ["best_view", "average_views"])

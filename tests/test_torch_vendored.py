@@ -234,7 +234,7 @@ def _comps(_dp, tmp):
 
 
 def _native_bvh(dp, _tmp):
-    from upsp_tpu_torch.pipeline.phase0 import native_library
+    from upsp_tpu_torch.native import native_library
 
     t_native = native_library()  # builds cpp/ with make when missing
     jn = importlib.reload(j_native)
@@ -257,7 +257,7 @@ def _transpose(_dp, tmp):
     """The flat-file transpose, native and numpy, on a shape that its blocks
     do not divide, against the original, byte for byte."""
     from upsp_tpu_torch import native as t_native
-    from upsp_tpu_torch.pipeline.phase0 import native_library
+    from upsp_tpu_torch.native import native_library
 
     native_library()
     jn = importlib.reload(j_native)
@@ -284,7 +284,7 @@ def _async_writer(_dp, tmp):
     each submit, give the original writer's file; so does the synchronous
     writer the port uses without the library."""
     from upsp_tpu_torch import native as t_native
-    from upsp_tpu_torch.pipeline.phase0 import native_library
+    from upsp_tpu_torch.native import native_library
 
     native_library()
     jn = importlib.reload(j_native)

@@ -39,6 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from benchmark import datapoint as D  # noqa: E402
 from test_torch_phase0_device import CAMERAS, H, W, _look_at, _mesh  # noqa: E402
 from test_torch_walk_recheck import CINE_HW, GRID, HW, MISSED, OBLIQUE, _camera  # noqa: E402
+from upsp_tpu_torch import native as t_native  # noqa: E402
 from upsp_tpu_torch.camera.model import cam_center, make_camera_params  # noqa: E402
 from upsp_tpu_torch.geometry.grids import load_model  # noqa: E402
 from upsp_tpu_torch.ops import cuda_lib  # noqa: E402
@@ -73,7 +74,7 @@ def plate_rig(root, hw, n_cameras, grid=GRID):
     ``hw`` frames, the flat BVH as ``run_phase0`` builds it."""
     D.write_plate_grid(os.path.join(root, "plate.grid"), grid)
     model = load_model(os.path.join(root, "plate.grid"))
-    P0.native_library()
+    t_native.native_library()
     return dict(model=model, flat=P0._build_bvh(model, 4),
                 params=[_camera(root, c, hw) for c in range(n_cameras)], hw=hw,
                 datanode=model.is_datanode)
@@ -90,7 +91,7 @@ def occluded_rig():
         params.append(make_camera_params(
             R, t, K, np.array([0.01, -0.002, 0.0005, -0.0003, 0.0]), dtype=torch.float32))
     return dict(model=model, params=params, hw=(H, W), datanode=datanode,
-                flat=P0.native_library().build_bvh(model.vertices, model.triangles))
+                flat=t_native.native_library().build_bvh(model.vertices, model.triangles))
 
 
 RIGS = {"plate": lambda root: plate_rig(root, HW, len(D.CAM_X)),
@@ -247,7 +248,7 @@ def test_cpu_route_casts_on_the_native_library(tmp_path):
     first = [dp["frames"][0, c] for c in range(dp["frames"].shape[1])]
     before = cuda_lib.launch_counts()["walk"]
     with timing.recording() as rec:
-        st = P0.run_phase0(cfg, first, [12] * len(first), device="cpu", walk="native")
+        st = P0.run_phase0(cfg, first, [12] * len(first), device="cpu")
     n, cams = st.n_nodes, st.n_cameras
     rays = rec.counter("walk.rays.host", None)
     assert n * cams <= rays <= n * cams * (1 + N_JITTER)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from benchmark import datapoint as D
+from upsp_tpu_torch import native as t_native
 from upsp_tpu_torch.camera.model import cam_center, make_camera_params
 from upsp_tpu_torch.geometry.grids import load_model
 from upsp_tpu_torch.io.camera_json import read_camera_json
@@ -67,7 +68,7 @@ def _camera(root, c, hw=HW):
 def _build_rig(root, hw, n_cameras):
     D.write_plate_grid(os.path.join(root, "plate.grid"), GRID)
     model = load_model(os.path.join(root, "plate.grid"))
-    P0.native_library()
+    t_native.native_library()
     flat = P0._build_bvh(model, 4)
     params = [_camera(root, c, hw) for c in range(n_cameras)]
     mesh = dict(triangles=model.triangles, vertices=model.vertices,
@@ -118,7 +119,7 @@ def test_native_rays_miss_the_plate_edge_node(rig):
         [0, 3, 1, 4, 2, 5]]])
     d = rig["model"].vertices[node].astype(np.float64) + offsets - center
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    _, prim, hit = P0.native_library().bvh_intersect(
+    _, prim, hit = t_native.native_library().bvh_intersect(
         rig["flat"], np.broadcast_to(center.astype(np.float32), d.shape), d)
     assert not hit.any() and (prim == -1).all()
     assert bool(rig["device"][cam - 1].visible[node])
@@ -186,13 +187,13 @@ def occluded():
         cams.append(make_camera_params(R, t, K, np.array([0.01, -0.002, 0.0005, -0.0003, 0.0]),
                                        dtype=torch.float32))
     return dict(model=model, datanode=datanode, cams=cams, hw=(H, W),
-                flat=P0.native_library().build_bvh(model.vertices, model.triangles))
+                flat=t_native.native_library().build_bvh(model.vertices, model.triangles))
 
 
 def _shown_occluded(flat, model, params, jitter=1e-4):
     """(N,) bool: some native ray of the node, unjittered or jittered, hits
     a triangle nearer than (1 - SETTLED_REL) of its target's distance."""
-    native = P0.native_library()
+    native = t_native.native_library()
     center = cam_center(params).numpy().astype(np.float64)
     out = np.zeros(model.size, bool)
     for off in np.vstack([np.zeros(3), jitter * np.vstack([-np.eye(3), np.eye(3)])[

@@ -5,12 +5,12 @@ python/upsp/cam_cal_utils/visibility.py:17-560): back-face cull by the
 sign-preserving cos^2 inequality (no arccos), occlusion rays from
 epsilon-offset origins toward the camera.  The orientation math is host
 numpy in f64, as in the JAX package.  Occlusion keeps the JAX package's
-rule: the native host walk (``upsp_tpu_torch.native``, built from ``cpp/``
-by ``pipeline.phase0.native_library``) when that library is there, else the
-device walk of ``ops/raycast.py``, on f32 rays.  The reference prefers the
-native walk at scale ("compiles poorly on TPU",
-``upsp_tpu/pipeline/phase0.py:302-303``); which walk a checker takes is
-logged once.
+rule (``ops/projection.py`` ``target_walk``): the native host walk
+(``upsp_tpu_torch.native``, built from ``cpp/`` by its ``native_library``)
+when that library is there, else the device walk of ``ops/raycast.py``, on
+f32 rays.  The reference prefers the native walk at scale ("compiles
+poorly on TPU", ``upsp_tpu/pipeline/phase0.py:302-303``); which walk a
+checker takes is logged once.
 """
 
 from __future__ import annotations
@@ -20,9 +20,12 @@ import logging
 import numpy as np
 import torch
 
+from upsp_tpu_torch import native
 from upsp_tpu_torch.geometry.bvh import FlatBVH
 from upsp_tpu_torch.geometry.grids import SurfaceModel, load_model
-from upsp_tpu_torch.ops.raycast import BVHArrays, bvh_intersect, bvh_to_device
+from upsp_tpu_torch.ops.projection import target_walk
+from upsp_tpu_torch.ops.raycast import BVHArrays, bvh_to_device
+from upsp_tpu_torch.parallel.mesh import resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -42,19 +45,13 @@ class VisibilityChecker:
         debug_nogrid: bool = False,
         device="cuda",
     ):
-        from upsp_tpu_torch.pipeline.run import resolve_device
-
         self.device = resolve_device(device)
         self.oblique_angle = float(oblique_angle)
         self.epsilon = float(epsilon)
         self.update_oblique_angle(oblique_angle)
-        from upsp_tpu_torch.pipeline.phase0 import native_or_none
-
-        self._native = native_or_none()
-        # native when the library is loaded, numpy otherwise (as the JAX
-        # package builds it)
-        from upsp_tpu_torch.native import build_bvh
-
+        # the library loaded (or built) first, so that the BVH builds
+        # natively; numpy builds it without the library, as the JAX package
+        native.native_or_none()
         if debug_nogrid:
             # single far-away micro-triangle: occlusion tests always pass
             verts = np.array(
@@ -62,20 +59,22 @@ class VisibilityChecker:
             )
             tris = np.array([[0, 1, 2]], np.int32)
             self.model = None
-            self._bvh = build_bvh(verts, tris)
+            self._bvh = native.build_bvh(verts, tris)
         else:
             if isinstance(model_or_path, SurfaceModel):
                 self.model = model_or_path
             else:
                 self.model = load_model(str(model_or_path))
-            self._bvh = build_bvh(self.model.vertices, self.model.triangles)
+            self._bvh = native.build_bvh(self.model.vertices, self.model.triangles)
         self._bvh_dev = bvh_to_device(self._bvh, device=self.device)
+        self._walk = target_walk(self._bvh, self._bvh_dev, self.device,
+                                        max_leaf=self._bvh.max_leaf_count)
         log.info("visibility occlusion rays take the %s walk%s", self.walk,
-                 "" if self._native is not None else f" on {self.device}")
+                 "" if self.walk == "native" else f" on {self.device}")
 
     @property
     def walk(self) -> str:
-        return "device" if self._native is None else "native"
+        return self._walk.name
 
     @property
     def bvh(self) -> FlatBVH:
@@ -113,19 +112,9 @@ class VisibilityChecker:
         """Batched any-hit query; True where the ray strikes the mesh."""
         origins = np.atleast_2d(origins)
         directions = np.atleast_2d(directions)
-        if self._native is not None:
-            _, _, hit = self._native.bvh_intersect(
-                self._bvh,
-                origins.astype(np.float32),
-                directions.astype(np.float32),
-            )
-            return hit
-        _, _, hit = bvh_intersect(
-            self._bvh_dev,
+        _, _, hit = self._walk.intersect(
             torch.as_tensor(origins).to(torch.float32),
-            torch.as_tensor(directions).to(torch.float32),
-            max_leaf=self._bvh.max_leaf_count,
-        )
+            torch.as_tensor(directions).to(torch.float32))
         return hit.cpu().numpy()
 
     def is_visible(

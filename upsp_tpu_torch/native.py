@@ -6,9 +6,11 @@ library is absent, so the package never *requires* a compiler.  Build with::
     make -C cpp
 
 A copy of ``upsp_tpu/native.py`` (the port imports nothing of the JAX
-package).  The flat-file transpose runs a numpy blocked transpose when
-the library is absent (logged) or the file has fewer rows than a native
-block; without the library the async writer writes synchronously (logged).
+package).  :func:`native_library` builds the library with make when it is
+missing.  The flat-file transpose runs a numpy blocked transpose when the
+library is absent (logged), the file has fewer rows than a native block,
+or a rank transposes only its columns; without the library the async
+writer writes synchronously (logged).
 """
 
 from __future__ import annotations
@@ -16,17 +18,19 @@ from __future__ import annotations
 import ctypes
 import logging
 import os
+import subprocess
+import sys
 from typing import Optional
 
 import numpy as np
 
+from upsp_tpu_torch.utils import timing
+
 log = logging.getLogger("upsp_tpu")
 
-_LIB_PATHS = (
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 "cpp", "libupsp_native.so"),
-    "libupsp_native.so",
-)
+_CPP_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "cpp")
+_LIB_PATHS = (os.path.join(_CPP_DIR, "libupsp_native.so"), "libupsp_native.so")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -75,6 +79,40 @@ _LIB = _load()
 
 def available() -> bool:
     return _LIB is not None
+
+
+_BUILD_ERROR = None  # why make did not build the library (it is not tried again)
+
+
+def native_library():
+    """This module with its library loaded: builds ``cpp/`` with make when
+    the shared library is missing, and raises naming it if that fails (a
+    failed build is not tried again)."""
+    global _LIB, _BUILD_ERROR
+    if _LIB is None and _BUILD_ERROR is None:
+        log.info("native BVH library missing; building it with make -C %s", _CPP_DIR)
+        proc = subprocess.run(["make", "-C", _CPP_DIR], capture_output=True, text=True)
+        _LIB = _load()
+        timing.count("kernel_builds")
+        if proc.returncode != 0 or _LIB is None:
+            _BUILD_ERROR = (
+                f"the native BVH library {_CPP_DIR}/libupsp_native.so is missing "
+                f"and `make -C {_CPP_DIR}` did not build it:\n{proc.stdout}\n"
+                f"{proc.stderr}")
+            raise RuntimeError(_BUILD_ERROR)
+    if _LIB is None:
+        raise RuntimeError(_BUILD_ERROR)
+    return sys.modules[__name__]
+
+
+def native_or_none():
+    """:func:`native_library`, or None (the reason logged) when the library
+    cannot be built."""
+    try:
+        return native_library()
+    except RuntimeError as e:
+        log.warning("%s", e)
+        return None
 
 
 def unpack_12bpp(buf) -> np.ndarray:
@@ -197,13 +235,19 @@ def bvh_intersect(flat, origins: np.ndarray, directions: np.ndarray):
     return out_t, out_prim, hit
 
 
-def transpose_f32(src: str, dst: str, rows: int, cols: int, block: int = 2048):
+def transpose_f32(src: str, dst: str, rows: int, cols: int, block: int = 2048,
+                  columns=None):
     """Blocked transpose of a (rows, cols) float32 flat file into a
     (cols, rows) one: native when available and ``rows >= block``, else
     numpy.  The native loop writes each destination row of a block with
     its own call, ``min(rows, block) * 4`` bytes; with fewer rows than a
     block those writes are short and the numpy transpose, which writes
-    whole destination rows at once, is the faster (PERF.md section 6)."""
+    whole destination rows at once, is the faster (PERF.md section 6).
+    ``columns`` = (c0, c1), a rank's block of the source columns, goes to
+    :func:`transpose_f32_numpy` unless it is every column."""
+    if columns is not None and tuple(columns) != (0, cols):
+        transpose_f32_numpy(src, dst, rows, cols, columns=columns)
+        return
     if _LIB is None:
         log.info("native library unavailable: numpy flat-file transpose")
     if _LIB is None or rows < block:

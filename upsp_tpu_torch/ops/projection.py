@@ -2,7 +2,11 @@
 
 Port of ``upsp_tpu/ops/projection.py``.  Each camera carries, per node, a
 flat pixel index and a weight; a frame projects by one gather and a
-multiply.  Visibility is built one of two ways, as in the JAX package:
+multiply.  :class:`NodeWalk` chooses among the three projection
+functions below, and :func:`target_walk` the walk of the target rays,
+each by the JAX package's rule (the native walk when the library loads
+or builds).
+Visibility is built one of two ways, as in the JAX package:
 :func:`build_node_projection_host` casts the native walker's rays
 (``upsp_tpu_torch.native``, built from ``cpp/``) and projects in f64 on the
 host; :func:`build_node_projection` runs on the device of its tensors,
@@ -30,16 +34,22 @@ inside).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+import logging
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from upsp_tpu_torch import native
 from upsp_tpu_torch.camera.model import CameraParams, cam_center, project_points
 from upsp_tpu_torch.ops.raycast import (
-    BVHArrays, flat_intersector, node_visibility, oblique_cos_filter)
-from upsp_tpu_torch.ops.walk_kernels import NodeRays, WalkScene, decode, walk_nodes
+    BVHArrays, Intersector, bvh_intersect, bvh_to_device, flat_intersector,
+    native_intersector, node_visibility, oblique_cos_filter)
+from upsp_tpu_torch.ops.walk_kernels import (
+    NodeRays, WalkScene, decode, upload_scene, walk_nodes)
 from upsp_tpu_torch.utils import timing
+
+log = logging.getLogger("upsp_tpu")
 
 # a native hit farther than this x the distance from the ray's target
 # (nearer: an occluder; beyond: the ray passed the node) settles the node,
@@ -141,8 +151,6 @@ def _native_rays(flat_bvh, triangles: np.ndarray, vertices: np.ndarray,
     nodes still missing cast a round's rays), and the oblique test.  K11
     (``ops/walk_kernels.py``) is its twin on the card.  Counts the rays
     cast as ``walk.rays.host``."""
-    from upsp_tpu_torch import native
-
     n = vertices.shape[0]
     d = vertices.astype(np.float64) - center
     dist = np.linalg.norm(d, axis=1, keepdims=True)
@@ -266,6 +274,98 @@ def build_node_projection_card(
     return _settle(params, flat_bvh, triangles, vertices, is_datanode, pix,
                    *(torch.from_numpy(a) for a in (own, settled, forward)), height, width,
                    n_jitter, jitter)
+
+
+class NodeWalk:
+    """Phase 0's walk of every node's visibility rays, chosen once from
+    what the process has (the route logged):
+
+    - the native library and a CUDA ``device``: K11 casts the rays
+      (:func:`build_node_projection_card`); the flat BVH and the mesh go
+      to the card at the first camera's walk, shared by the cameras;
+    - the native library on the CPU: the library casts them
+      (:func:`build_node_projection_host`);
+    - no library: the device walk over :attr:`bvh_dev` on ``device``
+      (:func:`build_node_projection`, an f32 projection), which rechecks
+      no node.
+
+    The native routes project in f64 on the host and leave their
+    projections there (:attr:`where`).  :meth:`load` takes the flat BVH
+    and the model, :meth:`project` walks one camera."""
+
+    def __init__(self, device, max_leaf: int = 4):
+        self.device = torch.device(device)
+        self.max_leaf = max_leaf
+        self.native = native.native_or_none() is not None
+        self.card = self.native and self.device.type == "cuda"
+        self.flat_bvh = None  # the native walk's (None on the device walk)
+        self.bvh_dev: Optional[BVHArrays] = None  # the device walk's
+        self._model = self._scene = self._mesh = None
+        log.warning("phase 0: visibility rays take the %s walk%s",
+                    "native" if self.native else "device",
+                    f" (K11 on {self.device})" if self.card else
+                    "" if self.native else f" on {self.device}")
+
+    @property
+    def where(self) -> torch.device:
+        """Where :meth:`project`'s projections are."""
+        return torch.device("cpu") if self.native else self.device
+
+    def load(self, flat_bvh, model) -> None:
+        """The flat BVH and the model (``geometry.grids.SurfaceModel``)
+        to walk; the device walk copies them to ``device``."""
+        if self.native:
+            self.flat_bvh, self._model = flat_bvh, model
+            return
+        self.bvh_dev = bvh_to_device(flat_bvh, device=self.device)
+        self._mesh = {k: torch.from_numpy(np.asarray(getattr(model, k), dt)).to(self.device)
+                      for k, dt in (("triangles", np.int64), ("vertices", None),
+                                    ("normals", None), ("is_datanode", bool))}
+
+    def project(self, params: CameraParams, oblique_angle_deg: float, height: int,
+                width: int) -> HostWalk:
+        """One camera's projection and its recheck's readings."""
+        if not self.native:
+            return HostWalk(build_node_projection(
+                params, self.bvh_dev, oblique_angle_deg=oblique_angle_deg,
+                height=height, width=width, max_leaf=self.max_leaf, **self._mesh), 0.0, 0, 0)
+        m = self._model
+        if not self.card:
+            return build_node_projection_host(
+                params, self.flat_bvh, m.triangles, m.vertices, m.normals, m.is_datanode,
+                oblique_angle_deg=oblique_angle_deg, height=height, width=width)
+        if self._scene is None:
+            self._scene = upload_scene(self.flat_bvh, m.triangles, m.vertices, m.normals,
+                                       self.device)
+        return build_node_projection_card(
+            params, self._scene, self.flat_bvh, m.triangles, m.vertices, m.is_datanode,
+            oblique_angle_deg=oblique_angle_deg, height=height, width=width)
+
+
+class TargetWalk(NamedTuple):
+    """:func:`target_walk`'s walk."""
+
+    name: str  # "native" or "device"
+    intersect: Intersector
+
+
+def target_walk(flat_bvh, bvh_dev: Optional[BVHArrays], device,
+                       max_leaf: int = 4) -> TargetWalk:
+    """The walk of target and occlusion rays: the native host walk over
+    ``flat_bvh`` when it is given and the library loads, else the device
+    walk over ``bvh_dev`` (made from ``flat_bvh`` on ``device`` when
+    None).  Its ``intersect``: rays in, (t, prim, hit) tensors out, on the
+    rays' device for the native walk and on ``bvh_dev``'s for the device
+    walk."""
+    if flat_bvh is not None and native.native_or_none() is not None:
+        return TargetWalk("native", native_intersector(flat_bvh))
+    if bvh_dev is None:
+        bvh_dev = bvh_to_device(flat_bvh, device=device)
+
+    def walk(origins, directions):
+        return bvh_intersect(bvh_dev, origins, directions, max_leaf=max_leaf)
+
+    return TargetWalk("device", walk)
 
 
 def view_angles_deg(vertices: torch.Tensor, normals: torch.Tensor,

@@ -49,6 +49,16 @@ class Mesh:
     n_hosts: int = 1
 
 
+def resolve_device(device) -> torch.device:
+    """``cuda`` or ``cpu``; raises when CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but torch.cuda is not available")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
 def make_mesh(device="cuda") -> Mesh:
     """The mesh of every rank of the default process group
     (:func:`~upsp_tpu_torch.parallel.launcher.initialize_distributed`);
@@ -60,11 +70,7 @@ def make_mesh(device="cuda") -> Mesh:
     each rank's host and card, picks the transport by the rule above and
     makes the exchange's group.
     """
-    device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda is not available")
+    device = resolve_device(device)
     if not dist.is_initialized():
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())

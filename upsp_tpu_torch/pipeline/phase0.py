@@ -1,37 +1,22 @@
 """Phase 0: one-time setup — model, BVH, camera cals, projections, patches.
 
-Port of ``upsp_tpu/pipeline/phase0.py``, with its two routes for the
-visibility rays (``run_phase0(walk=)``):
-
-- native: the rays are the native walk's over the flat BVH that
-  ``upsp_tpu_torch.native`` (built from ``cpp/``) builds, and the nodes its
-  rays missed without hitting anything away from them are rechecked with
-  the port's watertight test; the camera model and projections are host
-  torch/numpy (f64 projection), and the finished state is moved to
-  ``device``.  Where the rays are cast follows ``device``: on a CUDA
-  device K11 casts them (``ops/walk_kernels.py``; the flat BVH and the mesh
-  go to the card once, shared by the cameras) while the host projects, bit
-  for bit with the native library
-  (``projection.build_node_projection_card``); on the CPU the native
-  library casts them (``projection.build_node_projection_host``).  The
-  recheck and the assembly are the host's either way;
-- device: the BVH goes to ``device`` (``ops/raycast.bvh_to_device``) and
-  the projections, the walks, the weights and the skip mask are computed
-  there (``projection.build_node_projection``, f32 projection, as the JAX
-  package's device route); the host builds the grid, the BVH and the patch
-  clusters, as there.
-
-"auto" (the default) is the JAX package's rule: native when the library
-loads or builds, the device walk otherwise.  The route taken is logged.
+Port of ``upsp_tpu/pipeline/phase0.py``.  The visibility rays take the
+walk that ``ops/projection.py`` :class:`~upsp_tpu_torch.ops.projection.NodeWalk`
+chooses by the JAX package's rule: the native walk when the library
+(``upsp_tpu_torch.native``, built from ``cpp/``) loads or builds, its
+rays cast by K11 on a CUDA device and by the library on the CPU, its
+projections f64 on the host and the finished state moved to ``device``;
+else the device walk, the BVH, the projections, the weights and the skip
+mask on ``device`` (f32 projection, as the JAX package's device route).
+The host builds the grid, the BVH and the patch clusters either way.  The
+route taken is logged.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import importlib
 import logging
 import os
-import subprocess
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,22 +42,15 @@ from upsp_tpu_torch.ops.patching import (
 )
 from upsp_tpu_torch.ops.projection import (
     NodeProjection,
+    NodeWalk,
     adjust_projection_for_weights,
-    build_node_projection,
-    build_node_projection_card,
-    build_node_projection_host,
     identify_skipped_nodes,
+    target_walk,
 )
-from upsp_tpu_torch.ops.raycast import BVHArrays, bvh_intersect, bvh_to_device
-from upsp_tpu_torch.ops.walk_kernels import upload_scene
+from upsp_tpu_torch.ops.raycast import BVHArrays
 from upsp_tpu_torch.utils import timing
 
 log = logging.getLogger("upsp_tpu")
-
-_CPP_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "cpp",
-)
 
 
 @dataclasses.dataclass
@@ -124,38 +102,6 @@ class Phase0State:
         return len(self.cam_params)
 
 
-def native_library():
-    """``upsp_tpu_torch.native`` with its library loaded: builds ``cpp/`` once
-    with make when the shared library is missing, and raises naming it if
-    that fails."""
-    from upsp_tpu_torch import native
-
-    if native.available():
-        return native
-    log.info("native BVH library missing; building it with make -C %s", _CPP_DIR)
-    proc = subprocess.run(["make", "-C", _CPP_DIR], capture_output=True,
-                          text=True)
-    native = importlib.reload(native)
-    timing.count("kernel_builds")
-    if proc.returncode != 0 or not native.available():
-        raise RuntimeError(
-            f"the native BVH library {_CPP_DIR}/libupsp_native.so is missing "
-            f"and `make -C {_CPP_DIR}` did not build it:\n{proc.stdout}\n"
-            f"{proc.stderr}"
-        )
-    return native
-
-
-def native_or_none():
-    """:func:`native_library`, or None (the reason logged) when the library
-    cannot be built."""
-    try:
-        return native_library()
-    except RuntimeError as e:
-        log.warning("%s", e)
-        return None
-
-
 def _build_bvh(model: SurfaceModel, max_leaf: int):
     """The model's flat BVH, native when the library is loaded and numpy
     otherwise (as the JAX package builds it); SAH from 2M triangles."""
@@ -180,15 +126,14 @@ def visible_targets(
     in the JAX package, the rays take the native walk over ``flat_bvh``
     when it is given and the library loads, else ``bvh_dev``'s device walk
     (``max_leaf`` its leaf size; made from ``flat_bvh`` on the parameters'
-    device when None).  With neither, the flat BVH is built from the model
+    device when None), as ``ops/projection.py`` ``target_walk`` chooses.
+    With neither, the flat BVH is built from the model
     with ``max_leaf`` triangles a leaf, as :func:`run_phase0` builds it."""
     if not targets:
         return []
     if flat_bvh is None and bvh_dev is None:
         flat_bvh = _build_bvh(model, max_leaf)
-    lib = None if flat_bvh is None else native_or_none()
-    if lib is None and bvh_dev is None:
-        bvh_dev = bvh_to_device(flat_bvh, device=params.rvec.device)
+    walk = target_walk(flat_bvh, bvh_dev, params.rvec.device, max_leaf)
     H, W = image_hw
     xyz, _, _ = targets_as_arrays(targets)
     uv = project_points(params, torch.from_numpy(xyz)).numpy()
@@ -198,14 +143,9 @@ def visible_targets(
     dist = np.linalg.norm(d, axis=1)
     dirs = d / dist[:, None]
     origins = np.broadcast_to(center, xyz.shape).astype(np.float32)
-    if lib is not None:
-        t, _, hit = lib.bvh_intersect(flat_bvh, origins, dirs.astype(np.float32))
-    else:
-        dev = bvh_dev.leaf_v0.device
-        t, _, hit = bvh_intersect(bvh_dev, torch.from_numpy(origins).to(dev),
-                                  torch.from_numpy(dirs.astype(np.float32)).to(dev),
-                                  max_leaf=max_leaf)
-        t, hit = t.cpu().numpy(), hit.cpu().numpy()
+    t, _, hit = walk.intersect(torch.from_numpy(origins),
+                               torch.from_numpy(dirs.astype(np.float32)))
+    t, hit = t.cpu().numpy(), hit.cpu().numpy()
     occluded = hit & (t < dist - 1e-3)
     hit_pos = np.where(hit[:, None], center + dirs * t[:, None], xyz)
     normals = model.normals[model.nearest_node(hit_pos)]
@@ -302,29 +242,19 @@ def _apply_normals_file(model: SurfaceModel, path: str) -> None:
 def run_phase0(
     cfg: ProcessingConfig, first_frames: Sequence[np.ndarray],
     bit_depths: Optional[Sequence[int]] = None, device="cuda",
-    model: Optional[SurfaceModel] = None, max_leaf: int = 4, walk: str = "auto",
+    model: Optional[SurfaceModel] = None, max_leaf: int = 4,
     stage_times: Optional[dict] = None,
 ) -> Phase0State:
     """Build the phase-0 state from the config and per-camera first frames,
     its tensors on ``device`` (the card unless the caller asks for the
-    CPU).  ``walk``: "native", "device" or "auto" (the module docstring);
-    "native" raises when the library cannot be built, and casts its rays
-    with K11 when ``device`` is a CUDA device.  ``stage_times``,
-    when a dict, receives the walk's readings over all cameras, as its
-    spans and counters take them: ``phase0.walk`` and
-    ``phase0.walk_recheck`` (seconds) and ``phase0.walk_rechecked`` (the
-    nodes recast, a float; the device walk rechecks none)."""
+    CPU); the visibility rays take :class:`NodeWalk`'s walk (the module
+    docstring).  ``stage_times``, when a dict, receives the walk's
+    readings over all cameras, as its spans and counters take them:
+    ``phase0.walk`` and ``phase0.walk_recheck`` (seconds) and
+    ``phase0.walk_rechecked`` (the nodes recast, a float; the device walk
+    rechecks none)."""
     device = torch.device(device)
-    if walk not in ("auto", "native", "device"):
-        raise ValueError(f"walk must be auto|native|device, got {walk!r}")
-    if walk == "native":
-        native_library()
-    elif walk == "auto":
-        walk = "device" if native_or_none() is None else "native"
-    card = walk == "native" and device.type == "cuda"
-    log.warning("phase 0: visibility rays take the %s walk%s", walk,
-                f" on {device}" if walk == "device" else
-                f" (K11 on {device})" if card else "")
+    walker = NodeWalk(device, max_leaf)
     H, W = first_frames[0].shape
     image_hw = (H, W)
     bit_depths = bit_depths or [12] * len(first_frames)
@@ -343,21 +273,9 @@ def run_phase0(
         if cfg.normals:
             _apply_normals_file(model, cfg.normals)
         bvh = _build_bvh(model, max_leaf)
-        if walk == "device":
-            bvh_dev = bvh_to_device(bvh, device=device)
-            mesh = dict(
-                triangles=torch.from_numpy(np.asarray(model.triangles, np.int64)).to(device),
-                vertices=torch.from_numpy(np.asarray(model.vertices)).to(device),
-                normals=torch.from_numpy(np.asarray(model.normals)).to(device),
-                is_datanode=torch.from_numpy(np.asarray(model.is_datanode, bool)).to(device),
-            )
-        else:
-            bvh_dev = None
-            mesh = dict(triangles=model.triangles, vertices=model.vertices,
-                        normals=model.normals, is_datanode=model.is_datanode)
+        walker.load(bvh, model)
 
     walk_s, recheck_s, rechecked = 0.0, 0.0, 0
-    scene = None  # K11's copy of the BVH and the mesh (the first camera's walk)
     cam_params: List[CameraParams] = []
     raw_projs: List[NodeProjection] = []
     patch_ops: List[Optional[PatchOperator]] = []
@@ -368,33 +286,17 @@ def run_phase0(
                                     cal.dist_coeffs, dtype=torch.float32)
         cam_params.append(params)
         with timing.timed("phase0.walk") as clock:
-            if walk == "device":
-                raw_projs.append(build_node_projection(
-                    params, bvh_dev, oblique_angle_deg=cfg.oblique_angle, height=H,
-                    width=W, max_leaf=max_leaf, **mesh))
-            else:
-                if card and scene is None:
-                    scene = upload_scene(bvh, model.triangles, model.vertices,
-                                         model.normals, device)
-                if card:
-                    host = build_node_projection_card(
-                        params, scene, bvh, mesh["triangles"], mesh["vertices"],
-                        mesh["is_datanode"], oblique_angle_deg=cfg.oblique_angle,
-                        height=H, width=W)
-                else:
-                    host = build_node_projection_host(
-                        params, bvh, oblique_angle_deg=cfg.oblique_angle, height=H,
-                        width=W, **mesh)
-                raw_projs.append(host.projection)
-                recheck_s += host.recheck_s
-                rechecked += host.rechecked
+            walked = walker.project(params, cfg.oblique_angle, H, W)
+        raw_projs.append(walked.projection)
+        recheck_s += walked.recheck_s
+        rechecked += walked.rechecked
         walk_s += clock.seconds
         if cfg.target_patcher == "polynomial" and cam.targets:
             with timing.span("phase0.patches"):
                 op, diag = build_patcher_for_camera(
-                    cfg, params, bvh_dev, model, first_frames[c], cam.targets,
+                    cfg, params, walker.bvh_dev, model, first_frames[c], cam.targets,
                     image_hw, bit_depth=bit_depths[c], max_leaf=max_leaf,
-                    flat_bvh=None if walk == "device" else bvh,
+                    flat_bvh=walker.flat_bvh,
                 )
         else:
             op, diag = None, None
@@ -405,9 +307,8 @@ def run_phase0(
         stage_times.update({"phase0.walk": walk_s, "phase0.walk_recheck": recheck_s,
                             "phase0.walk_rechecked": float(rechecked)})
 
-    # the weights, the skip mask and the templates where the projections
-    # are: on the device walk's device, on the host for the native walk
-    where = device if walk == "device" else torch.device("cpu")
+    # the weights, the skip mask and the templates where the projections are
+    where = walker.where
     with timing.span("phase0.weights"):
         projs = adjust_projection_for_weights(
             raw_projs, [cam_center(p).to(where) for p in cam_params],
@@ -436,5 +337,5 @@ def run_phase0(
             config=cfg,
             patch_diags=patch_diags,
             device=device,
-            bvh_dev=bvh_dev,
+            bvh_dev=walker.bvh_dev,
         )

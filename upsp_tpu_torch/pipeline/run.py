@@ -63,6 +63,7 @@ from upsp_tpu_torch.pipeline.phase2 import (
 )
 from upsp_tpu_torch.ops.polyfit import make_detrender
 from upsp_tpu_torch.parallel import mesh as M
+from upsp_tpu_torch.parallel.mesh import resolve_device
 from upsp_tpu_torch.parallel.launcher import chunk_plan
 from upsp_tpu_torch.utils import timing
 from upsp_tpu_torch.utils.timing import StageClock
@@ -78,16 +79,6 @@ class DatapointOutputs:
     coverage: Optional[np.ndarray]
     phase2: Optional[Phase2Outputs]
     n_frames: int
-
-
-def resolve_device(device) -> torch.device:
-    """``cuda`` or ``cpu``; raises when CUDA is asked for and absent."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but torch.cuda is not available")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def packed_ingest_config(readers, frames_array, device_unpack):
@@ -630,8 +621,21 @@ def run_datapoint_streaming(
     Returns no (F, N) array: ``intensity`` and the phase-2
     ``pressure_transpose`` are None.
 
-    ``mesh``: as in :func:`run_datapoint`; on two or more ranks the run
-    goes on in :func:`_streaming_multiprocess`.
+    ``mesh``: as in :func:`run_datapoint`; one device runs as a mesh of
+    one rank.  Each rank writes its rows of each chunk into ``intensity``
+    at their offsets and sums its f64 partials; the sums are summed over
+    the ranks and frame 0's row broadcast from rank 0.  Once every rank's
+    rows are on disk, each rank transposes its node columns of
+    ``intensity`` into its rows of ``intensity_transpose``
+    (:func:`upsp_tpu_torch.native.transpose_f32`), so the (F, N) matrix is
+    never whole on any device or host, and the disk is the frames->nodes
+    exchange, as in the reference's disk-intermediate mode
+    (upsp_tpu/pipeline/run.py:846-1092).  Phase 2 converts each rank's
+    node slice by blocks of ``node_block`` and writes it at its offsets in
+    ``pressure_transpose``; rank 0 writes its blocks to the ``.h5`` file
+    as it converts them, then the other ranks' from
+    ``pressure_transpose``, and the per-node files.  The output directory
+    is shared by the ranks.
     """
     from upsp_tpu_torch import native
 
@@ -646,10 +650,12 @@ def run_datapoint_streaming(
         )
     device = resolve_device(device)
     mesh = _resolve_mesh(mesh, device)
-    if mesh is not None:
-        device = mesh.device
-    clock = _StreamClock(_stage_clock(device, stage_times, mesh),
+    clock = _StreamClock(_stage_clock(device if mesh is None else mesh.device,
+                                      stage_times, mesh),
                          StageClock() if stage_clock is None else stage_clock)
+    if mesh is None:
+        mesh = M.Mesh(0, 1, device, None, "none")
+    device = mesh.device
     with timing.span("phase0.inputs"):
         frames_array, readers, n_frames, start0, first_frames, bit_depths = (
             _open_inputs(cfg, frames_array))
@@ -668,18 +674,19 @@ def run_datapoint_streaming(
                                       **packed_kw)
         clock.split("phase1_setup")
         ffs = FlatFileSet(cfg.out_dir)
-        chunks = _chunk_iter(frames_array, readers, n_frames, start0,
-                             frames_per_chunk, use_packed, device, mesh)
-        if mesh is not None:
-            return _streaming_multiprocess(cfg, state, camset, chunks, fn,
-                                           n_frames, node_block, write_hdf5,
-                                           ffs, mesh, clock)
+        if mesh.rank == 0:
+            for name in ("intensity", "intensity_transpose", "pressure_transpose"):
+                _ensure_file_size(ffs.path(name), n_nodes * n_frames * 4)
+        M.barrier(mesh)  # every file sized before any rank writes
         sum_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
         sumsq_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
-        ratio0_src = None
+        ratio0_src = torch.zeros(n_nodes, dtype=torch.float32, device=device)
         host = _HostBuffer()
         with native.AsyncWriter(ffs.path("intensity")) as writer:
-            for c, chunk in chunks:
+            for c, chunk in _chunk_iter(frames_array, readers, n_frames, start0,
+                                        frames_per_chunk, use_packed, device, mesh):
+                if chunk is None:
+                    continue
                 timing.count("frames.phase1", c.local_valid)
                 with timing.span("phase1.program"):
                     out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
@@ -688,11 +695,11 @@ def run_datapoint_streaming(
                     rows = host.fetch(out)
                 _count_fetch(out)
                 with timing.span("phase1.store"):
-                    writer.submit(c.start * n_nodes * 4, rows)
+                    writer.submit(c.local_start * n_nodes * 4, rows)
                 with timing.span("phase1.program"):
                     sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
                     sumsq_i += out.double().square_().sum(dim=0)
-                    if c.start == 0:
+                    if c.local_start == 0:
                         ratio0_src = out[0].clone()
                 if c.start % (frames_per_chunk * 8) == 0:
                     log.info("phase1: processed frame %d / %d", c.start, n_frames)
@@ -700,57 +707,68 @@ def run_datapoint_streaming(
         _close(readers)
     del fn  # phase 1's device state
     sol_avg_t, sol_avg, sol_rms, ratio0 = _frame_statistics(
-        sum_i, sumsq_i, ratio0_src, n_frames)
+        M.all_reduce(mesh, sum_i), M.all_reduce(mesh, sumsq_i),
+        M.broadcast(mesh, ratio0_src, src=0), n_frames)
     cov_t = proj_coverage(state.projections, *state.image_hw)[state.superseded_by]
     cov = cov_t.cpu().numpy()
-    clock.point("phase1")
+    clock.point("phase1")  # every rank's rows of intensity are on disk
 
-    native.transpose_f32(ffs.path("intensity"), ffs.path("intensity_transpose"),
-                         n_frames, n_nodes)
+    n0, n1 = (min(n, n_nodes) for n in M.node_sharding(mesh, n_nodes))
+    tpath = ffs.path("intensity_transpose")
+    native.transpose_f32(ffs.path("intensity"), tpath, n_frames, n_nodes,
+                         columns=(n0, n1))
     clock.point("disk_transpose")
 
     cond, const, det, steady, mtemp = _phase2_inputs(cfg, state, n_frames, device)
     steady_t = torch.as_tensor(steady, device=device)
     mtemp_t = torch.as_tensor(mtemp, device=device)
     steady_out = _steady_for_output(steady)
-    h5w = _open_hdf5(cfg, state, n_frames, cond, camset) if write_hdf5 else None
-    rms_all = np.empty(n_nodes, np.float32)
-    avg_all = np.empty(n_nodes, np.float32)
-    gain_all = np.empty(n_nodes, np.float32)
+    local = {k: torch.full((M.padded(n_nodes, mesh.world) // mesh.world,), float("nan"),
+                           device=device) for k in ("rms", "avg", "gain")}
+    h5w = (_open_hdf5(cfg, state, n_frames, cond, camset)
+           if write_hdf5 and mesh.rank == 0 else None)
     try:
         with native.AsyncWriter(ffs.path("pressure_transpose")) as pwriter:
-            for n0 in range(0, n_nodes, node_block):
-                nw = min(node_block, n_nodes - n0)
-                block = read_flat(
-                    ffs.path("intensity_transpose"), count=nw * n_frames,
-                    offset_values=n0 * n_frames,
-                ).reshape(nw, n_frames)
-                nodes = slice(n0, n0 + nw)
+            for b0 in range(n0, n1, node_block):
+                nw = min(node_block, n1 - b0)
+                block = read_flat(tpath, count=nw * n_frames,
+                                  offset_values=b0 * n_frames).reshape(nw, n_frames)
+                nodes = slice(b0, b0 + nw)
                 out2 = phase2_convert(
                     torch.from_numpy(block).to(device), sol_avg_t[nodes],
                     cov_t[nodes], steady_t[nodes], mtemp_t[nodes], const, det,
                 )
                 press = host.fetch(out2.pressure_transpose)
-                pwriter.submit(n0 * n_frames * 4, press)
+                pwriter.submit(b0 * n_frames * 4, press)
                 if h5w is not None:
-                    h5w.write_frames_block(press, node_start=n0)
-                rms_all[nodes] = out2.rms.cpu().numpy()
-                avg_all[nodes] = out2.avg.cpu().numpy()
-                gain_all[nodes] = out2.gain.cpu().numpy()
+                    h5w.write_frames_block(press, node_start=b0)
+                for k in local:
+                    local[k][b0 - n0 : b0 - n0 + nw] = getattr(out2, k)
+        # rank-major node slices: the gather is the global node order
+        rms_all, avg_all, gain_all = (
+            M.fetch_global(mesh, local[k], "cpu")[:n_nodes].numpy()
+            for k in ("rms", "avg", "gain"))
+        M.barrier(mesh)  # every rank's pressure_transpose is on disk
         if h5w is not None:
+            for b0 in range(n1, n_nodes, node_block):  # the other ranks' nodes
+                nw = min(node_block, n_nodes - b0)
+                h5w.write_frames_block(read_flat(
+                    ffs.path("pressure_transpose"), count=nw * n_frames,
+                    offset_values=b0 * n_frames).reshape(nw, n_frames), node_start=b0)
             _write_node_datasets(h5w, rms_all, avg_all, cov, steady_out, mtemp)
     finally:
         if h5w is not None:
             h5w.close()
     clock.point("phase2")
 
-    ffs.write_standard_outputs(
-        state.model,
-        {"intensity_avg": sol_avg, "intensity_rms": sol_rms,
-         "intensity_ratio_0": ratio0, "coverage": cov},
-        {"avg": avg_all, "rms": rms_all, "gain": gain_all,
-         "steady_state": steady_out, "model_temp": mtemp},
-    )
+    if mesh.rank == 0:
+        ffs.write_standard_outputs(
+            state.model,
+            {"intensity_avg": sol_avg, "intensity_rms": sol_rms,
+             "intensity_ratio_0": ratio0, "coverage": cov},
+            {"avg": avg_all, "rms": rms_all, "gain": gain_all,
+             "steady_state": steady_out, "model_temp": mtemp},
+        )
     clock.point("outputs")
     return DatapointOutputs(
         state=state, intensity=None, intensity_avg=sol_avg,
@@ -798,124 +816,6 @@ def _ensure_file_size(path: str, nbytes: int) -> None:
             os.ftruncate(fd, nbytes)
     finally:
         os.close(fd)
-
-
-def _streaming_multiprocess(cfg, state, camset, chunks, fn, n_frames,
-                            node_block, write_hdf5, ffs, mesh, clock
-                            ) -> DatapointOutputs:
-    """Out of core over the ranks of ``mesh`` (upsp_tpu/pipeline/run.py:
-    846-1092).  Each rank writes its rows of each chunk into ``intensity``
-    at their offsets and sums its f64 partials; the sums are summed over
-    the ranks and frame 0's row broadcast from rank 0.  Once every rank's
-    rows are on disk, each rank transposes its node columns of
-    ``intensity`` into its rows of ``intensity_transpose`` (whole
-    destination rows, :func:`upsp_tpu_torch.native.transpose_f32_numpy`),
-    so the (F, N) matrix is never whole on any device or host, and the
-    disk is the frames->nodes exchange, as in the reference's
-    disk-intermediate mode.  Phase 2 converts each rank's node slice by
-    blocks of ``node_block`` and writes it at its offsets in
-    ``pressure_transpose``; rank 0 writes the ``.h5`` file from it and the
-    per-node files.  The output directory is shared by the ranks."""
-    from upsp_tpu_torch import native
-
-    device = mesh.device
-    n_nodes = state.n_nodes
-    n_pad = M.padded(n_nodes, mesh.world)
-    n0, n1 = M.node_sharding(mesh, n_nodes)
-    n1 = min(n1, n_nodes)
-    if mesh.rank == 0:
-        for name in ("intensity", "intensity_transpose", "pressure_transpose"):
-            _ensure_file_size(ffs.path(name), n_nodes * n_frames * 4)
-    M.barrier(mesh)  # every file sized before any rank writes
-    sum_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
-    sumsq_i = torch.zeros(n_nodes, dtype=torch.float64, device=device)
-    ratio0_src = torch.zeros(n_nodes, dtype=torch.float32, device=device)
-    host = _HostBuffer()
-    with native.AsyncWriter(ffs.path("intensity")) as writer:
-        for c, chunk in chunks:
-            if chunk is None:
-                continue
-            timing.count("frames.phase1", c.local_valid)
-            with timing.span("phase1.program"):
-                out = _run_block(fn, chunk, n_nodes, state.n_cameras, device,
-                                 with_telemetry=False)
-            with timing.span("phase1.fetch"):
-                rows = host.fetch(out)
-            _count_fetch(out)
-            with timing.span("phase1.store"):
-                writer.submit(c.local_start * n_nodes * 4, rows)
-            with timing.span("phase1.program"):
-                sum_i += torch.nansum(out, dim=0, dtype=torch.float64)
-                sumsq_i += out.double().square_().sum(dim=0)
-                if c.local_start == 0:
-                    ratio0_src = out[0].clone()
-    clock.point("phase1")  # every rank's rows of intensity are on disk
-    sum_i = M.all_reduce(mesh, sum_i)
-    sumsq_i = M.all_reduce(mesh, sumsq_i)
-    ratio0_src = M.broadcast(mesh, ratio0_src, src=0)
-    sol_avg_t, sol_avg, sol_rms, ratio0 = _frame_statistics(
-        sum_i, sumsq_i, ratio0_src, n_frames)
-    cov_t = proj_coverage(state.projections, *state.image_hw)[state.superseded_by]
-    cov = cov_t.cpu().numpy()
-    tpath = ffs.path("intensity_transpose")
-    if n1 > n0:
-        native.transpose_f32_numpy(ffs.path("intensity"), tpath, n_frames,
-                                   n_nodes, columns=(n0, n1))
-    clock.point("disk_transpose")
-
-    cond, const, det, steady, mtemp = _phase2_inputs(cfg, state, n_frames, device)
-    steady_t = torch.as_tensor(steady, device=device)
-    mtemp_t = torch.as_tensor(mtemp, device=device)
-    lr_n = n_pad // mesh.world
-    local = {k: torch.full((lr_n,), float("nan"), device=device)
-             for k in ("rms", "avg", "gain")}
-    with native.AsyncWriter(ffs.path("pressure_transpose")) as pwriter:
-        for b0 in range(n0, n1, node_block):
-            nw = min(node_block, n1 - b0)
-            block = read_flat(tpath, count=nw * n_frames,
-                              offset_values=b0 * n_frames).reshape(nw, n_frames)
-            nodes = slice(b0, b0 + nw)
-            out2 = phase2_convert(
-                torch.from_numpy(block).to(device), sol_avg_t[nodes],
-                cov_t[nodes], steady_t[nodes], mtemp_t[nodes], const, det,
-            )
-            pwriter.submit(b0 * n_frames * 4, host.fetch(out2.pressure_transpose))
-            for k in local:
-                local[k][b0 - n0 : b0 - n0 + nw] = getattr(out2, k)
-    # rank-major node slices: the gather is the global node order
-    rms_all, avg_all, gain_all = (
-        M.fetch_global(mesh, local[k], "cpu")[:n_nodes].numpy()
-        for k in ("rms", "avg", "gain"))
-    steady_out = _steady_for_output(steady)
-    clock.point("phase2")  # every rank's pressure_transpose is on disk
-
-    if mesh.rank == 0:
-        h5w = _open_hdf5(cfg, state, n_frames, cond, camset) if write_hdf5 else None
-        if h5w is not None:
-            with h5w:
-                for b0 in range(0, n_nodes, node_block):
-                    nw = min(node_block, n_nodes - b0)
-                    h5w.write_frames_block(read_flat(
-                        ffs.path("pressure_transpose"), count=nw * n_frames,
-                        offset_values=b0 * n_frames).reshape(nw, n_frames),
-                        node_start=b0)
-                _write_node_datasets(h5w, rms_all, avg_all, cov, steady_out, mtemp)
-        ffs.write_standard_outputs(
-            state.model,
-            {"intensity_avg": sol_avg, "intensity_rms": sol_rms,
-             "intensity_ratio_0": ratio0, "coverage": cov},
-            {"avg": avg_all, "rms": rms_all, "gain": gain_all,
-             "steady_state": steady_out, "model_temp": mtemp},
-        )
-    clock.point("outputs")
-    return DatapointOutputs(
-        state=state, intensity=None, intensity_avg=sol_avg,
-        intensity_rms=sol_rms, coverage=cov,
-        phase2=Phase2Outputs(pressure_transpose=None, rms=rms_all,
-                             avg=avg_all, gain=gain_all, steady_state=steady,
-                             model_temp=mtemp),
-        n_frames=n_frames,
-    )
 
 
 def _steady_for_output(steady: np.ndarray) -> np.ndarray:

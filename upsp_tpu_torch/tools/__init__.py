@@ -7,5 +7,5 @@ registration split), ``bench_endurance`` (out of core past device
 memory), ``batch_stages`` (which stage depends on the frame batch),
 ``bench_components`` (device ms a frame of each phase-1 op) and
 ``bench_hbm`` (the device-memory rate of a pass); ``benchlib`` times
-them.  ``k9_sweep.py`` runs as a script.
+them.
 """
