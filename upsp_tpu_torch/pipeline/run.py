@@ -3,9 +3,9 @@
 Port of ``upsp_tpu/pipeline/run.py``:
 
 - ``run_datapoint`` (:385-569), in memory: open the videos, phase 0 once,
-  phase 1 per frame chunk, f64 frame statistics on the host, phase 2 on
-  the device, then the 15 flat files, the registration telemetry and
-  ``output.h5``;
+  phase 1 per frame chunk, its rows kept on the device, the f64 frame
+  statistics and phase 2 there, then the 15 flat files, the registration
+  telemetry and ``output.h5``;
 - ``run_datapoint_streaming`` (:572-833), out of core: phase-1 chunks
   stream to the ``intensity`` flat file while f64 per-node sums accumulate
   on the device, the file is transposed on disk, and phase 2 converts node
@@ -241,7 +241,8 @@ def _camera_settings(readers, cfg, state) -> Dict:
 class _HostBuffer:
     """One reused host buffer that device results are copied into:
     page-locked, grown when a larger result comes.  A CPU tensor is
-    returned as it is.  ``fetch``'s array is valid until the next call."""
+    returned as it is.  ``fetch``'s array is valid until the next call,
+    so a new buffer's one fetch gives an array the caller keeps."""
 
     def __init__(self):
         self.buffer = None
@@ -365,6 +366,59 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+class _DeviceRows:
+    """One device's (F, N) intensity: each chunk's (rows, N) intensities
+    are copied into the node-major (N, F) matrix ``it_t`` that phase 2
+    reads on the device and, on a card, on a side stream into a
+    page-locked (F, N) host tensor that the caller will own; the (rows, C,
+    5) telemetry stays on the device until the loop ends.  Nothing in
+    :meth:`add` waits for the card.  ``resume`` starts from the (F, N)
+    host matrix of the intensity file instead (:meth:`from_host`)."""
+
+    def __init__(self, n_frames: int, n_nodes: int, n_cams: int,
+                 device: torch.device, host: Optional[np.ndarray] = None):
+        on_card = device.type == "cuda"
+        self.it_t = torch.empty((n_nodes, n_frames), device=device)
+        self.tele = torch.empty((n_frames, n_cams, 5), device=device)
+        self.host = (torch.empty((n_frames, n_nodes), pin_memory=on_card)
+                     if host is None else torch.from_numpy(host))
+        self.stream = torch.cuda.Stream(device) if on_card and host is None else None
+
+    @classmethod
+    def from_host(cls, intensity: np.ndarray, device: torch.device) -> "_DeviceRows":
+        """The rows of an (F, N) host matrix, which the caller then owns."""
+        rows = cls(*intensity.shape, 0, device, host=intensity)
+        if device.type != "cpu":
+            timing.count("bytes.h2d.pageable", intensity.nbytes)
+        rows.it_t.copy_(rows.host.to(device).T)
+        return rows
+
+    def add(self, start: int, out: torch.Tensor, tele: torch.Tensor) -> None:
+        """Frames ``start:start + len(out)``: rows ``out``, telemetry ``tele``."""
+        rows = slice(start, start + out.shape[0])
+        self.it_t[:, rows] = out.T
+        self.tele[rows] = tele
+        if self.stream is None:
+            self.host[rows] = out
+            return
+        self.stream.wait_stream(torch.cuda.current_stream(out.device))
+        with torch.cuda.stream(self.stream):
+            self.host[rows].copy_(out, non_blocking=True)
+        out.record_stream(self.stream)  # not reused before its copy is done
+        timing.count("bytes.d2h.pinned", out.numel() * out.element_size())
+
+    def telemetry(self) -> np.ndarray:
+        """The (F, C, 5) telemetry on the host: one blocking copy."""
+        _count_fetch(self.tele)
+        return _to_host(self.tele)
+
+    def intensity(self) -> np.ndarray:
+        """The (F, N) host copy, once every row has reached it."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        return self.host.numpy()
+
+
 def _gather_chunk(mesh, t: torch.Tensor, c) -> Optional[np.ndarray]:
     """The chunk's valid rows from every rank's block (this rank's ``t``),
     on rank 0's host; None on the other ranks."""
@@ -435,6 +489,11 @@ def run_datapoint(
     (:func:`~upsp_tpu_torch.pipeline.phase0.run_phase0`: ``phase0.walk``,
     ``phase0.walk_recheck``, ``phase0.walk_rechecked``).
 
+    One device: phase 1's rows stay on the device (:class:`_DeviceRows`),
+    and phase 2 takes its statistics and delta-Cp from there
+    (:func:`_finish_on_device`); ``resume`` uploads the intensity file's
+    rows and runs the same phase 2.
+
     ``mesh``: None (one device), "auto" or a
     :class:`~upsp_tpu_torch.parallel.mesh.Mesh` (:func:`_resolve_mesh`).
     On a mesh of two or more ranks every rank calls this: it runs on the
@@ -489,11 +548,11 @@ def run_datapoint(
             log.info("resume: reusing existing intensity file, skipping phase 1")
             _close(readers)
             if mesh is None:
-                intensity = read_flat(ipath).reshape(n_frames, n_nodes)
+                rows = _DeviceRows.from_host(
+                    read_flat(ipath).reshape(n_frames, n_nodes), device)
                 clock.point("phase1")
-                return _finish_from_intensity(cfg, state, intensity, camset=camset,
-                                              clock=clock,
-                                              write_outputs=write_outputs)
+                return _finish_on_device(cfg, state, rows, camset=camset,
+                                         clock=clock, write_outputs=write_outputs)
             intensity = (read_flat(ipath).reshape(n_frames, n_nodes)
                          if rank0 else None)
             it_local = _node_block_from_file(mesh, ipath, n_frames, n_nodes)
@@ -507,7 +566,10 @@ def run_datapoint(
                                   compute_dtype=compute_dtype, warm_start=warm_start,
                                   frame_batch=frame_batch, **packed_kw)
     clock.split("phase1_setup")  # part of phase 1: parameters, templates
-    intensity = np.empty((n_frames, n_nodes), np.float32) if rank0 else None
+    rows_kept = (_DeviceRows(n_frames, n_nodes, state.n_cameras, device)
+                 if mesh is None else None)
+    intensity = (np.empty((n_frames, n_nodes), np.float32)
+                 if rank0 and mesh is not None else None)
     reg_telemetry = it_local = None
     if mesh is not None:
         log.info("phase1: frame axis over %d ranks, this rank's block of "
@@ -521,17 +583,15 @@ def run_datapoint(
         with timing.span("phase1.program"):
             out, tele = _run_block(fn, chunk, n_nodes, state.n_cameras, device)
         if mesh is None:
-            with timing.span("phase1.fetch"):
-                rows, tele_np = _to_host(out), _to_host(tele)
-            _count_fetch(out)
-            _count_fetch(tele)
+            with timing.span("phase1.store"):
+                rows_kept.add(c.start, out, tele)
         else:
             with timing.span("phase1.exchange"):
                 _exchange_chunk(mesh, out, c, n_pad, it_local)
             egress += 4 * c.local_rows * n_pad * (mesh.world - 1) // mesh.world
             with timing.span("phase1.fetch"):
                 rows, tele_np = _gather_chunk(mesh, out, c), _gather_chunk(mesh, tele, c)
-        if rank0:
+        if rank0 and mesh is not None:
             with timing.span("phase1.store"):
                 if reg_telemetry is None:
                     reg_telemetry = np.empty((n_frames,) + tele_np.shape[1:],
@@ -552,6 +612,9 @@ def run_datapoint(
         log.info("phase1: rank %d decoded %d frames across %d cameras",
                  0 if mesh is None else mesh.rank, decoded, len(readers))
     _close(readers)
+    if mesh is None:
+        with timing.span("phase1.fetch"):
+            reg_telemetry = rows_kept.telemetry()
 
     if registration_telemetry and reg_telemetry is not None:
         rho, conv = reg_telemetry[..., 0], reg_telemetry[..., 1]
@@ -572,8 +635,8 @@ def run_datapoint(
     if mesh is not None:
         return _finish_sharded(cfg, state, it_local, intensity, camset, clock,
                                write_outputs, mesh)
-    return _finish_from_intensity(cfg, state, intensity, camset=camset,
-                                  clock=clock, write_outputs=write_outputs)
+    return _finish_on_device(cfg, state, rows_kept, camset=camset, clock=clock,
+                             write_outputs=write_outputs)
 
 
 @timing.datapoint
@@ -824,46 +887,21 @@ def _steady_for_output(steady: np.ndarray) -> np.ndarray:
     return np.where(s > 3.0, np.nan, s)
 
 
-def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
-                           clock=None, write_outputs=True) -> DatapointOutputs:
-    """Statistics + coverage + phase 2 + outputs, from a (F, N) intensity."""
-    n_frames = intensity.shape[0]
-    with timing.span("phase2.host_stats"):
-        with np.errstate(invalid="ignore"):
-            # f64 accumulation of both moments (psp_process.cpp:1725-1730)
-            sol_avg = intensity.mean(axis=0, dtype=np.float64).astype(np.float32)
-            sol_rms = np.sqrt(
-                np.einsum("fn,fn->n", intensity, intensity, dtype=np.float64)
-                / n_frames
-            ).astype(np.float32)
-        with np.errstate(invalid="ignore", divide="ignore"):
-            ratio0 = sol_avg / intensity[0] - 1.0
-    with timing.span("phase2.coverage"):
-        cov_t = proj_coverage(state.projections, *state.image_hw)
-        cov = _to_host(cov_t)[_to_host(state.superseded_by)]
-
-    phase2 = None
+def _phase2_conditions(cfg):
+    """(tunnel conditions, paint calibration) of phase 2, or None (with a
+    warning) where the deck lacks the wtd file or the paint calibration."""
     if not (cfg.sds and cfg.paint_cal):
         log.warning("phase 2 skipped: missing %s — intensity outputs only",
                     "sds (wtd)" if not cfg.sds else "paint_cal")
-    else:
-        cond = read_wtd(cfg.sds)
-        cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
-        pcal = PaintCalibration.read(cfg.paint_cal)
-        dev = state.device
-        with timing.span("phase2.upload"):
-            inputs = [np.ascontiguousarray(intensity.T), sol_avg, cov]
-            if dev.type != "cpu":
-                timing.count("bytes.h2d.pageable", sum(a.nbytes for a in inputs))
-            inputs = [torch.as_tensor(a, device=dev) for a in inputs]
-        with timing.span("phase2.device"):
-            phase2 = run_phase2(cfg, *inputs, cond, pcal, model=state.model)
-        with timing.span("phase2.download"):
-            phase2 = Phase2Outputs(*(
-                None if v is None else _to_host(v) for v in phase2
-            ))
-    if clock is not None:
-        clock.point("phase2")
+        return None
+    cond = read_wtd(cfg.sds)
+    cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
+    return cond, PaintCalibration.read(cfg.paint_cal)
+
+
+def _finish_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov, phase2,
+                    camset, clock, write_outputs) -> DatapointOutputs:
+    """The files and the whole datapoint's outputs, after phase 2."""
     if write_outputs and cfg.out_dir:
         _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
                        phase2, camset)
@@ -871,8 +909,46 @@ def _finish_from_intensity(cfg, state, intensity: np.ndarray, camset=None,
         clock.point("outputs")
     return DatapointOutputs(
         state=state, intensity=intensity, intensity_avg=sol_avg,
-        intensity_rms=sol_rms, coverage=cov, phase2=phase2, n_frames=n_frames,
+        intensity_rms=sol_rms, coverage=cov, phase2=phase2,
+        n_frames=intensity.shape[0],
     )
+
+
+def _finish_on_device(cfg, state, rows: _DeviceRows, camset=None, clock=None,
+                      write_outputs=True) -> DatapointOutputs:
+    """Statistics + coverage + phase 2 + outputs, from one device's rows
+    (:class:`_DeviceRows`): the f64 statistics of its node-major matrix
+    there (:func:`_node_statistics`, as on a mesh; NaN where a frame is
+    NaN) and phase 2 on it as it is.  The host gets the per-node vectors,
+    the (F, N) intensity and, from a card, the (N, F) delta-Cp through
+    page-locked memory, all in arrays the caller owns."""
+    it_t = rows.it_t
+    with timing.span("phase2.stats"):
+        avg_t, rms_t = _node_statistics(it_t)
+        ratio0_t = avg_t / it_t[:, 0] - 1.0
+    with timing.span("phase2.coverage"):
+        cov_t = proj_coverage(state.projections, *state.image_hw)[state.superseded_by]
+
+    phase2 = None
+    conditions = _phase2_conditions(cfg)
+    if conditions is not None:
+        with timing.span("phase2.device"):
+            phase2 = run_phase2(cfg, it_t, avg_t, cov_t, *conditions,
+                                model=state.model)
+    with timing.span("phase2.download"):
+        intensity = rows.intensity()
+        sol_avg, sol_rms, ratio0, cov = (
+            _to_host(t) for t in (avg_t, rms_t, ratio0_t, cov_t))
+        if phase2 is not None:
+            phase2 = Phase2Outputs(*(
+                None if v is None else
+                _HostBuffer().fetch(v) if v.dim() == 2 else _to_host(v)
+                for v in phase2
+            ))
+    if clock is not None:
+        clock.point("phase2")
+    return _finish_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
+                           phase2, camset, clock, write_outputs)
 
 
 def _node_block_from_file(mesh, path: str, n_frames: int, n_nodes: int
@@ -920,16 +996,11 @@ def _finish_sharded(cfg, state, it_local: torch.Tensor,
     with timing.span("phase2.download"):
         sol_avg, sol_rms = (M.gather(mesh, t, "cpu") for t in (avg_loc, rms_loc))
     phase2 = None
-    if not (cfg.sds and cfg.paint_cal):
-        log.warning("phase 2 skipped: missing %s — intensity outputs only",
-                    "sds (wtd)" if not cfg.sds else "paint_cal")
-    else:
-        cond = read_wtd(cfg.sds)
-        cond.test_id, cond.run, cond.seq = cfg.test_id, cfg.run, cfg.sequence
+    conditions = _phase2_conditions(cfg)
+    if conditions is not None:
         with timing.span("phase2.device"):
-            phase2 = run_phase2_sharded(cfg, it_local, avg_loc, cov, cond,
-                                        PaintCalibration.read(cfg.paint_cal), mesh,
-                                        model=state.model)
+            phase2 = run_phase2_sharded(cfg, it_local, avg_loc, cov, *conditions,
+                                        mesh, model=state.model)
     clock.point("phase2")
     if not rank0:
         clock.point("outputs")
@@ -941,14 +1012,8 @@ def _finish_sharded(cfg, state, it_local: torch.Tensor,
         with timing.span("phase2.download"):
             phase2 = Phase2Outputs(*(None if v is None else _to_host(v)
                                      for v in phase2))
-    if write_outputs and cfg.out_dir:
-        _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
-                       phase2, camset)
-    clock.point("outputs")
-    return DatapointOutputs(
-        state=state, intensity=intensity, intensity_avg=sol_avg,
-        intensity_rms=sol_rms, coverage=cov, phase2=phase2, n_frames=n_frames,
-    )
+    return _finish_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
+                           phase2, camset, clock, write_outputs)
 
 
 def _write_outputs(cfg, state, intensity, sol_avg, sol_rms, ratio0, cov,
